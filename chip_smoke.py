@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py            # needs one card
 
@@ -16,7 +17,25 @@
    pool must be leak-free, and the K6 launch count must equal the steps
    times the layers;
 5. run the one-shot generator (K5) at B=4 with a 512-token prompt, with
-   the same teacher-forced check.
+   the same teacher-forced check;
+6. hold the flash kernels K1 (forward), K2 (dQ) and K3 (dK/dV) against
+   their plain versions at B=8, H=12, hd=64: S=1024 bf16 causal and not,
+   a ragged S=1000 and an f32 case; time kernel, plain version, bound and
+   one ``scaled_dot_product_attention`` forward (K1) and backward (K2 and
+   K3 together; captured with its forward, less the forward) as
+   yardsticks; check that the backward kernels are bitwise repeatable and
+   that the public ``flash_attention`` at S=1000 launches each kernel
+   with no fallback;
+7. train ``gpt2_124m`` (bf16 compute, f32 parameters from ``--seed``,
+   B=8, S=1024, ``attn_impl="auto"`` -> flash, fused CE, Adam) through
+   ``DataParallel().make_train_step`` and ``TrainLoop`` for 20 steps on one
+   repeated batch: the first loss must sit near ln(50304), the loss must
+   fall, each of K1-K3 must launch 12 times a step with no fallback; one
+   step's loss and gradients with flash must agree with the dense
+   attention path, two runs of one step must give bitwise-equal
+   gradients, and one step under ``bf16_remat`` must launch K1 24 times;
+   one more step, with CUDA events around each kernel call, gives the
+   flash kernels' share of a step.
 
 Exits non-zero on any failure, and when no CUDA card is present. The
 last line of stdout is ``{"ok": true, "device": {...}}``.
@@ -25,6 +44,7 @@ last line of stdout is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -35,15 +55,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_tensorflow_guide_tpu_torch.core import precision
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
     make_generate_fn,
 )
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     Transformer,
     gpt2_124m,
+    make_lm_loss_fn,
 )
 from distributed_tensorflow_guide_tpu_torch.ops import _build
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
+from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
+from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
+    fused_next_token_loss,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+    DataParallel,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
+    value_and_grad,
+)
+from distributed_tensorflow_guide_tpu_torch.train.hooks import (
+    BaseHook,
+    StopAtStepHook,
+)
+from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
+from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
 from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     Request,
     ServeEngine,
@@ -51,10 +89,14 @@ from distributed_tensorflow_guide_tpu_torch.serve.engine import (
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_S = 989e12  # dense bf16 tensor-core peak (data sheet)
+F32_FLOPS_S = 67e12  # float32 outside the tensor cores (data sheet)
 L2_BYTES = 50 * 2**20
 # bf16 keeps 8 significant bits: two roundings of f32 results that differ
 # in their last bits can land one bf16 step apart (<= 2**-7 relative)
 BF16_ATOL = BF16_RTOL = 1e-2
+# float32 flash outputs: the kernel sums up to 1024 products per output in
+# another order than the plain version (measured gaps reach 1e-5 on dV)
+F32_TOL = 1e-4
 # teacher-forced check: the emitted token's logit may sit this far below
 # the best one. bf16 sums run in another order at another batch width, so
 # near-ties can flip; a token from a broken path sits ~3 logit std
@@ -62,6 +104,20 @@ BF16_ATOL = BF16_RTOL = 1e-2
 LOGIT_MARGIN = 0.25
 K5_REPLACES = "distributed_tensorflow_guide_tpu/ops/decode_attention.py:176"
 K6_REPLACES = "distributed_tensorflow_guide_tpu/ops/decode_attention.py:430"
+FLASH_REPLACES = {
+    "flash_fwd": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:137",
+    "flash_dq": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:321",
+    "flash_dkv": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:360",
+}
+LN_VOCAB = math.log(50304)
+# training checks: the first loss of random weights sits near ln V (the
+# logits' spread adds ~0.15); 20 Adam steps on one repeated batch must
+# take at least this much off it
+LOSS0_MARGIN = 0.5
+LOSS_DROP = 1.0
+# flash against dense attention, one step's gradients in bf16: relative
+# norm of the difference per tensor
+GRAD_REL_GAP = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -129,12 +185,11 @@ def _visible_pairs(q_pos):
 
 
 def _record(results, name, case, out, ref, kernel_ms, plain_ms, nbytes,
-            flops, library_ms=None):
+            flops, library_ms=None, tol=BF16_ATOL, flops_s=BF16_FLOPS_S):
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), atol=BF16_ATOL,
-                        rtol=BF16_RTOL)
+    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / BF16_FLOPS_S * 1e3
+    t_ops = flops / flops_s * 1e3
     row = {"kernel": name, **case, "max_abs_err": err,
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": max(t_bytes, t_ops),
@@ -383,6 +438,302 @@ def check_one_shot(cfg, model, rng, kind, seed) -> int:
     return launches
 
 
+# ---- phase 6: the flash kernels against their plain versions --------------
+
+
+def _flash_case(results, gen, *, S, dtype, causal):
+    """K1, K2 and K3 at one shape against their plain versions. Returns
+    the kernel ms of each at this shape."""
+    B, H, hd = 8, 12, 64
+    dev = torch.device("cuda", 0)
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    kw = dict(scale=scale, causal=causal)
+    f32 = dtype == torch.float32
+    tol = F32_TOL if f32 else BF16_ATOL
+    flops_s = F32_FLOPS_S if f32 else BF16_FLOPS_S
+    case = {"B": B, "H": H, "S": S, "hd": hd, "causal": causal,
+            "dtype": "f32" if f32 else "bf16"}
+    shape = dict(b=B, h=H, s=S, d=hd)
+    library = S == 1024 and not f32
+
+    # K1
+    out, lse = FA.flash_fwd(q, k, v, **kw)
+    ref, ref_lse = FA.flash_fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse).abs().max().item()
+    if lse_err > F32_TOL:
+        fail(f"flash_fwd {case}: lse off by {lse_err}")
+    lib_fwd = lib_bwd = None
+    if library:
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                 is_causal=causal)
+        if not torch.allclose(lib_out.transpose(1, 2).float(), ref.float(),
+                              atol=BF16_ATOL, rtol=BF16_RTOL):
+            fail("the library yardstick disagrees with K1")
+        with torch.no_grad():
+            lib_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), 10)
+        doh = do.transpose(1, 2)
+
+        def lib_fwd_bwd(i):
+            # fresh leaves, so that autograd's nodes for them are made on
+            # the stream being captured
+            leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            return torch.autograd.grad(o, leaves, doh)
+
+        # a backward is captured only with its forward: the library's
+        # backward time is the captured forward + backward less the
+        # captured forward
+        lib_bwd = graph_ms(lib_fwd_bwd, 10) - lib_fwd
+    ms = {"flash_fwd": graph_ms(lambda i: FA.flash_fwd(q, k, v, **kw), 10)}
+    _record(results, "flash_fwd", case, out, ref, ms["flash_fwd"],
+            time_ms(lambda i: FA.flash_fwd_plain(q, k, v, scale, causal), 3,
+                    warmup=1),
+            FA.flash_kernel_bytes("flash_fwd", dtype=dtype, **shape),
+            FA.flash_kernel_flops("flash_fwd", causal=causal, **shape),
+            lib_fwd, tol, flops_s)
+
+    # K2, K3 on the plain forward's out and lse
+    delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta)
+    dq = FA.flash_bwd_dq(*args, **kw)
+    dk, dv = FA.flash_bwd_dkv(*args, **kw)
+    dq2 = FA.flash_bwd_dq(*args, **kw)
+    dk2, dv2 = FA.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+            and torch.equal(dv, dv2)):
+        fail(f"flash backward {case} is not bitwise repeatable")
+    rq = FA.flash_bwd_dq_plain(*args, scale, causal)
+    rk, rv = FA.flash_bwd_dkv_plain(*args, scale, causal)
+    ms["flash_dq"] = graph_ms(lambda i: FA.flash_bwd_dq(*args, **kw), 10)
+    _record(results, "flash_dq", case, dq, rq, ms["flash_dq"],
+            time_ms(lambda i: FA.flash_bwd_dq_plain(*args, scale, causal), 3,
+                    warmup=1),
+            FA.flash_kernel_bytes("flash_dq", dtype=dtype, **shape),
+            FA.flash_kernel_flops("flash_dq", causal=causal, **shape),
+            lib_bwd, tol, flops_s)
+    ms["flash_dkv"] = graph_ms(lambda i: FA.flash_bwd_dkv(*args, **kw), 10)
+    _record(results, "flash_dkv", {**case, "out": "dk"}, dk, rk,
+            ms["flash_dkv"],
+            time_ms(lambda i: FA.flash_bwd_dkv_plain(*args, scale, causal),
+                    3, warmup=1),
+            FA.flash_kernel_bytes("flash_dkv", dtype=dtype, **shape),
+            FA.flash_kernel_flops("flash_dkv", causal=causal, **shape),
+            lib_bwd, tol, flops_s)
+    err_v = (dv.float() - rv.float()).abs().max().item()
+    if not torch.allclose(dv.float(), rv.float(), atol=tol, rtol=tol):
+        fail(f"flash_dkv {case}: dV disagrees (max_abs_err {err_v})")
+    results[-1]["max_abs_err"] = max(results[-1]["max_abs_err"], err_v)
+    return ms
+
+
+def check_flash(results, gen) -> dict:
+    """Phase 6. Returns the kernel ms of K1-K3 at the training path's
+    shape (bf16, causal, S=1024)."""
+    path_ms = _flash_case(results, gen, S=1024, dtype=torch.bfloat16,
+                          causal=True)
+    _flash_case(results, gen, S=1024, dtype=torch.bfloat16, causal=False)
+    _flash_case(results, gen, S=1000, dtype=torch.bfloat16, causal=True)
+    _flash_case(results, gen, S=1024, dtype=torch.float32, causal=True)
+
+    # the public call at a ragged length: through the kernels, no
+    # fallback (the JAX package's block rule binds CPU tensors only)
+    q, k, v = (torch.randn(2, 1000, 12, 64, generator=gen, device="cuda")
+               .bfloat16().requires_grad_() for _ in range(3))
+    before, fell = dict(FA.LAUNCHES), FA.fallback_stats()
+    FA.flash_attention(q, k, v, causal=True).float().sum().backward()
+    torch.cuda.synchronize()
+    grew = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    print(f"flash_attention at S=1000: launches {json.dumps(grew)}",
+          flush=True)
+    if set(grew.values()) != {1} or FA.fallback_stats() != fell:
+        fail(f"flash_attention at S=1000 launched {grew}, fallbacks "
+             f"{FA.fallback_stats()}")
+    return path_ms
+
+
+# ---- phase 7: the training step -------------------------------------------
+
+
+class _Losses(BaseHook):
+    """Keeps each step's loss tensor; nothing is read until the run ends."""
+
+    def __init__(self):
+        self.losses = []
+
+    def after_step(self, step, metrics):
+        self.losses.append(metrics["loss"])
+
+
+def _in_step_flash_ms(step, state, batch, layers: int) -> float:
+    """One more train step with CUDA events around each call of the K1-K3
+    wrappers: their device milliseconds summed inside a real step. An
+    event pair also takes in host time between the first event and the
+    launch where the card has run dry."""
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    orig = {n: getattr(FA, n) for n in names}
+    pairs = []
+
+    def timed(fn):
+        def call(*a, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            pairs.append((start, end))
+            return out
+        return call
+
+    try:
+        for n in names:
+            setattr(FA, n, timed(orig[n]))
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in orig.items():
+            setattr(FA, n, fn)
+    if len(pairs) != 3 * layers:
+        fail(f"the timed step made {len(pairs)} flash calls, expected "
+             f"{3 * layers}")
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def _grad_gaps(a: dict, b: dict) -> dict:
+    return {n: ((a[n].float() - b[n].float()).norm()
+                / b[n].float().norm().clamp_min(1e-30)).item() for n in b}
+
+
+def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
+    """Phase 7. Returns the K1-K3 launches of the 20-step run."""
+    B, S, steps = 8, 1024, 20
+    dev = torch.device("cuda", 0)
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    if cfg.resolve_attn_impl(S) != "flash":
+        fail("attn_impl='auto' did not resolve to flash at S=1024")
+    tokens = rng.randint(0, 50257, (B, S)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    loss_fn = make_lm_loss_fn(model)  # fused_ce="auto": on for the card
+
+    # flash against dense on the same weights and batch, and two flash
+    # runs against each other
+    (l_f, _), g_f = value_and_grad(loss_fn, model, batch)
+    (_, _), g_f2 = value_and_grad(loss_fn, model, batch)
+    torch.cuda.synchronize()
+    differ = [n for n in g_f if not torch.equal(g_f[n], g_f2[n])]
+    if differ:
+        fail(f"two runs of one step differ in {len(differ)} gradients, "
+             f"e.g. {differ[:3]}")
+    del g_f2
+    dense = model.with_config(dataclasses.replace(cfg, attn_impl="dense"))
+    (l_d, _), g_d = value_and_grad(loss_fn, dense, batch)
+    gaps = _grad_gaps(g_f, g_d)
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(l_f.item() - l_d.item())
+    print("flash_vs_dense: " + json.dumps(
+        {"loss_flash": l_f.item(), "loss_dense": l_d.item(),
+         "loss_gap": loss_gap, "worst_grad": worst,
+         "worst_grad_rel_gap": gaps[worst],
+         "median_grad_rel_gap": float(np.median(list(gaps.values())))}),
+        flush=True)
+    if gaps[worst] > GRAD_REL_GAP or loss_gap > 1e-2:
+        fail(f"flash and dense gradients differ: {worst} relative gap "
+             f"{gaps[worst]} (limit {GRAD_REL_GAP}), loss gap {loss_gap}")
+    del g_f, g_d, dense
+
+    # the head (fused CE, forward and backward) alone, at the step's shape
+    hidden = torch.randn(B, S, cfg.d_model, device=dev).to(cfg.dtype)
+    hidden.requires_grad_()
+    kernel = model.lm_head.weight
+
+    def head(i):
+        loss = fused_next_token_loss(hidden, kernel.t(), batch["tokens"])
+        return torch.autograd.grad(loss, (hidden, kernel))
+
+    head_ms = time_ms(head, 5)
+    del hidden
+
+    # the main path: 20 steps through DataParallel and TrainLoop
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    step = DataParallel().make_train_step(loss_fn)
+    events = []
+
+    def timed_step(st, b):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = step(st, b)
+        end.record()
+        events.append((start, end))
+        return out
+
+    losses = _Losses()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    loop = TrainLoop(timed_step, state, iter(lambda: batch, None),
+                     hooks=[StopAtStepHook(steps), losses])
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(FA.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    curve = [x.item() for x in losses.losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    steady = float(np.median(step_ms[2:]))
+    in_step_ms = _in_step_flash_ms(step, state, batch, cfg.num_layers)
+    print(f"training on {kind}: " + json.dumps(
+        {"B": B, "S": S, "steps": steps, "loss_curve": curve,
+         "step_ms_each": step_ms, "step_ms_median_after_2": steady,
+         "tokens_per_s": B * S / (steady / 1e3), "wall_s": wall,
+         "max_memory_allocated_bytes": peak, "launches": launches,
+         "dispatch": loop.dispatch_stats.as_dict(),
+         # flash: events around the 36 wrapper calls of one more step;
+         # its phase-6 graph times x layers beside it; the head timed
+         # alone at the step's shape; rest = median step less both
+         "split_ms": {"flash_kernels_in_step": in_step_ms,
+                      "flash_kernels_phase6_x_layers":
+                          cfg.num_layers * sum(flash_ms.values()),
+                      "fused_ce_head_alone": head_ms,
+                      "rest": steady - in_step_ms - head_ms}}), flush=True)
+    want = {name: steps * cfg.num_layers for name in FA.LAUNCHES}
+    if launches != want:
+        fail(f"flash launches {launches}, expected {want}")
+    if FA.fallback_stats():
+        fail(f"flash fell back: {FA.fallback_stats()}")
+    if not all(math.isfinite(x) for x in curve):
+        fail(f"non-finite loss: {curve}")
+    if abs(curve[0] - LN_VOCAB) > LOSS0_MARGIN:
+        fail(f"first loss {curve[0]} is not within {LOSS0_MARGIN} of "
+             f"ln(50304) = {LN_VOCAB}")
+    if curve[-1] > curve[0] - LOSS_DROP:
+        fail(f"the loss fell from {curve[0]} to {curve[-1]}, less than "
+             f"{LOSS_DROP}")
+
+    # one step under bf16_remat: K1 runs again in the backward
+    remat_cfg = precision.resolve("bf16_remat").apply_to_transformer(cfg)
+    remat = model.with_config(remat_cfg)
+    remat_state = TrainState(remat, torch.optim.Adam(remat.parameters(),
+                                                     lr=1e-3))
+    FA.reset_launch_counts()
+    DataParallel().make_train_step(make_lm_loss_fn(remat))(remat_state,
+                                                           batch)
+    torch.cuda.synchronize()
+    want = {"flash_fwd": 2 * cfg.num_layers, "flash_dq": cfg.num_layers,
+            "flash_dkv": cfg.num_layers}
+    print(f"bf16_remat step launches: {json.dumps(FA.LAUNCHES)}",
+          flush=True)
+    if FA.LAUNCHES != want:
+        fail(f"bf16_remat launches {FA.LAUNCHES}, expected {want}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -415,6 +766,10 @@ def main() -> int:
                                                        args.seed),
                 "decode_attention": check_one_shot(cfg, model, rng, kind,
                                                    args.seed)}
+    del model
+    torch.cuda.empty_cache()
+    flash_ms = check_flash(results, gen)
+    launches.update(check_training(cfg, rng, args.seed, kind, flash_ms))
 
     def head(name, pick):
         rows = [r for r in results if r["kernel"] == name]
@@ -436,6 +791,12 @@ def main() -> int:
          "launches": launches["paged_decode_attention"],
          **head("paged_decode_attention",
                 lambda r: r["C"] == 1 and r["cache"] == "bf16")},
+    ] + [
+        {"name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,
+         "replaces": FLASH_REPLACES[name], "launches": launches[name],
+         **head(name, lambda r: r["S"] == 1024 and r["causal"]
+                and r["dtype"] == "bf16")}
+        for name in ("flash_fwd", "flash_dq", "flash_dkv")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)

@@ -8,14 +8,19 @@ the first CUDA card unless the caller asks for ``device="cpu"``
 kernel written by hand for Hopper (``ops/csrc/``), with a plain PyTorch
 version beside it for the CPU.
 
-Package layout (this slice: the GPT-2 serving path):
-    core/    device resolution, retry helper
-    ops/     decode-attention kernels K5/K6 (CUDA), their plain versions
-    models/  Transformer (training, contiguous-decode and paged views),
-             the one-shot generator and samplers
-    serve/   paged pool, scheduler, prefix index, engine, CLI
-    obs/     flight recorder (copied)
-    bridge   flax param tree <-> state dict, numpy in and out
+Package layout (slices 1-2: the GPT-2 serving path and training step):
+    core/      device resolution, retry helper, is_chief, precision
+    ops/       decode-attention kernels K5/K6 and flash-attention kernels
+               K1-K3 (CUDA) with their plain versions; blockwise attention;
+               the chunked fused cross-entropy
+    models/    Transformer (training, contiguous-decode and paged views),
+               the LM loss, the one-shot generator and samplers
+    parallel/  the single-process data-parallel step, gradient accumulation
+    train/     TrainState, hooks, TrainLoop
+    serve/     paged pool, scheduler, prefix index, engine, CLI
+    obs/       flight recorder (copied)
+    utils/     dispatch accounting
+    bridge     flax param tree <-> state dict, numpy in and out
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
-"""Process-level helpers the serving slice needs.
+"""Process-level helpers.
 
-Only ``retry_with_backoff`` so far (the engine's guarded launch); the
-process-group half of the JAX package's ``core/dist.py`` comes with the
-data-parallel slice.
+``retry_with_backoff`` (the engine's guarded launch) and ``is_chief``
+(the train hooks' writer rule); the process-group half of the JAX
+package's ``core/dist.py`` comes with multi-rank data parallelism
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -11,6 +12,17 @@ import logging
 import time
 
 log = logging.getLogger(__name__)
+
+
+def is_chief() -> bool:
+    """Rank 0 of ``torch.distributed`` when a process group is
+    initialised, else True: the one process that writes logs and files.
+    Chief-ness affects host-side IO only; every rank runs the same step."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() == 0
+    return True
 
 
 def retry_with_backoff(

@@ -1,8 +1,10 @@
 """The causal Transformer (GPT-2 family) in PyTorch, with three attention
 views:
 
-* **training view** (``cfg.decode`` False): dense causal attention over
-  the whole sequence;
+* **training view** (``cfg.decode`` False): causal attention over the
+  whole sequence, dense or through the flash kernels K1-K3
+  (``ops/flash_attention.flash_attention``) as ``cfg.attn_impl``
+  resolves, with optional activation checkpointing (``remat_mode``);
 * **contiguous decode view** (``cfg.decode``, no paging): a chunk of C
   tokens at position ``index`` writes its k/v into a kernel-layout cache
   ``(B, H, max_len, hd)`` and reads it through the K5 kernel
@@ -32,8 +34,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
+from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
     scatter_chunk,
 )
@@ -64,6 +68,14 @@ class TransformerConfig:
     kv_dtype: str | None = None  # None (cache at dtype) or "int8"
     paged_num_blocks: int | None = None
     paged_block_size: int | None = None
+    # activation checkpointing of the training view: "none", "attention"
+    # (only the attention sub-layer) or "block" (each whole block)
+    remat_mode: str = "none"
+    # "dense" (scores at dtype, f32 softmax), "flash" (K1-K3; on the CPU
+    # it falls back to the blockwise path on shapes the JAX block rule
+    # does not take) or "auto": flash for causal sequences of 1024 tokens
+    # or more
+    attn_impl: str = "auto"
     # not served yet: setting any of these raises (see _DEFERRED)
     lora_rank: int | None = None
     moe_experts: int | None = None
@@ -75,6 +87,14 @@ class TransformerConfig:
             if getattr(self, knob) is not None:
                 raise NotImplementedError(
                     f"{knob} is not ported yet: ROADMAP Queue 1 {item}")
+        if self.attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(
+                "attn_impl must be 'auto', 'dense' or 'flash', "
+                f"got {self.attn_impl!r}")
+        if self.remat_mode not in ("none", "attention", "block"):
+            raise ValueError(
+                "remat_mode must be 'none', 'attention' or 'block', "
+                f"got {self.remat_mode!r}")
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"dtype must be torch.float32 or torch.bfloat16, "
@@ -98,6 +118,14 @@ class TransformerConfig:
     @property
     def paged(self) -> bool:
         return self.paged_num_blocks is not None
+
+    def resolve_attn_impl(self, seq_len: int | None = None) -> str:
+        """Resolve 'auto' against the sequence length (``max_len`` when
+        none is given)."""
+        if self.attn_impl != "auto":
+            return self.attn_impl
+        s = self.max_len if seq_len is None else seq_len
+        return "flash" if (self.causal and s >= 1024) else "dense"
 
     @property
     def head_dim(self) -> int:
@@ -168,6 +196,8 @@ class MultiHeadAttention(nn.Module):
                                             block_tables)
         elif cfg.decode:
             out = self._decode_attend(q, k, v, index, cache)
+        elif cfg.resolve_attn_impl(S) == "flash":
+            out = FA.flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = self._dense_attend(q, k, v)
         return _linear(out.reshape(B, S, h * hd), self.proj.weight,
@@ -280,8 +310,15 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x, index=None, *, cache=None, block_tables=None):
-        x = x + self.attn(self.ln1(x), index, cache=cache,
-                          block_tables=block_tables)
+        cfg = self.attn.cfg
+        h = self.ln1(x)
+        if (cfg.remat_mode == "attention" and not cfg.decode
+                and torch.is_grad_enabled()):
+            # recompute the attention sub-layer in the backward
+            x = x + checkpoint(self.attn, h, use_reentrant=False)
+        else:
+            x = x + self.attn(h, index, cache=cache,
+                              block_tables=block_tables)
         return x + self.mlp(self.ln2(x))
 
 
@@ -366,7 +403,8 @@ class Transformer(nn.Module):
             leaf["vs"] = torch.zeros(scale_shape, device=dev)
         return leaf
 
-    def forward(self, tokens, index=None, *, cache=None, block_tables=None):
+    def forward(self, tokens, index=None, *, cache=None, block_tables=None,
+                return_hidden: bool = False):
         cfg = self.cfg
         if cfg.decode and index is None:
             raise ValueError("cfg.decode=True requires the position index")
@@ -381,8 +419,55 @@ class Transformer(nn.Module):
             else:
                 positions = positions + int(index)
         x = x + self.pos_emb(positions).to(dt)
+        remat_blocks = (cfg.remat_mode == "block" and not cfg.decode
+                        and torch.is_grad_enabled())
         for i, blk in enumerate(self.blocks):
-            x = blk(x, index, cache=None if cache is None else cache[i],
-                    block_tables=block_tables)
+            if remat_blocks:
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x, index, cache=None if cache is None else cache[i],
+                        block_tables=block_tables)
         x = self.ln_f(x)
+        if return_hidden:  # the fused-CE loss applies the head itself
+            return x
         return _linear(x, self.lm_head.weight, dtype=torch.float32)
+
+
+def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
+                    ce_chunk: int | None = None):
+    """Next-token LM loss: ``loss_fn(module, batch) -> (loss, metrics)``.
+
+    ``module`` is the Transformer that holds the parameters (the JAX
+    package passes its param tree in that place); ``batch["tokens"]`` is
+    (B, S) int. The loss is the mean over the B * (S - 1) shifted targets,
+    and ``metrics`` is ``{"perplexity": exp(loss)}``, both 0-d tensors.
+
+    ``fused_ce`` ("auto" | True | False, ``ops.fused_ce.resolve_fused_ce``
+    on ``model``'s device) routes the head through the chunked fused
+    cross-entropy: the trunk stops at the final LayerNorm
+    (``return_hidden``) and no (B, S, V) tensor is ever live. Otherwise
+    the logits come out in f32 and go through ``log_softmax``.
+    """
+    from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
+        fused_next_token_loss,
+        resolve_fused_ce,
+    )
+
+    use_fused = resolve_fused_ce(fused_ce, vocab_size=model.cfg.vocab_size,
+                                 platform=model.device.type)
+
+    def loss_fn(module, batch):
+        tokens = batch["tokens"]
+        if use_fused:
+            hidden = module(tokens, return_hidden=True)
+            loss = fused_next_token_loss(hidden, module.lm_head.weight.t(),
+                                         tokens, chunk=ce_chunk)
+        else:
+            logits = module(tokens)  # (B, S, V) float32
+            logp = torch.log_softmax(logits[:, :-1], dim=-1)
+            targets = tokens[:, 1:].long()
+            ll = logp.gather(-1, targets[..., None])[..., 0]
+            loss = -ll.mean()
+        return loss, {"perplexity": torch.exp(loss)}
+
+    return loss_fn

@@ -1,0 +1,164 @@
+"""Chunked fused next-token cross-entropy: the LM head without full logits.
+
+The head matmul, an online log-sum-exp, the target gather and the
+gradient of the logits (``softmax - onehot``) run per VOCAB CHUNK, so the
+largest loss intermediate in the forward or the backward is one
+``(N, chunk)`` f32 tile; a ``(N, V)`` tensor never exists.
+
+* :class:`_FusedNLL` (an ``autograd.Function``) keeps only
+  ``(x, kernel, targets, lse)`` for the backward, which re-runs the chunk
+  matmuls and emits ``dz = softmax - onehot`` tile by tile into the two
+  gradient matmuls.
+* The matmuls take operands in the ACTIVATION dtype and accumulate in f32
+  (``_dot_f32``): bf16 activations give bf16 operands and f32 results.
+* Only the single-device form is ported: vocab parallelism (``axis``)
+  comes with tensor parallelism (ROADMAP Queue 1 item 14).
+
+This is plain PyTorch, as the JAX package's version is plain jnp: the
+chunk matmuls go to the library's GEMMs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_CE_CHUNK = 8192  # the JAX package's tested default
+
+
+def resolve_fused_ce(setting, *, vocab_size: int | None = None,
+                     platform: str | None = None) -> bool:
+    """Resolve ``fused_ce="auto"|True|False`` to a bool.
+
+    ``auto`` is on for a CUDA device (where the JAX package turns it on for
+    a TPU) with a vocab larger than one default chunk, and off on the
+    CPU. ``platform`` is a device type ("cuda", "cpu"); None means "cuda"
+    when a card is present."""
+    if isinstance(setting, bool):
+        return setting
+    s = str(setting).lower()
+    if s in ("on", "true", "1"):
+        return True
+    if s in ("off", "false", "0"):
+        return False
+    if s != "auto":
+        raise ValueError(
+            f"fused_ce must be 'auto', on/True or off/False, got {setting!r}")
+    if platform is None:
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
+    if platform != "cuda":
+        return False
+    return vocab_size is None or vocab_size > DEFAULT_CE_CHUNK
+
+
+def _chunk_bounds(v: int, chunk: int) -> list[tuple[int, int]]:
+    """[lo, hi) column windows; the last one may be ragged."""
+    return [(lo, min(lo + chunk, v)) for lo in range(0, v, chunk)]
+
+
+def _dot_f32(a, b, ct):
+    """a @ b with operands in the compute dtype ``ct`` and an f32 result.
+    On the card a bf16 product accumulates in f32 and is returned in f32
+    (``out_dtype``); elsewhere the bf16 operands are widened to f32 first,
+    which gives the same products."""
+    a, b = a.to(ct), b.to(ct)
+    if ct == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _FusedNLL(torch.autograd.Function):
+    """SUM of the NLL over the N rows of ``x`` (N, D) against ``kernel``
+    (D, V) and ``targets`` (N,)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, targets, chunk):
+        n = x.shape[0]
+        ct = x.dtype
+        m = torch.full((n,), -torch.inf, device=x.device)
+        s = torch.zeros((n,), device=x.device)
+        zt = torch.zeros((n,), device=x.device)
+        rows = torch.arange(n, device=x.device)
+        for lo, hi in _chunk_bounds(kernel.shape[1], chunk):
+            z = _dot_f32(x, kernel[:, lo:hi], ct)  # (n, ck)
+            m_new = torch.maximum(m, z.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(
+                z - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            t = targets - lo
+            ok = (t >= 0) & (t < hi - lo)
+            zt = zt + torch.where(ok, z[rows, t.clamp(0, hi - lo - 1)],
+                                  torch.zeros_like(zt))
+        lse = torch.log(s) + m
+        ctx.save_for_backward(x, kernel, targets, lse)
+        ctx.chunk = chunk
+        return (lse - zt).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, targets, lse = ctx.saved_tensors
+        ct = x.dtype
+        g32 = g.float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = torch.empty(kernel.shape, dtype=torch.float32, device=x.device)
+        for lo, hi in _chunk_bounds(kernel.shape[1], ctx.chunk):
+            w_c = kernel[:, lo:hi]
+            p = _dot_f32(x, w_c, ct)  # the recomputed logits, in place:
+            p.sub_(lse[:, None]).exp_()  # softmax
+            t = targets - lo
+            ok = (t >= 0) & (t < hi - lo)
+            # - onehot: one element per row, 0 subtracted where the target
+            # lies in another chunk
+            p.scatter_add_(1, t.clamp(0, hi - lo - 1)[:, None],
+                           -ok.float()[:, None])
+            dz = (p * g32).to(ct)
+            del p
+            dx += _dot_f32(dz, w_c.t(), ct)
+            dw[:, lo:hi] = _dot_f32(x.t(), dz, ct)
+        return dx.to(x.dtype), dw.to(kernel.dtype), None, None
+
+
+def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
+                        axis: str | None = None, reduction: str = "mean"):
+    """Chunked cross-entropy ``-log softmax(x @ kernel)[targets]``.
+
+    x: ``(..., D)`` activations (post-LN); kernel: ``(D, V)``; targets:
+    ``(...)`` int ids, the leading shape of ``x``. Returns the mean
+    (default) or sum NLL as a 0-d f32 tensor; no ``(N, V)`` tensor is live
+    in the forward or the backward. ``chunk=None`` takes
+    ``DEFAULT_CE_CHUNK`` clipped to V.
+    """
+    if axis is not None:
+        raise NotImplementedError(
+            "vocab-parallel fused CE (axis=...) is not ported yet: ROADMAP "
+            "Queue 1 item 14 (tensor parallelism)")
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"reduction must be 'mean' or 'sum', got "
+                         f"{reduction!r}")
+    if tuple(x.shape[:-1]) != tuple(targets.shape):
+        raise ValueError(
+            f"targets shape {tuple(targets.shape)} must match x leading "
+            f"shape {tuple(x.shape[:-1])}")
+    d = x.shape[-1]
+    if kernel.ndim != 2 or kernel.shape[0] != d:
+        raise ValueError(
+            f"kernel must be (D={d}, V), got {tuple(kernel.shape)}")
+    x2 = x.reshape(-1, d)
+    t1 = targets.reshape(-1).long()
+    v = kernel.shape[1]
+    chunk = max(1, min(int(chunk or DEFAULT_CE_CHUNK), v))
+    total = _FusedNLL.apply(x2, kernel, t1, chunk)
+    if reduction == "sum":
+        return total
+    return total / x2.shape[0]
+
+
+def fused_next_token_loss(x, kernel, tokens, *, chunk: int | None = None,
+                          axis: str | None = None,
+                          reduction: str = "mean"):
+    """Next-token LM loss from pre-head hidden states: positions ``:-1``
+    predict tokens ``1:``."""
+    return fused_cross_entropy(
+        x[:, :-1], kernel, tokens[:, 1:], chunk=chunk, axis=axis,
+        reduction=reduction)

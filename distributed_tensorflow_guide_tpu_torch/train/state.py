@@ -1,0 +1,43 @@
+"""The train state: a module, its optimizer and the step count.
+
+The counterpart of flax's ``TrainState``. The JAX package's optimizers are
+optax transforms; here they are ``torch.optim`` optimizers over the
+module's parameters:
+
+* ``optax.adam(lr)`` is ``torch.optim.Adam(params, lr, betas=(0.9, 0.999),
+  eps=1e-8, weight_decay=0)``. Both keep m and v, correct each by
+  ``1 - beta ** t`` and step by ``lr * m_hat / (sqrt(v_hat) + eps)``
+  (optax's ``eps_root`` is 0);
+* ``optax.sgd(lr)`` is ``torch.optim.SGD(params, lr)``.
+
+Unlike flax's, :meth:`TrainState.apply_gradients` updates the parameters
+in place and returns the same object: one copy of the weights and of the
+optimizer moments lives on the card, which is what the JAX package gets
+from buffer donation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+
+import torch
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    def apply_gradients(self, grads: Mapping[str, torch.Tensor]
+                        ) -> "TrainState":
+        """One optimizer step with ``grads`` ({parameter name: tensor},
+        as ``parallel/grad_accum.value_and_grad`` gives them)."""
+        for name, p in self.model.named_parameters():
+            if p.requires_grad:
+                p.grad = grads[name]
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
+        return self

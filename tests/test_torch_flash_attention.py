@@ -1,0 +1,230 @@
+"""The port's flash attention (K1-K3 plain versions, the autograd
+Function, the fallback rule) and blockwise/dense attention, held to the
+JAX package on the same inputs.
+
+The JAX kernels run in Pallas interpret mode on the CPU, with blocks
+pinned to 32 so that S = 64 and 128 reach the kernels, not the fallback.
+Inputs are made with numpy from a seed and handed to both; the tests
+that run JAX's backward kernels use one head (the interpret mode's cost
+grows with the grid), the forward test two.
+
+Tolerances (float32 throughout unless stated): 2e-5 absolute and relative
+for outputs, LSE and gradients. Both sides compute in f32 over the same
+products; only the summation order differs (other tile sizes, another
+framework). The bf16 case holds the port's bf16 output to its own f32
+output within 1e-2, one bf16 step at |x| < 2.
+"""
+
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_tensorflow_guide_tpu.ops import attention as jattn
+from distributed_tensorflow_guide_tpu.ops import flash_attention as jfa
+from distributed_tensorflow_guide_tpu_torch.ops import attention as tattn
+from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+BLK = 32
+CASES = [(causal, hd, s) for causal in (True, False) for hd in (32, 40, 64)
+         for s in (64, 128)]
+IDS = [f"{'causal' if c else 'full'}-hd{hd}-s{s}" for c, hd, s in CASES]
+
+
+@pytest.fixture(autouse=True)
+def _isolated_table(isolated_autotune_table):
+    yield
+
+
+def _inputs(s, hd, seed=0, b=1, h=2, n=4):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, s, h, hd).astype(np.float32) for _ in range(n)]
+
+
+def _kernel_layout(x):
+    """(B, S, H, D) numpy -> the JAX kernels' (B, H, S, D)."""
+    return jnp.asarray(np.transpose(x, (0, 2, 1, 3)))
+
+
+def _lanes(x):
+    """(B, H, S) -> the JAX kernels' lane-broadcast (B, H, S, 128)."""
+    return jnp.broadcast_to(jnp.asarray(x)[..., None], x.shape + (jfa.LANE,))
+
+
+def _bshd(x):
+    """The JAX kernels' (B, H, S, D) -> (B, S, H, D) numpy."""
+    return np.transpose(np.asarray(x), (0, 2, 1, 3))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("causal,hd,s", CASES, ids=IDS)
+def test_plain_forward_matches_the_pallas_forward(causal, hd, s):
+    q, k, v = _inputs(s, hd, n=3)
+    scale = 1.0 / hd ** 0.5
+    j_out, j_lse = jfa._fwd_call(
+        *(_kernel_layout(x) for x in (q, k, v)), scale=scale, causal=causal,
+        blk_q=BLK, blk_k=BLK)
+    out, lse = FA.flash_fwd_plain(_t(q), _t(k), _t(v), scale, causal)
+    np.testing.assert_allclose(out.numpy(), _bshd(j_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0],
+                               **TOL)
+
+
+def _bwd_inputs(s, hd, causal):
+    """q, k, v, dO and the LSE and delta both backward kernels read, from
+    the JAX forward."""
+    q, k, v, do = _inputs(s, hd, seed=1, h=1)
+    scale = 1.0 / hd ** 0.5
+    j_out, j_lse = jfa._fwd_call(
+        *(_kernel_layout(x) for x in (q, k, v)), scale=scale, causal=causal,
+        blk_q=BLK, blk_k=BLK)
+    lse = np.asarray(j_lse)[..., 0]
+    delta = np.sum(do * _bshd(j_out), axis=-1).transpose(0, 2, 1)
+    return q, k, v, do, lse, np.ascontiguousarray(delta), scale
+
+
+@pytest.mark.parametrize("causal,hd,s", CASES, ids=IDS)
+def test_plain_dq_matches_the_pallas_dq_kernel(causal, hd, s):
+    q, k, v, do, lse, delta, scale = _bwd_inputs(s, hd, causal)
+    j_dq = jfa._bwd_dq_call(
+        *(_kernel_layout(x) for x in (q, k, v, do)), _lanes(lse),
+        _lanes(delta), scale=scale, causal=causal, blk_q=BLK, blk_k=BLK)
+    dq = FA.flash_bwd_dq_plain(*(_t(x) for x in (q, k, v, do, lse, delta)),
+                               scale, causal)
+    np.testing.assert_allclose(dq.numpy(), _bshd(j_dq), **TOL)
+
+
+@pytest.mark.parametrize("causal,hd,s", CASES, ids=IDS)
+def test_plain_dkv_matches_the_pallas_dkv_kernel(causal, hd, s):
+    q, k, v, do, lse, delta, scale = _bwd_inputs(s, hd, causal)
+    j_dk, j_dv = jfa._bwd_dkv_call(
+        *(_kernel_layout(x) for x in (q, k, v, do)), _lanes(lse),
+        _lanes(delta), scale=scale, causal=causal, blk_q=BLK, blk_k=BLK)
+    dk, dv = FA.flash_bwd_dkv_plain(
+        *(_t(x) for x in (q, k, v, do, lse, delta)), scale, causal)
+    np.testing.assert_allclose(dk.numpy(), _bshd(j_dk), **TOL)
+    np.testing.assert_allclose(dv.numpy(), _bshd(j_dv), **TOL)
+
+
+@pytest.mark.parametrize("causal,hd,s", CASES, ids=IDS)
+def test_flash_attention_and_its_grads_match_jax(causal, hd, s):
+    q, k, v, w = _inputs(s, hd, seed=2, h=1)
+
+    def j_loss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=causal, blk_q=BLK,
+                                  blk_k=BLK)
+        return jnp.sum(out * w), out
+
+    (_, j_out), j_grads = jax.value_and_grad(
+        j_loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = FA.flash_attention(tq, tk, tv, causal=causal, blk_q=BLK,
+                             blk_k=BLK)
+    (out * _t(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               **TOL)
+    for got, want in zip((tq, tk, tv), j_grads):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,block", [(128, 512), (96, 32), (100, 512)])
+def test_blockwise_and_dense_attention_match_jax(causal, s, block):
+    q, k, v = _inputs(s, 32, seed=3, n=3)
+    j_args = [jnp.asarray(x) for x in (q, k, v)]
+    t_args = [_t(x) for x in (q, k, v)]
+    np.testing.assert_allclose(
+        tattn.blockwise_attention(*t_args, causal=causal,
+                                  block_size=block).numpy(),
+        np.asarray(jattn.blockwise_attention(*j_args, causal=causal,
+                                             block_size=block)), **TOL)
+    np.testing.assert_allclose(
+        tattn.dense_attention(*t_args, causal=causal).numpy(),
+        np.asarray(jattn.dense_attention(*j_args, causal=causal)), **TOL)
+
+
+def test_unsupported_length_falls_back_and_is_counted_as_in_jax(caplog):
+    """S=100 is not a multiple of the default blocks (128, 128): both
+    packages take the blockwise path and count it under the same key."""
+    assert FA.supported(100, 64) == jfa.supported(100, 64) is False
+    assert FA.supported(1024, 64) == jfa.supported(1024, 64) is True
+    q, k, v = _inputs(100, 64, seed=4, n=3)
+    key = ("flash_attention", 100, 64, 128, 128)
+    before = FA.fallback_stats().get(key, 0)
+    j_before = jfa.fallback_stats().get(key, 0)
+    with caplog.at_level(logging.WARNING, logger="dtg.ops.flash"):
+        out = FA.flash_attention(*(_t(x) for x in (q, k, v)), causal=True)
+    j_out = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                causal=True)
+    assert FA.fallback_stats()[key] == before + 1
+    assert jfa.fallback_stats()[key] == j_before + 1
+    if before == 0:
+        assert any("falling back" in r.message for r in caplog.records)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
+
+
+@pytest.mark.parametrize("s", [100, 1000, 1024])
+def test_off_the_cpu_every_length_reaches_the_kernels(monkeypatch, s):
+    """The block rule is the Pallas kernels' and holds on the CPU only: a
+    tensor on another device goes to the kernel wrapper at any S, never to
+    the blockwise path. Meta tensors stand in for the card's; the K1
+    wrapper is replaced by one that records its call."""
+    calls = []
+
+    def fake_fwd(q, k, v, *, scale, causal):
+        calls.append((q.shape[1], scale, causal))
+        B, S, H, _ = q.shape
+        return torch.empty_like(q), torch.empty((B, H, S), device=q.device)
+
+    monkeypatch.setattr(FA, "flash_fwd", fake_fwd)
+    q, k, v = (torch.empty(1, s, 2, 64, device="meta") for _ in range(3))
+    before = FA.fallback_stats()
+    out = FA.flash_attention(q, k, v, causal=True)
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert calls == [(s, 0.125, True)]
+    assert FA.fallback_stats() == before
+
+
+def test_bf16_inputs_stay_within_a_bf16_step_of_f32():
+    q, k, v, w = _inputs(128, 64, seed=5)
+    f32 = [_t(x).requires_grad_() for x in (q, k, v)]
+    b16 = [_t(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    out32 = FA.flash_attention(*f32, causal=True, blk_q=BLK, blk_k=BLK)
+    out16 = FA.flash_attention(*b16, causal=True, blk_q=BLK, blk_k=BLK)
+    assert out16.dtype == torch.bfloat16
+    (out32 * _t(w)).sum().backward()
+    (out16.float() * _t(w)).sum().backward()
+    ref = FA.flash_attention(*(x.detach().bfloat16().float() for x in f32),
+                             causal=True, blk_q=BLK, blk_k=BLK)
+    torch.testing.assert_close(out16.float(), ref, atol=1e-2, rtol=1e-2)
+    for a, b in zip(b16, f32):
+        assert a.grad.dtype == torch.bfloat16
+        scale = b.grad.abs().max()
+        torch.testing.assert_close(a.grad.float() / scale, b.grad / scale,
+                                   atol=3e-2, rtol=0)
+
+
+def test_cpu_calls_leave_the_launch_counts_at_zero():
+    FA.reset_launch_counts()
+    q, k, v = (_t(x).requires_grad_() for x in _inputs(128, 32, n=3))
+    FA.flash_attention(q, k, v, causal=True).sum().backward()
+    assert FA.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert q.grad is not None
+
+
+def test_kernel_bounds_count_what_the_path_moves():
+    """The bound model at the training path's shape."""
+    shape = dict(b=8, h=12, s=1024, d=64)
+    assert FA.visible_pairs(8, 12, 1024, True) == 50_380_800
+    assert FA.flash_kernel_bytes("flash_fwd", dtype=torch.bfloat16,
+                                 **shape) == 4 * 12_582_912 + 393_216
+    assert FA.flash_kernel_flops("flash_dkv", causal=True, **shape) == (
+        8 * 64 * 50_380_800)

@@ -1,5 +1,5 @@
-"""The hand-written decode-attention kernels (K5, K6) against their plain
-PyTorch versions, on CUDA tensors.
+"""The hand-written decode-attention kernels (K5, K6) and flash-attention
+kernels (K1-K3) against their plain PyTorch versions, on CUDA tensors.
 
 Needs the card; each test decides inside itself to skip where there is
 none. This file imports neither jax nor the JAX package, so it also runs
@@ -8,15 +8,33 @@ on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_kernels_gpu.py
 
-Tolerances: float32 1e-5 (the kernel sums the same products in another
-order); bf16 outputs 1e-2, one bf16 step at |x| < 2 (the kernel rounds an
-f32 result once, the plain version after other f32 roundings).
+Tolerances: float32 1e-5 for K5/K6 and 1e-4 for K1-K3 (the kernels sum
+the same products in another order; a flash output sums up to S products,
+a gradient of K3 up to S of them per query tile); bf16 outputs 1e-2, one
+bf16 step at |x| < 2 (the kernel rounds an f32 result once, the plain
+version after other f32 roundings). The model at a ragged length holds
+its flash loss and gradients to the dense path's, float32, at 1e-5
+absolute and 1e-4 relative (1000 products per score row summed in other
+orders).
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.models import transformer as TF
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
+from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
+from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+    DataParallel,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
+    value_and_grad,
+)
+from distributed_tensorflow_guide_tpu_torch.train.hooks import StopAtStepHook
+from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
+from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
 
 TOL = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2}
 
@@ -105,3 +123,123 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         DA.paged_decode_attention(
             q, k, k, torch.zeros(2, 1, dtype=torch.int64, device=dev),
             torch.ones(2, dtype=torch.int32, device=dev), block_size=32)
+
+
+FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_flash_kernels_match_plain_versions_on_the_card(kind, causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    tol = dict(atol=FLASH_TOL[kind], rtol=FLASH_TOL[kind])
+    for b, s, h, hd in ((2, 128, 3, 64), (1, 200, 2, 40), (2, 77, 2, 128)):
+        q, k, v, do = (torch.randn(b, s, h, hd, generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        scale = hd ** -0.5
+        before = dict(FA.LAUNCHES)
+        out, lse = FA.flash_fwd(q, k, v, scale=scale, causal=causal)
+        ref, ref_lse = FA.flash_fwd_plain(q, k, v, scale, causal)
+        torch.testing.assert_close(out.float(), ref.float(), **tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+        delta = (do.float() * ref.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, do, ref_lse, delta.contiguous())
+        dq = FA.flash_bwd_dq(*args, scale=scale, causal=causal)
+        dk, dv = FA.flash_bwd_dkv(*args, scale=scale, causal=causal)
+        torch.testing.assert_close(
+            dq.float(), FA.flash_bwd_dq_plain(*args, scale, causal).float(),
+            **tol)
+        rk, rv = FA.flash_bwd_dkv_plain(*args, scale, causal)
+        torch.testing.assert_close(dk.float(), rk.float(), **tol)
+        torch.testing.assert_close(dv.float(), rv.float(), **tol)
+        # one CTA owns each output tile: bitwise repeatable
+        assert torch.equal(dq, FA.flash_bwd_dq(*args, scale=scale,
+                                               causal=causal))
+        dk2, dv2 = FA.flash_bwd_dkv(*args, scale=scale, causal=causal)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        assert FA.LAUNCHES == {"flash_fwd": before["flash_fwd"] + 1,
+                               "flash_dq": before["flash_dq"] + 2,
+                               "flash_dkv": before["flash_dkv"] + 2}
+
+
+@pytest.mark.gpu
+def test_flash_attention_on_qkv_slices_matches_the_cpu_path():
+    """The autograd Function on column slices of one qkv tensor (the
+    layout the model hands it, read in place by the kernels) against the
+    same call on the CPU, which runs the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator().manual_seed(2)
+    qkv = torch.randn(2, 256, 3, 4, 64, generator=gen)
+    w = torch.randn(2, 256, 4, 64, generator=gen)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        x = qkv.to(dev).clone().requires_grad_()
+        out = FA.flash_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2],
+                                 causal=True, blk_q=128, blk_k=128)
+        (out * w.to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), x.grad.cpu()))
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = grads
+    torch.testing.assert_close(o_gpu, o_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(g_gpu, g_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(TypeError):  # float16 is not taken
+        FA.flash_fwd(q.half(), q.half(), q.half(), scale=0.125, causal=True)
+    with pytest.raises(TypeError):  # mixed dtypes
+        FA.flash_fwd(q, q.bfloat16(), q, scale=0.125, causal=True)
+    odd = torch.randn(1, 64, 2, 12, device=dev)
+    with pytest.raises(ValueError):  # head dim not a multiple of 8
+        FA.flash_fwd(odd, odd, odd, scale=0.3, causal=True)
+    wide = torch.randn(1, 64, 2, 136, device=dev)
+    with pytest.raises(ValueError):  # head dim above 128
+        FA.flash_fwd(wide, wide, wide, scale=0.1, causal=True)
+    lse = torch.zeros(1, 2, 63, device=dev)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        FA.flash_bwd_dq(q, q, q, q, lse, lse, scale=0.125, causal=True)
+
+
+@pytest.mark.gpu
+def test_the_model_trains_through_the_kernels_at_a_ragged_length():
+    """``attn_impl="flash"`` at S=1000, no multiple of the JAX package's
+    block pair: on the card each layer launches K1, K2 and K3 once a step,
+    nothing falls back to the blockwise path, and one step's loss and
+    gradients agree with the dense attention path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = TF.TransformerConfig(vocab_size=256, num_layers=2, num_heads=2,
+                               d_model=128, d_ff=256, max_len=1024,
+                               dtype=torch.float32, attn_impl="flash")
+    model = TF.Transformer(cfg).init_weights(0).to("cuda")
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, 256, (2, 1000), generator=gen)}
+    loss_fn = TF.make_lm_loss_fn(model)
+    before = FA.fallback_stats()
+
+    on_card = {"tokens": batch["tokens"].cuda()}
+    (loss, _), grads = value_and_grad(loss_fn, model, on_card)
+    dense = model.with_config(dataclasses.replace(cfg, attn_impl="dense"))
+    (want_loss, _), want = value_and_grad(loss_fn, dense, on_card)
+    torch.testing.assert_close(loss, want_loss, atol=1e-5, rtol=1e-4)
+    for n in want:
+        torch.testing.assert_close(grads[n], want[n], atol=1e-5, rtol=1e-4,
+                                   msg=n)
+
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    FA.reset_launch_counts()
+    TrainLoop(DataParallel().make_train_step(loss_fn), state,
+              iter(lambda: batch, None), hooks=[StopAtStepHook(2)]).run()
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {name: 2 * cfg.num_layers for name in FA.LAUNCHES}
+    assert FA.fallback_stats() == before
