@@ -35,10 +35,28 @@ and check them.
    attention path, two runs of one step must give bitwise-equal
    gradients, and one step under ``bf16_remat`` must launch K1 24 times;
    one more step, with CUDA events around each kernel call, gives the
-   flash kernels' share of a step.
+   flash kernels' share of a step;
+8. hold the ring carry kernel K4 against its plain version at the ring's
+   per-rank shape (B=4, H=12, S_loc=1024, hd=64, bf16), a diagonal and a
+   full visit, each merged into a carry that already holds one visit;
+   time kernel, plain version, bound and one
+   ``scaled_dot_product_attention`` on the same shard pair with the same
+   mask as a yardstick (it computes the visit without the merge);
+9. sequence parallelism at 4 ranks, 4 processes time-sharing the one card
+   over gloo (``runtime/multiprocess.py``): ring attention (K4 forward,
+   K2/K3 backward) and Ulysses (K1-K3) at GPT-2 124M attention widths,
+   global S=4096, B=4, H=12, hd=64, bf16, causal and not, forward and
+   backward; each rank holds its output and dq/dk/dv to single-process
+   ``flash_attention`` on the whole sequence; the K4/K2/K3 launches summed
+   over the ranks and each rank's comm bytes must be exact;
+10. data parallelism at 2 ranks on the card: ``gpt2_124m`` widths at depth
+   2, B=8 (4 a rank), S=1024, through ``DataParallel(mesh)`` and
+   ``TrainLoop`` for 3 steps; the averaged gradients against the 1-rank
+   step on the union batch, the replicas bitwise equal after the steps.
 
-Exits non-zero on any failure, and when no CUDA card is present. The
-last line of stdout is ``{"ok": true, "device": {...}}``.
+The kernels are built once here, before any rank starts. Exits non-zero
+on any failure, and when no CUDA card is present. The last line of stdout
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,7 +73,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_tensorflow_guide_tpu_torch.collectives import (
+    collectives as cc,
+)
 from distributed_tensorflow_guide_tpu_torch.core import precision
+from distributed_tensorflow_guide_tpu_torch.core.device import (
+    resolve_device,
+)
+from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+    MeshSpec,
+    build_mesh,
+)
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
     make_generate_fn,
 )
@@ -70,11 +98,15 @@ from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
     fused_next_token_loss,
 )
+from distributed_tensorflow_guide_tpu_torch.parallel import sequence
 from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
     DataParallel,
 )
 from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     value_and_grad,
+)
+from distributed_tensorflow_guide_tpu_torch.runtime.multiprocess import (
+    run_multiprocess,
 )
 from distributed_tensorflow_guide_tpu_torch.train.hooks import (
     BaseHook,
@@ -108,7 +140,10 @@ FLASH_REPLACES = {
     "flash_fwd": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:137",
     "flash_dq": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:321",
     "flash_dkv": "distributed_tensorflow_guide_tpu/ops/flash_attention.py:360",
+    "flash_carry":
+        "distributed_tensorflow_guide_tpu/ops/flash_attention.py:226",
 }
+K1_K3 = ("flash_fwd", "flash_dq", "flash_dkv")
 LN_VOCAB = math.log(50304)
 # training checks: the first loss of random weights sits near ln V (the
 # logits' spread adds ~0.15); 20 Adam steps on one repeated batch must
@@ -118,6 +153,13 @@ LOSS_DROP = 1.0
 # flash against dense attention, one step's gradients in bf16: relative
 # norm of the difference per tensor
 GRAD_REL_GAP = 2e-2
+# sequence parallelism against single-process flash on the whole sequence,
+# bf16: outputs within the JAX package's own bf16 bound for its two rings
+# (2e-2 absolute and relative); dq, dk, dv within GRAD_REL_GAP relative
+# norm (the ring sums per-visit bf16 partials in f32, flash sums in one
+# pass: other roundings). DP's averaged gradients against the union
+# step's: GRAD_REL_GAP too (bf16 products over other batch shapes)
+SP_TOL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -549,7 +591,7 @@ def check_flash(results, gen) -> dict:
     before, fell = dict(FA.LAUNCHES), FA.fallback_stats()
     FA.flash_attention(q, k, v, causal=True).float().sum().backward()
     torch.cuda.synchronize()
-    grew = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    grew = {n: FA.LAUNCHES[n] - before[n] for n in K1_K3}
     print(f"flash_attention at S=1000: launches {json.dumps(grew)}",
           flush=True)
     if set(grew.values()) != {1} or FA.fallback_stats() != fell:
@@ -682,7 +724,7 @@ def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
     loop.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(FA.LAUNCHES)
+    launches = {n: FA.LAUNCHES[n] for n in K1_K3}
     peak = torch.cuda.max_memory_allocated()
     curve = [x.item() for x in losses.losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
@@ -702,8 +744,8 @@ def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
                           cfg.num_layers * sum(flash_ms.values()),
                       "fused_ce_head_alone": head_ms,
                       "rest": steady - in_step_ms - head_ms}}), flush=True)
-    want = {name: steps * cfg.num_layers for name in FA.LAUNCHES}
-    if launches != want:
+    want = {name: steps * cfg.num_layers for name in K1_K3}
+    if launches != want or FA.LAUNCHES["flash_carry"]:
         fail(f"flash launches {launches}, expected {want}")
     if FA.fallback_stats():
         fail(f"flash fell back: {FA.fallback_stats()}")
@@ -726,12 +768,302 @@ def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
                                                            batch)
     torch.cuda.synchronize()
     want = {"flash_fwd": 2 * cfg.num_layers, "flash_dq": cfg.num_layers,
-            "flash_dkv": cfg.num_layers}
+            "flash_dkv": cfg.num_layers, "flash_carry": 0}
     print(f"bf16_remat step launches: {json.dumps(FA.LAUNCHES)}",
           flush=True)
     if FA.LAUNCHES != want:
         fail(f"bf16_remat launches {FA.LAUNCHES}, expected {want}")
     return launches
+
+
+# ---- phase 8: the ring carry kernel K4 ---------------------------------------
+
+
+def _carry_case(results, gen, *, diag):
+    """K4 at the ring's per-rank shape: one visit of (k, v) merged into a
+    carry that already holds a full visit of another shard, against the
+    plain version from the same carry."""
+    B, H, S, hd = 4, 12, 1024, 64
+    dev = torch.device("cuda", 0)
+    q, k0, v0, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                       .bfloat16() for _ in range(5))
+    scale = 1.0 / math.sqrt(hd)
+    start = FA.flash_carry_step_plain(q, k0, v0,
+                                      *FA.carry_init(B, H, S, hd, dev),
+                                      scale, False)
+    carry = tuple(t.clone() for t in start)
+    FA.flash_carry_step(q, k, v, *carry, scale=scale, diag=diag)
+    want = FA.flash_carry_step_plain(q, k, v, *start, scale, diag)
+    torch.cuda.synchronize()
+    m_err = (carry[0] - want[0]).abs().max().item()
+    if m_err > F32_TOL:
+        fail(f"flash_carry diag={diag}: the running max is off by {m_err}")
+    out, _ = FA.carry_finalize(*carry)
+    ref, _ = FA.carry_finalize(*want)
+
+    # timing: the same visit again and again into one carry, in place
+    work = tuple(t.clone() for t in start)
+    kernel_ms = graph_ms(lambda i: FA.flash_carry_step(
+        q, k, v, *work, scale=scale, diag=diag), 10)
+    plain_ms = time_ms(lambda i: FA.flash_carry_step_plain(
+        q, k, v, *start, scale, diag), 3, warmup=1)
+    # the yardstick computes the visit from a fresh carry, without the merge
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=diag)
+    one, _ = FA.carry_finalize(*FA.flash_carry_step(
+        q, k, v, *FA.carry_init(B, H, S, hd, dev), scale=scale, diag=diag))
+    if not torch.allclose(lib_out.transpose(1, 2).float(), one,
+                          atol=BF16_ATOL, rtol=BF16_RTOL):
+        fail("the library yardstick disagrees with one K4 visit")
+    library_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=diag), 10)
+    shape = dict(b=B, h=H, s=S, d=hd)
+    _record(results, "flash_carry",
+            {"B": B, "H": H, "S": S, "hd": hd, "diag": diag,
+             "dtype": "bf16"},
+            out, ref, kernel_ms, plain_ms,
+            FA.flash_kernel_bytes("flash_carry", dtype=torch.bfloat16,
+                                  **shape),
+            FA.flash_kernel_flops("flash_carry", causal=diag, **shape),
+            library_ms)
+
+
+def check_carry(results, gen) -> None:
+    """Phase 8."""
+    for diag in (True, False):
+        _carry_case(results, gen, diag=diag)
+
+
+# ---- phases 9-10: ranks on the one card -------------------------------------
+
+SP_N, SP_B, SP_S, SP_H, SP_HD = 4, 4, 4096, 12, 64
+SP_CASES = (("ring", True), ("ring", False), ("ulysses", True),
+            ("ulysses", False))
+
+
+def sp_comm_bytes(kind: str) -> int:
+    """Each rank's payload bytes of one forward + backward (closed form).
+    The ring moves k and v (bf16) forward, and q, the cotangent (bf16),
+    lse and delta ((B, H, S_loc) f32) and the dq partial (f32) backward,
+    n hops each. Ulysses moves q, k, v and the output forward and their
+    cotangents backward, one all-to-all of a bf16 shard each."""
+    s_loc = SP_S // SP_N
+    t = SP_B * s_loc * SP_H * SP_HD * 2
+    rows = SP_B * SP_H * s_loc * 4
+    if kind == "ring":
+        return SP_N * (2 * t) + SP_N * (2 * t + 2 * rows + 2 * t)
+    return 8 * t
+
+
+def sp_want_launches(kind: str, causal: bool) -> dict:
+    """Kernel launches of one forward + backward, summed over the ranks:
+    a causal ring has n (n + 1) / 2 live visits each way (n of them
+    diagonal), a full one n * n; Ulysses runs K1-K3 once a rank."""
+    if kind == "ring":
+        live = SP_N * (SP_N + 1) // 2 if causal else SP_N * SP_N
+        return {"flash_fwd": 0, "flash_dq": live, "flash_dkv": live,
+                "flash_carry": live}
+    return {"flash_fwd": SP_N, "flash_dq": SP_N, "flash_dkv": SP_N,
+            "flash_carry": 0}
+
+
+def _rel_gap(a, b) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def sp_rank(seed: int) -> dict:
+    """One rank of phase 9 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=1, context=SP_N))
+    s_loc = SP_S // SP_N
+    rows = slice(mesh.axis("context").index * s_loc,
+                 (mesh.axis("context").index + 1) * s_loc)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, w = (torch.randn(SP_B, SP_S, SP_H, SP_HD, generator=gen,
+                              device=dev).bfloat16() for _ in range(4))
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    for kind, causal in SP_CASES:
+        fn = (sequence.ring_attention if kind == "ring"
+              else sequence.ulysses_attention)
+
+        def run(fn=fn, causal=causal):
+            leaves = [t[:, rows].clone().requires_grad_() for t in (q, k, v)]
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            with cc.trace_comm() as rec:
+                o = fn(*leaves, causal=causal, impl="auto", mesh=mesh)
+                o.backward(w[:, rows])
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0, o.detach(),
+                    [t.grad for t in leaves], rec)
+
+        FA.reset_launch_counts()
+        _, o, grads, rec = run()
+        launches = dict(FA.LAUNCHES)
+        wall_s = min(run()[0] for _ in range(3))
+        # the reference: flash attention on the whole sequence, one process
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = FA.flash_attention(*leaves, causal=causal)
+        ref.backward(w)
+        torch.cuda.synchronize()
+        out[f"{kind}-{'causal' if causal else 'full'}"] = {
+            "launches": launches,
+            "comm_calls": dict(rec.calls), "comm_bytes": dict(rec.bytes),
+            "fwd_bwd_ms": 1e3 * wall_s,
+            "out_max_abs_err": (o.float() - ref[:, rows].float()).abs()
+            .max().item(),
+            "out_ok": torch.allclose(o.float(), ref[:, rows].float(),
+                                     atol=SP_TOL, rtol=SP_TOL),
+            "grad_rel_gap": {f"d{n}": _rel_gap(g, t.grad[:, rows])
+                             for n, g, t in zip("qkv", grads, leaves)}}
+    return out
+
+
+def _layout(results) -> str:
+    """Where the ranks ran: their cards and the group's backend (on a
+    machine with one card, every rank time-shares cuda:0 over gloo)."""
+    return (f"{len(results)} ranks on {sorted({r['device'] for r in results})}"
+            f", backend {results[0]['backend']}")
+
+
+def check_sp(kind_name: str, seed: int) -> int:
+    """Phase 9. Returns the K4 launches of the ring runs."""
+    t0 = time.perf_counter()
+    results = [r.result for r in run_multiprocess(
+        "chip_smoke:sp_rank", SP_N, [seed], timeout=900)]
+    carry = 0
+    for kind, causal in SP_CASES:
+        case = f"{kind}-{'causal' if causal else 'full'}"
+        per = [r[case] for r in results]
+        total = {n: sum(p["launches"][n] for p in per) for n in FA.LAUNCHES}
+        print(f"sp {case} on {kind_name} ({_layout(results)}): "
+              + json.dumps({
+                  "launches_summed": total,
+                  "comm_bytes_per_rank": [p["comm_bytes"] for p in per],
+                  "fwd_bwd_ms_per_rank": [p["fwd_bwd_ms"] for p in per],
+                  "out_max_abs_err": max(p["out_max_abs_err"] for p in per),
+                  "grad_rel_gap": [p["grad_rel_gap"] for p in per]}),
+              flush=True)
+        want = sp_want_launches(kind, causal)
+        if total != want:
+            fail(f"sp {case}: launches {total}, expected {want}")
+        op = "ppermute[context]" if kind == "ring" else "all_to_all[context]"
+        calls = 7 * SP_N if kind == "ring" else 8
+        for p in per:
+            if p["comm_calls"] != {op: calls} or p["comm_bytes"] != {
+                    op: sp_comm_bytes(kind)}:
+                fail(f"sp {case}: comm {p['comm_calls']} "
+                     f"{p['comm_bytes']}, expected {calls} calls of "
+                     f"{sp_comm_bytes(kind)} bytes")
+            if not p["out_ok"]:
+                fail(f"sp {case}: output off by {p['out_max_abs_err']}")
+            if max(p["grad_rel_gap"].values()) > GRAD_REL_GAP:
+                fail(f"sp {case}: gradient gaps {p['grad_rel_gap']}")
+        if kind == "ring":
+            carry += total["flash_carry"]
+    print(f"sp phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return carry
+
+
+DP_N, DP_B, DP_S, DP_STEPS, DP_LAYERS = 2, 8, 1024, 3, 2
+
+
+def dp_rank(seed: int) -> dict:
+    """One rank of phase 10 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=DP_N))
+    i = mesh.axis("data").index
+    cfg = dataclasses.replace(gpt2_124m(dtype=torch.bfloat16),
+                              num_layers=DP_LAYERS)
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (DP_B, DP_S)).astype(np.int64)
+    per = DP_B // DP_N
+    share = {"tokens": torch.as_tensor(tokens[i * per:(i + 1) * per],
+                                       device=dev)}
+    loss_fn = make_lm_loss_fn(model)
+    # the 1-rank step on the union batch, and this rank's averaged grads
+    _, union = value_and_grad(loss_fn, model,
+                              {"tokens": torch.as_tensor(tokens,
+                                                         device=dev)})
+    _, mine = value_and_grad(loss_fn, model, share)
+    with cc.trace_comm() as rec:
+        mean = cc.pmean(mine, "data", mesh=mesh)
+    gaps = {n: _rel_gap(mean[n], union[n]) for n in union}
+    grad_bytes = sum(g.numel() * g.element_size() for g in union.values())
+    del union, mine, mean
+
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    step = DataParallel(mesh).make_train_step(loss_fn)
+    events = []
+
+    def timed_step(st, b):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = step(st, b)
+        end.record()
+        events.append((start, end))
+        return res
+
+    losses = _Losses()
+    FA.reset_launch_counts()
+    dist.barrier()
+    TrainLoop(timed_step, state, iter(lambda: share, None),
+              hooks=[StopAtStepHook(DP_STEPS), losses]).run()
+    torch.cuda.synchronize()
+    worst = max(gaps, key=gaps.get)
+    return {"rank": dist.get_rank(), "device": str(dev),
+            "backend": dist.get_backend(), "worst_grad": worst,
+            "worst_grad_rel_gap": gaps[worst],
+            "median_grad_rel_gap": float(np.median(list(gaps.values()))),
+            "grad_bytes": grad_bytes,
+            "pmean_bytes": rec.bytes["pmean[data]"],
+            "pmean_wire": rec.wire["pmean[data]"],
+            "loss_curve": [x.item() for x in losses.losses],
+            "step_ms": [a.elapsed_time(b) for a, b in events],
+            "launches": dict(FA.LAUNCHES),
+            "param_sums": [float(p.double().sum())
+                           for p in model.parameters()]}
+
+
+def check_dp(kind_name: str, seed: int) -> None:
+    """Phase 10."""
+    t0 = time.perf_counter()
+    res = [r.result for r in run_multiprocess("chip_smoke:dp_rank", DP_N,
+                                              [seed], timeout=900)]
+    print(f"dp on {kind_name} ({_layout(res)}): "
+          + json.dumps({k: [r[k] for r in res] for k in (
+              "worst_grad", "worst_grad_rel_gap", "median_grad_rel_gap",
+              "grad_bytes", "pmean_wire", "loss_curve", "step_ms",
+              "launches")}), flush=True)
+    layers = DP_STEPS * DP_LAYERS
+    want = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
+            "flash_carry": 0}
+    for r in res:
+        if r["worst_grad_rel_gap"] > GRAD_REL_GAP:
+            fail(f"dp rank {r['rank']}: {r['worst_grad']} gap "
+                 f"{r['worst_grad_rel_gap']} (limit {GRAD_REL_GAP})")
+        if r["launches"] != want:
+            fail(f"dp rank {r['rank']}: launches {r['launches']}, "
+                 f"expected {want}")
+        if r["pmean_bytes"] != r["grad_bytes"] or r["pmean_wire"] != (
+                r["grad_bytes"] * 2 * (DP_N - 1) / DP_N):
+            fail(f"dp rank {r['rank']}: all-reduce bytes "
+                 f"{r['pmean_bytes']} / wire {r['pmean_wire']}")
+        if not all(math.isfinite(x) for x in r["loss_curve"]):
+            fail(f"dp: non-finite loss {r['loss_curve']}")
+    if len({tuple(r["loss_curve"]) for r in res}) != 1:
+        fail("dp: the ranks report different losses")
+    if res[0]["param_sums"] != res[1]["param_sums"]:
+        fail("dp: the replicas' parameters differ after the steps")
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -770,6 +1102,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_ms = check_flash(results, gen)
     launches.update(check_training(cfg, rng, args.seed, kind, flash_ms))
+    torch.cuda.empty_cache()
+    check_carry(results, gen)
+    launches["flash_carry"] = check_sp(kind, args.seed)
+    check_dp(kind, args.seed)
 
     def head(name, pick):
         rows = [r for r in results if r["kernel"] == name]
@@ -796,7 +1132,12 @@ def main() -> int:
          "replaces": FLASH_REPLACES[name], "launches": launches[name],
          **head(name, lambda r: r["S"] == 1024 and r["causal"]
                 and r["dtype"] == "bf16")}
-        for name in ("flash_fwd", "flash_dq", "flash_dkv")
+        for name in K1_K3
+    ] + [
+        {"name": "flash_carry", "route": "cuda", "source": FA.KERNEL_SOURCE,
+         "replaces": FLASH_REPLACES["flash_carry"],
+         "launches": launches["flash_carry"],
+         **head("flash_carry", lambda r: not r["diag"])},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)

@@ -8,19 +8,25 @@ the first CUDA card unless the caller asks for ``device="cpu"``
 kernel written by hand for Hopper (``ops/csrc/``), with a plain PyTorch
 version beside it for the CPU.
 
-Package layout (slices 1-2: the GPT-2 serving path and training step):
-    core/      device resolution, retry helper, is_chief, precision
-    ops/       decode-attention kernels K5/K6 and flash-attention kernels
-               K1-K3 (CUDA) with their plain versions; blockwise attention;
-               the chunked fused cross-entropy
-    models/    Transformer (training, contiguous-decode and paged views),
-               the LM loss, the one-shot generator and samplers
-    parallel/  the single-process data-parallel step, gradient accumulation
-    train/     TrainState, hooks, TrainLoop
-    serve/     paged pool, scheduler, prefix index, engine, CLI
-    obs/       flight recorder (copied)
-    utils/     dispatch accounting
-    bridge     flax param tree <-> state dict, numpy in and out
+Package layout (slices 1-3: the GPT-2 serving path, the training step,
+the process mesh and sequence parallelism):
+    core/        device resolution, the process group's bootstrap
+                 (dist), the process mesh, precision
+    collectives/ psum / pmean / ppermute / all_to_all ... over a mesh axis,
+                 with a comm trace
+    runtime/     the multi-rank process runner; launch: the CLI launcher
+    ops/         decode-attention kernels K5/K6 and flash-attention kernels
+                 K1-K4 (CUDA) with their plain versions; blockwise
+                 attention; the chunked fused cross-entropy
+    models/      Transformer (training, contiguous-decode and paged views),
+                 the LM loss, the one-shot generator and samplers
+    parallel/    data parallelism over a mesh axis, gradient accumulation,
+                 sequence parallelism (ring attention, Ulysses)
+    train/       TrainState, hooks, TrainLoop
+    serve/       paged pool, scheduler, prefix index, engine, CLI
+    obs/         flight recorder (copied)
+    utils/       dispatch accounting
+    bridge       flax param tree <-> state dict, numpy in and out
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Device resolution and process helpers."""
+"""Device resolution, the process group's bootstrap, the process mesh,
+precision."""

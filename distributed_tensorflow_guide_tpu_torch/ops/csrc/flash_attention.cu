@@ -1,13 +1,27 @@
-// Flash attention for Hopper (sm_90a): the forward (K1) and the two halves
-// of the backward, dQ (K2) and dK/dV (K3).
+// Flash attention for Hopper (sm_90a): the forward (K1), the two halves
+// of the backward, dQ (K2) and dK/dV (K3), and the ring-attention carry
+// step (K4).
 //
-// Replaces the three Pallas TPU kernels of the JAX package:
+// Replaces the four Pallas TPU kernels of the JAX package:
 //   K1  distributed_tensorflow_guide_tpu/ops/flash_attention.py _fwd_kernel
 //       (launcher _fwd_call)
 //   K2  distributed_tensorflow_guide_tpu/ops/flash_attention.py
 //       _bwd_dq_kernel (launcher _bwd_dq_call)
 //   K3  distributed_tensorflow_guide_tpu/ops/flash_attention.py
 //       _bwd_dkv_kernel (launcher _bwd_dkv_call)
+//   K4  distributed_tensorflow_guide_tpu/ops/flash_attention.py
+//       _carry_fwd_kernel (launcher flash_carry_step)
+//
+// K4 is K1 with its softmax state brought in and taken out: one ring visit
+// merges the visiting KV shard into the un-normalised carry (m, l, acc) of
+// the local query shard. It is the same kernel code as K1, instantiated
+// with kCarry = true: the CTA loads its rows' m, l and acc where K1 starts
+// from (-inf, 0, 0), walks the visiting shard's KV tiles (up to the
+// diagonal when the visit is the aligned diagonal shard), and stores the
+// carry back un-normalised, in place, where K1 divides by l and writes O
+// and the LSE. At the ring's per-rank shape (S_loc = 1024, hd = 64, bf16)
+// K4 is bound by bytes: the f32 acc is read and written once per visit,
+// 2 x 4 bytes per element against 3 x 2 bytes of q, k and v.
 //
 // What bounds them: at the training path's shapes (S = 1024, hd = 64) K1
 // is about even between bytes and operations and K2/K3 are bound by
@@ -42,6 +56,8 @@
 //   out, dO      (B, S, H, hd) contiguous
 //   dq, dk, dv   (B, S, H, hd) contiguous
 //   lse, delta   (B, H, S) float32 contiguous
+//   m, l (K4)    (B, H, S) float32 contiguous, read and written in place
+//   acc (K4)     (B, H, S, hd) float32 contiguous, un-normalised, in place
 // dtypes: float32 or bfloat16 for q, k, v, out, dO and the gradients;
 // accumulation in float32. head_dim: a multiple of 8 up to 128. Any S:
 // rows and keys past S in the last tile are loaded as zeros and masked.
@@ -140,18 +156,20 @@ __device__ __forceinline__ float half_sum(float x) {
 
 // ==== float32 inputs: scalar FMAs ==========================================
 
-// ---- K1: forward ----------------------------------------------------------
+// ---- K1 (and K4): forward --------------------------------------------------
 // grid (ceil(S / kTile), H, B). The CTA owns query rows [q0, q0 + 64) and
 // walks the KV tiles up to the last one its rows can see, carrying the
 // online softmax (m, l) and the accumulator in registers. DPER = head-dim
-// columns per thread (hd <= 16 * DPER).
-template <int DPER>
+// columns per thread (hd <= 16 * DPER). kCarry (K4): the state starts from
+// and ends in m_io, l_io, acc_io, un-normalised; out and lse are unused.
+template <int DPER, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, long long sb, long long ss,
-                 long long sh, int S, int H, int hd, float scale,
-                 int causal) {
+                 float* __restrict__ lse, float* __restrict__ m_io,
+                 float* __restrict__ l_io, float* __restrict__ acc_io,
+                 long long sb, long long ss, long long sh, int S, int H,
+                 int hd, float scale, int causal) {
   extern __shared__ float smem[];
   const int pitch = hd + 1;
   float* q_s = smem;
@@ -167,13 +185,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile(q_s, pitch, q + off, ss, q0, S, hd);
 
+  const long long rows = ((long long)b * H + h) * S;  // (B, H, S) offset
   float m[4], l[4], acc[4][DPER];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    const int row = q0 + ty + 16 * i;
+    const bool in = kCarry && row < S;
+    m[i] = in ? m_io[rows + row] : kNegInf;
+    l[i] = in ? l_io[rows + row] : 0.f;
 #pragma unroll
-    for (int t = 0; t < DPER; ++t) acc[i][t] = 0.f;
+    for (int t = 0; t < DPER; ++t) {
+      const int d = tx + 16 * t;
+      acc[i][t] = (in && d < hd) ? acc_io[(rows + row) * hd + d] : 0.f;
+    }
   }
 
   const int kv_end = causal ? min(S, q0 + kTile) : S;
@@ -233,6 +257,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;
+    if (kCarry) {
+#pragma unroll
+      for (int t = 0; t < DPER; ++t) {
+        const int d = tx + 16 * t;
+        if (d < hd) acc_io[(rows + row) * hd + d] = acc[i][t];
+      }
+      if (tx == 0) {
+        m_io[rows + row] = m[i];
+        l_io[rows + row] = l[i];
+      }
+      continue;
+    }
     const float safe_l = (l[i] == 0.f) ? 1.f : l[i];
     float* orow = out + (((long long)b * S + row) * H + h) * hd;
 #pragma unroll
@@ -240,7 +276,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = tx + 16 * t;
       if (d < hd) orow[d] = acc[i][t] / safe_l;
     }
-    if (tx == 0) lse[((long long)b * H + h) * S + row] = m[i] + logf(safe_l);
+    if (tx == 0) lse[rows + row] = m[i] + logf(safe_l);
   }
 }
 
@@ -547,15 +583,19 @@ __device__ __forceinline__ void store_rows_tc(FragC (&acc)[NF], float* stage,
   __syncwarp();
 }
 
-// ---- K1 on the tensor cores -----------------------------------------------
+// ---- K1 (and K4) on the tensor cores --------------------------------------
 // grid (ceil(S / kTile), H, B), kTcThreads. Each warp owns 16 query rows;
 // its O accumulator lives in shared memory (f32) so that the online
-// softmax can rescale it row by row.
+// softmax can rescale it row by row. kCarry (K4): m, l and the accumulator
+// start from and end in m_io, l_io, acc_io, un-normalised.
+template <bool kCarry>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out,
-             float* __restrict__ lse, long long sb, long long ss,
-             long long sh, int S, int H, int hd, float scale, int causal) {
+             float* __restrict__ lse, float* __restrict__ m_io,
+             float* __restrict__ l_io, float* __restrict__ acc_io,
+             long long sb, long long ss, long long sh, int S, int H, int hd,
+             float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int hdp = padded_hd(hd);
   const int ld = hdp + 8, ldo = hdp + 4;
@@ -577,12 +617,19 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const long long off = (long long)b * sb + (long long)h * sh;
+  const long long rows = ((long long)b * H + h) * S;  // (B, H, S) offset
   load_tile_bf16(q_s, ld, q + off, ss, q0, S, hd, hdp);
-  for (int i = lane; i < 16 * ldo; i += 32) o_w[i] = 0.f;
+  for (int i = lane; i < 16 * ldo; i += 32) {
+    const int rr = i / ldo, d = i % ldo, row = q0 + warp * 16 + rr;
+    o_w[i] = (kCarry && row < S && d < hd) ? acc_io[(rows + row) * hd + d]
+                                           : 0.f;
+  }
 
   const int r = lane >> 1, half = lane & 1;  // two lanes per row
   const int qpos = q0 + warp * 16 + r;
-  float m = kNegInf, l = 0.f;
+  const bool carried = kCarry && qpos < S;
+  float m = carried ? m_io[rows + qpos] : kNegInf;
+  float l = carried ? l_io[rows + qpos] : 0.f;
 
   const int kv_end = causal ? min(S, q0 + kTile) : S;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
@@ -638,13 +685,21 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncwarp();
   }
 
-  if (qpos < S) {
-    const float safe_l = (l == 0.f) ? 1.f : l;
-    bf16* orow = out + (((long long)b * S + qpos) * H + h) * hd;
+  if (qpos >= S) return;
+  if (kCarry) {
     for (int d = half; d < hd; d += 2)
-      orow[d] = __float2bfloat16(o_w[r * ldo + d] / safe_l);
-    if (half == 0) lse[((long long)b * H + h) * S + qpos] = m + logf(safe_l);
+      acc_io[(rows + qpos) * hd + d] = o_w[r * ldo + d];
+    if (half == 0) {
+      m_io[rows + qpos] = m;
+      l_io[rows + qpos] = l;
+    }
+    return;
   }
+  const float safe_l = (l == 0.f) ? 1.f : l;
+  bf16* orow = out + (((long long)b * S + qpos) * H + h) * hd;
+  for (int d = half; d < hd; d += 2)
+    orow[d] = __float2bfloat16(o_w[r * ldo + d] / safe_l);
+  if (half == 0) lse[rows + qpos] = m + logf(safe_l);
 }
 
 // ---- K2 on the tensor cores -----------------------------------------------
@@ -839,6 +894,7 @@ struct Args {
   const float *lse_in, *delta;
   void *out0, *out1;
   float* lse_out;
+  float *m, *l, *acc;  // K4's carry
   long long sb, ss, sh;
   int B, S, H, hd;
   float scale;
@@ -854,12 +910,24 @@ int launch_f32(int which, const Args& a) {
   const float* v = static_cast<const float*>(a.v);
   int rc = 0;
   if (which == 0) {
-    static const int set = opt_in(flash_fwd_kernel<DPER>, fwd_smem(128));
+    static const int set =
+        opt_in(flash_fwd_kernel<DPER, false>, fwd_smem(128));
     rc = set;
     if (rc) return rc;
-    flash_fwd_kernel<DPER><<<grid, kThreads, fwd_smem(a.hd), a.stream>>>(
-        q, k, v, static_cast<float*>(a.out0), a.lse_out, a.sb, a.ss, a.sh,
-        a.S, a.H, a.hd, a.scale, a.causal);
+    flash_fwd_kernel<DPER, false>
+        <<<grid, kThreads, fwd_smem(a.hd), a.stream>>>(
+            q, k, v, static_cast<float*>(a.out0), a.lse_out, nullptr,
+            nullptr, nullptr, a.sb, a.ss, a.sh, a.S, a.H, a.hd, a.scale,
+            a.causal);
+  } else if (which == 3) {
+    static const int set =
+        opt_in(flash_fwd_kernel<DPER, true>, fwd_smem(128));
+    rc = set;
+    if (rc) return rc;
+    flash_fwd_kernel<DPER, true>
+        <<<grid, kThreads, fwd_smem(a.hd), a.stream>>>(
+            q, k, v, nullptr, nullptr, a.m, a.l, a.acc, a.sb, a.ss, a.sh,
+            a.S, a.H, a.hd, a.scale, a.causal);
   } else if (which == 1) {
     static const int set = opt_in(flash_dq_kernel<DPER>, dq_smem(128));
     rc = set;
@@ -888,12 +956,19 @@ int launch_tc(int which, const Args& a) {
   const bf16* v = static_cast<const bf16*>(a.v);
   int rc = 0;
   if (which == 0) {
-    static const int set = opt_in(flash_fwd_tc, fwd_tc_smem(128));
+    static const int set = opt_in(flash_fwd_tc<false>, fwd_tc_smem(128));
     rc = set;
     if (rc) return rc;
-    flash_fwd_tc<<<grid, kTcThreads, fwd_tc_smem(a.hd), a.stream>>>(
-        q, k, v, static_cast<bf16*>(a.out0), a.lse_out, a.sb, a.ss, a.sh,
-        a.S, a.H, a.hd, a.scale, a.causal);
+    flash_fwd_tc<false><<<grid, kTcThreads, fwd_tc_smem(a.hd), a.stream>>>(
+        q, k, v, static_cast<bf16*>(a.out0), a.lse_out, nullptr, nullptr,
+        nullptr, a.sb, a.ss, a.sh, a.S, a.H, a.hd, a.scale, a.causal);
+  } else if (which == 3) {
+    static const int set = opt_in(flash_fwd_tc<true>, fwd_tc_smem(128));
+    rc = set;
+    if (rc) return rc;
+    flash_fwd_tc<true><<<grid, kTcThreads, fwd_tc_smem(a.hd), a.stream>>>(
+        q, k, v, nullptr, nullptr, a.m, a.l, a.acc, a.sb, a.ss, a.sh, a.S,
+        a.H, a.hd, a.scale, a.causal);
   } else if (which == 1) {
     static const int set = opt_in(flash_dq_tc<NF>, dq_tc_smem(128));
     rc = set;
@@ -914,7 +989,8 @@ int launch_tc(int which, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype codes: 0 float32 (scalar FMAs), 1 bfloat16 (tensor cores).
+// which: 0 K1, 1 K2, 2 K3, 3 K4. dtype codes: 0 float32 (scalar FMAs),
+// 1 bfloat16 (tensor cores).
 // Returns -1 for what no instantiation takes (the Python wrapper checks
 // before it calls).
 int dispatch(int which, int dtype, const Args& a) {
@@ -937,7 +1013,8 @@ int dtg_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   int B, int S, int H, int hd, float scale, int causal,
                   int dtype, cudaStream_t stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, out, nullptr, lse,
-         sb, ss, sh, B, S, H, hd, scale, causal, stream};
+         nullptr, nullptr, nullptr, sb, ss, sh, B, S, H, hd, scale, causal,
+         stream};
   return dispatch(0, dtype, a);
 }
 
@@ -948,7 +1025,8 @@ int dtg_flash_bwd_dq(const void* q, const void* k, const void* v,
                      int B, int S, int H, int hd, float scale, int causal,
                      int dtype, cudaStream_t stream) {
   Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-         sb, ss, sh, B, S, H, hd, scale, causal, stream};
+         nullptr, nullptr, nullptr, sb, ss, sh, B, S, H, hd, scale, causal,
+         stream};
   return dispatch(1, dtype, a);
 }
 
@@ -959,8 +1037,20 @@ int dtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       long long sh, int B, int S, int H, int hd, float scale,
                       int causal, int dtype, cudaStream_t stream) {
   Args a{q, k, v, dout, lse, delta, dk, dv, nullptr,
-         sb, ss, sh, B, S, H, hd, scale, causal, stream};
+         nullptr, nullptr, nullptr, sb, ss, sh, B, S, H, hd, scale, causal,
+         stream};
   return dispatch(2, dtype, a);
+}
+
+// K4: one ring visit; m, l (B, H, S) f32 and acc (B, H, S, hd) f32 are
+// read and written in place. diag: causal within the aligned shard.
+int dtg_flash_carry(const void* q, const void* k, const void* v, float* m,
+                    float* l, float* acc, long long sb, long long ss,
+                    long long sh, int B, int S, int H, int hd, float scale,
+                    int diag, int dtype, cudaStream_t stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         m, l, acc, sb, ss, sh, B, S, H, hd, scale, diag, stream};
+  return dispatch(3, dtype, a);
 }
 
 }  // extern "C"

@@ -1,12 +1,17 @@
-"""Fused flash attention: forward and backward as hand-written CUDA kernels.
+"""Fused flash attention: forward, backward and the ring-attention carry
+step as hand-written CUDA kernels.
 
-Three kernels, written by hand for Hopper in ``csrc/flash_attention.cu``
+Four kernels, written by hand for Hopper in ``csrc/flash_attention.cu``
 (built by ``ops/_build.py``):
 
 * **K1** :func:`flash_fwd` — online-softmax forward; gives O and the
   per-row log-sum-exp (LSE) the backward recomputes P from;
 * **K2** :func:`flash_bwd_dq` — dQ, one CTA per query tile;
-* **K3** :func:`flash_bwd_dkv` — dK and dV, one CTA per key tile.
+* **K3** :func:`flash_bwd_dkv` — dK and dV, one CTA per key tile;
+* **K4** :func:`flash_carry_step` — one ring-attention visit: K1's loop
+  over a visiting KV shard, merged into an un-normalised carry (m, l, acc)
+  that enters and leaves in device memory (``parallel/sequence.py``);
+  :func:`carry_init` and :func:`carry_finalize` open and close a ring.
 
 :func:`flash_attention` (the public call, layout (B, S, H, D)) is a
 ``torch.autograd.Function`` over them: the forward saves q, k, v, out and
@@ -16,7 +21,8 @@ ever stored.
 
 Dispatch rule: a wrapper runs its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
-:func:`flash_bwd_dkv_plain`) only when the tensors lie on the CPU. A CUDA
+:func:`flash_bwd_dkv_plain`, :func:`flash_carry_step_plain`) only when the
+tensors lie on the CPU. A CUDA
 tensor launches the kernel or raises; nothing falls back. Each launch adds
 one to ``LAUNCHES[name]``.
 
@@ -49,7 +55,8 @@ TILE = 64  # rows per tile of the CUDA kernels and of the plain versions
 MAX_HEAD_DIM = 128
 KERNEL_SOURCE = "distributed_tensorflow_guide_tpu_torch/ops/csrc/flash_attention.cu"
 
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_carry": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,7 +70,8 @@ def reset_launch_counts() -> None:
 # the bound model (bytes each kernel must move, operations it must do)
 # --------------------------------------------------------------------------
 
-_FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}  # x hd
+_FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8,
+                   "flash_carry": 4}  # x hd
 
 
 def visible_pairs(b: int, h: int, s: int, causal: bool) -> int:
@@ -77,9 +85,12 @@ def flash_kernel_bytes(kernel: str, *, b: int, h: int, s: int, d: int,
     """Least device-memory traffic of one call: each input read once, each
     output written once. K1 reads q, k, v and writes O and the f32 LSE; K2
     reads q, k, v, dO, LSE and delta and writes dQ; K3 reads the same and
-    writes dK and dV."""
+    writes dK and dV; K4 reads q, k, v and reads and writes the f32 carry
+    (m, l and acc)."""
     t = b * s * h * d * dtype.itemsize
     rows = b * h * s * 4
+    if kernel == "flash_carry":
+        return float(3 * t + 4 * rows + 2 * b * h * s * d * 4)
     if kernel == "flash_fwd":
         return float(4 * t + rows)
     if kernel == "flash_dq":
@@ -92,8 +103,9 @@ def flash_kernel_bytes(kernel: str, *, b: int, h: int, s: int, d: int,
 def flash_kernel_flops(kernel: str, *, b: int, h: int, s: int, d: int,
                        causal: bool) -> float:
     """Operations of one call: 2 * hd per visible pair for each of the
-    kernel's products (K1: Q K^T and P V; K2: + dO V^T and dS K in place of
-    P V; K3: Q K^T, dO V^T, P^T dO, dS^T Q)."""
+    kernel's products (K1 and K4: Q K^T and P V; K2: + dO V^T and dS K in
+    place of P V; K3: Q K^T, dO V^T, P^T dO, dS^T Q). For K4, ``causal`` is
+    the visit's ``diag``."""
     return float(_FLOPS_PER_PAIR[kernel] * d
                  * visible_pairs(b, h, s, causal))
 
@@ -127,18 +139,26 @@ def _masked_scores(q, k, scale, causal, q0, k0):
     return s
 
 
-def flash_fwd_plain(q, k, v, scale: float, causal: bool):
-    """K1's function: (out (B, S, H, D) in q's dtype, lse (B, H, S) f32).
+def carry_init(b: int, h: int, s: int, d: int, device=None):
+    """A fresh carry (m, l, acc): (B, H, S) f32 at NEG_INF, (B, H, S) f32
+    zeros and (B, H, S, D) f32 zeros."""
+    return (torch.full((b, h, s), NEG_INF, device=device),
+            torch.zeros((b, h, s), device=device),
+            torch.zeros((b, h, s, d), device=device))
+
+
+def flash_carry_step_plain(q, k, v, m, l, acc, scale: float, diag: bool):
+    """K4's function: the carry (m, l (B, H, S), acc (B, H, S, D), f32)
+    after one visit of the KV shard (k, v) to the query shard q, all
+    (B, S_loc, H, D); ``diag`` masks causally within the aligned shard.
     The online softmax over KV tiles of ``TILE`` keys, with the masked
-    entries zeroed (``s <= NEG_INF / 2``) and ``safe_l``; l sums the f32 P,
-    P V takes P in q's dtype."""
+    entries zeroed (``s <= NEG_INF / 2``); l sums the f32 P, P V takes P
+    in q's dtype. Returns new tensors."""
     qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
-    B, H, S, D = qf.shape
-    m = torch.full((B, H, S, 1), NEG_INF, device=q.device)
-    l = torch.zeros((B, H, S, 1), device=q.device)
-    acc = torch.zeros((B, H, S, D), device=q.device)
+    S = kf.shape[2]
+    m, l = m[..., None], l[..., None]
     for k0 in range(0, S, TILE):
-        s = _masked_scores(qf, kf[:, :, k0:k0 + TILE], scale, causal, 0, k0)
+        s = _masked_scores(qf, kf[:, :, k0:k0 + TILE], scale, diag, 0, k0)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -147,9 +167,27 @@ def flash_fwd_plain(q, k, v, scale: float, causal: bool):
         acc = acc * alpha + torch.matmul(_operand(p, q.dtype),
                                          vf[:, :, k0:k0 + TILE])
         m = m_new
+    return m[..., 0], l[..., 0], acc
+
+
+def carry_finalize(m, l, acc):
+    """(out (B, S, H, D) f32, lse (B, H, S) f32): the carry normalised
+    once, after the last visit; a row that saw no key (l = 0) gives 0 and
+    keeps its m as its LSE (``safe_l``)."""
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    out = (acc / safe_l).to(q.dtype).transpose(1, 2).contiguous()
-    return out, (m + torch.log(safe_l))[..., 0].contiguous()
+    out = (acc / safe_l[..., None]).transpose(1, 2).contiguous()
+    return out, (m + torch.log(safe_l)).contiguous()
+
+
+def flash_fwd_plain(q, k, v, scale: float, causal: bool):
+    """K1's function: (out (B, S, H, D) in q's dtype, lse (B, H, S) f32):
+    one visit of the whole sequence from a fresh carry, then the
+    normaliser."""
+    B, S, H, D = q.shape
+    carry = carry_init(B, H, S, D, device=q.device)
+    out, lse = carry_finalize(*flash_carry_step_plain(q, k, v, *carry, scale,
+                                                      causal))
+    return out.to(q.dtype), lse
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale: float,
@@ -208,8 +246,9 @@ def _lib():
         lib.dtg_flash_fwd.argtypes = [vp] * 5 + tail
         lib.dtg_flash_bwd_dq.argtypes = [vp] * 7 + tail
         lib.dtg_flash_bwd_dkv.argtypes = [vp] * 8 + tail
+        lib.dtg_flash_carry.argtypes = [vp] * 6 + tail
         for fn in (lib.dtg_flash_fwd, lib.dtg_flash_bwd_dq,
-                   lib.dtg_flash_bwd_dkv):
+                   lib.dtg_flash_bwd_dkv, lib.dtg_flash_carry):
             fn.restype = ctypes.c_int
         lib._dtg_bound = True
     return lib
@@ -332,6 +371,32 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     _raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
+
+
+def flash_carry_step(q, k, v, m, l, acc, *, scale: float, diag: bool):
+    """K4: one ring visit, merging the KV shard (k, v) into the carry of the
+    query shard q. q, k, v: (B, S_loc, H, D), K1's layout and dtypes; m, l:
+    (B, H, S_loc) f32; acc: (B, H, S_loc, D) f32, un-normalised; ``diag``:
+    causal masking within the aligned shard (the caller skips the dead
+    visits). Returns the carry: on the card the same three tensors, updated
+    in place (the ring's forward runs without autograd); on the CPU new
+    tensors from the plain version."""
+    if q.device.type == "cpu":
+        return flash_carry_step_plain(q, k, v, m, l, acc, scale, diag)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_carry_step: unsupported device {q.device}")
+    q, k, v, (sb, ss, sh) = _kernel_layout(q, k, v)
+    B, S, H, D = q.shape
+    _check_rows("m", m, (B, H, S), q.device)
+    _check_rows("l", l, (B, H, S), q.device)
+    _check_rows("acc", acc, (B, H, S, D), q.device)
+    rc = _lib().dtg_flash_carry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), sb, ss, sh, B, S, H, D, scale,
+        int(diag), _DTYPE_CODE[q.dtype], _stream(q))
+    _raise_on(rc, "flash_carry_step")
+    LAUNCHES["flash_carry"] += 1
+    return m, l, acc
 
 
 # --------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Parallel strategies: single-device data parallelism so far."""
+"""Parallel strategies: data parallelism over a mesh axis, gradient
+accumulation, sequence parallelism."""

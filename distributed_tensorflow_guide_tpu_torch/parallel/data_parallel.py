@@ -2,11 +2,12 @@
 
 The JAX package's ``DataParallel`` builds one compiled SPMD step over a
 mesh's ``data`` axis: per-shard forward and backward, an explicit
-``pmean`` of the gradients, the same optimizer update everywhere. This
-slice ports the single-process form: with no process group (or one of
-size 1) the world is one, no collective runs, and the step is forward,
-backward and the optimizer update on one card. A group of more ranks
-raises: multi-rank gradient all-reduce comes with ROADMAP Queue 1 item 3.
+``pmean`` of the gradients, the same optimizer update everywhere. Here
+every rank is a process holding a full replica: it runs its share of the
+batch forward and backward, ``collectives.pmean`` averages the gradients
+over the mesh's ``data`` axis (one flat all-reduce), and every rank
+applies the same update, which keeps the replicas in lockstep without
+ever broadcasting parameters. Without a mesh the world is one rank.
 
 Metrics leave the step as 0-d device tensors: nothing in the step forces
 a host sync; a hook that reads a value pays for it.
@@ -18,14 +19,20 @@ from typing import Any, Callable
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.collectives import collectives as cc
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
+)
+from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+    Mesh,
+    single_device_mesh,
 )
 from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     LossFn,
     accumulate_grads,
     value_and_grad,
 )
+
 
 def to_device(batch: dict, device: torch.device) -> dict:
     """A host batch (numpy arrays or tensors) on ``device``."""
@@ -35,23 +42,20 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 class DataParallel:
     """Build ``(state, batch) -> (state, metrics)`` train steps and
-    ``(state, batch) -> metrics`` eval steps.
+    ``(state, batch) -> metrics`` eval steps over ``mesh``'s ``axis``.
 
-    ``device=None`` is the first CUDA card (raises without one);
-    ``device="cpu"`` runs the plain versions of the kernels. The state's
-    module must already live on that device; batches are moved there.
+    ``mesh=None`` is a world of one rank. ``device=None`` is this rank's
+    CUDA card (raises without one); ``device="cpu"`` runs the plain
+    versions of the kernels. The state's module must already live on that
+    device, with the same parameters on every rank; each rank's batch is
+    its own share of the global batch and is moved there.
     """
 
-    def __init__(self, group=None, *, device=None):
-        if group is not None:
-            import torch.distributed as dist
-
-            if dist.get_world_size(group) > 1:
-                raise NotImplementedError(
-                    "a process group of more than one rank: ROADMAP Queue 1 "
-                    "item 3 (process groups and sync DP)")
-        self.group = group
-        self.world = 1
+    def __init__(self, mesh: Mesh | None = None, axis: str = "data", *,
+                 device=None):
+        self.mesh = mesh if mesh is not None else single_device_mesh()
+        self.axis = axis
+        self.mesh.axis(axis)  # an axis the mesh has
         self.device = resolve_device(device)
 
     def _check(self, state):
@@ -64,10 +68,12 @@ class DataParallel:
     def make_train_step(self, loss_fn: LossFn, *, accum_steps: int = 1):
         """``(state, batch) -> (state, {"loss", **metrics})``.
 
-        ``accum_steps > 1`` splits the batch into that many equal
-        microbatches and averages their gradients before the one update:
-        the full batch's numerics, with activation memory divided by
-        ``accum_steps``. The batch length must divide by it.
+        The gradients, the loss and the metrics are averaged over the axis
+        (``pmean``) before the one update. ``accum_steps > 1`` splits this
+        rank's batch into that many equal microbatches and averages their
+        gradients first: the full batch's numerics, with activation memory
+        divided by ``accum_steps``, and still one all-reduce per step. The
+        batch length must divide by it.
         """
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -91,19 +97,22 @@ class DataParallel:
                     loss_fn, state.model, micro, accum_steps)
                 loss = losses.mean()
                 mets = {k: v.mean() for k, v in metas.items()}
+            grads = cc.pmean(grads, self.axis, mesh=self.mesh)
             state = state.apply_gradients(grads)
-            return state, {"loss": loss, **mets}
+            return state, cc.pmean({"loss": loss, **mets}, self.axis,
+                                   mesh=self.mesh)
 
         return step
 
     def make_eval_step(self, metric_fn: Callable[[torch.nn.Module, Any],
                                                  dict]):
-        """``(state, batch) -> metrics``, without gradients."""
+        """``(state, batch) -> metrics``, without gradients, averaged over
+        the axis."""
 
         def eval_step(state, batch):
             self._check(state)
             with torch.no_grad():
-                return metric_fn(state.model,
-                                 to_device(batch, self.device))
+                mets = metric_fn(state.model, to_device(batch, self.device))
+            return cc.pmean(mets, self.axis, mesh=self.mesh)
 
         return eval_step

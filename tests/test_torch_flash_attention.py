@@ -1,6 +1,6 @@
-"""The port's flash attention (K1-K3 plain versions, the autograd
-Function, the fallback rule) and blockwise/dense attention, held to the
-JAX package on the same inputs.
+"""The port's flash attention (K1-K4 plain versions, the autograd
+Function, the fallback rule, the ring carry's init and finalize) and
+blockwise/dense attention, held to the JAX package on the same inputs.
 
 The JAX kernels run in Pallas interpret mode on the CPU, with blocks
 pinned to 32 so that S = 64 and 128 reach the kernels, not the fallback.
@@ -216,8 +216,97 @@ def test_cpu_calls_leave_the_launch_counts_at_zero():
     FA.reset_launch_counts()
     q, k, v = (_t(x).requires_grad_() for x in _inputs(128, 32, n=3))
     FA.flash_attention(q, k, v, causal=True).sum().backward()
-    assert FA.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert FA.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                           "flash_carry": 0}
     assert q.grad is not None
+
+
+# ---- K4: the ring carry step -------------------------------------------------
+
+
+def _pad_lanes(x):
+    """(B, S, H, D) numpy -> the JAX kernels' (B, H, S, 128), zero-padded
+    head dim."""
+    x = np.transpose(x, (0, 2, 1, 3))
+    return jnp.asarray(np.pad(x, ((0, 0),) * 3 + ((0, jfa.LANE
+                                                   - x.shape[-1]),)))
+
+
+def _jax_carry_visit(q, k, v, carry, diag):
+    """One JAX ``flash_carry_step`` visit in interpret mode from a carry
+    given in the port's layout; returns the carry in the port's layout:
+    m, l (B, H, S) and acc (B, H, S, D)."""
+    m, l, acc = carry
+    d = q.shape[-1]
+    acc_p = np.pad(acc, ((0, 0),) * 3 + ((0, jfa.LANE - d),))
+    jm, jl, jacc = jfa.flash_carry_step(
+        _pad_lanes(q), _pad_lanes(k), _pad_lanes(v), _lanes(m), _lanes(l),
+        jnp.asarray(acc_p), scale=1.0 / d ** 0.5, diag=diag, blk_q=BLK,
+        blk_k=BLK)
+    return (np.array(jm[..., 0]), np.array(jl[..., 0]),
+            np.array(jacc[..., :d]))
+
+
+CARRY_CASES = [(diag, start) for diag in (True, False)
+               for start in ("fresh", "one_visit")]
+
+
+@pytest.mark.parametrize("diag,start", CARRY_CASES,
+                         ids=[f"{'diag' if d else 'full'}-{s}"
+                              for d, s in CARRY_CASES])
+def test_plain_carry_step_matches_the_pallas_carry_kernel(diag, start):
+    """K4's plain version against JAX ``flash_carry_step`` (Pallas,
+    interpret mode): from a fresh carry, and from the carry one earlier
+    visit of another KV shard left (the JAX kernel's, handed to both)."""
+    q, k, v, k0, v0 = _inputs(128, 32, seed=6, n=5)
+    b, s, h, d = q.shape
+    fresh = tuple(x.numpy() for x in FA.carry_init(b, h, s, d))
+    carry = (fresh if start == "fresh"
+             else _jax_carry_visit(q, k0, v0, fresh, diag=False))
+    want = _jax_carry_visit(q, k, v, carry, diag)
+    got = FA.flash_carry_step_plain(*(_t(x) for x in (q, k, v, *carry)),
+                                    1.0 / d ** 0.5, diag)
+    for name, g, w in zip(("m", "l", "acc"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=name)
+    # the wrapper takes the plain version for CPU tensors and counts no
+    # launch
+    FA.reset_launch_counts()
+    again = FA.flash_carry_step(*(_t(x) for x in (q, k, v, *carry)),
+                                scale=1.0 / d ** 0.5, diag=diag)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert FA.LAUNCHES["flash_carry"] == 0
+
+
+def test_carry_finalize_matches_jax():
+    """The normaliser after the visits, and a row that saw no key: 0 out,
+    and its m (NEG_INF) as its LSE (``safe_l``), as in the JAX package."""
+    q, k, v = _inputs(64, 32, seed=7, n=3)
+    b, s, h, d = q.shape
+    fresh = tuple(x.numpy() for x in FA.carry_init(b, h, s, d))
+    m, l, acc = _jax_carry_visit(q, k, v, fresh, diag=True)
+    l[:, :, 5] = 0.0  # a row with no visible key
+    acc[:, :, 5] = 0.0
+    m[:, :, 5] = FA.NEG_INF
+    acc_p = np.pad(acc, ((0, 0),) * 3 + ((0, jfa.LANE - d),))
+    j_out, j_lse = jfa.carry_finalize(_lanes(m), _lanes(l),
+                                      jnp.asarray(acc_p))
+    out, lse = FA.carry_finalize(_t(m), _t(l), _t(acc))
+    np.testing.assert_allclose(out.numpy(), _bshd(np.asarray(j_out)[..., :d]),
+                               **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], **TOL)
+    assert not out[:, 5].any()
+
+
+def test_a_whole_visit_from_a_fresh_carry_is_the_forward():
+    """One diagonal visit of the whole sequence, then the normaliser, is
+    K1's plain forward bit for bit (the same code)."""
+    q, k, v = (_t(x) for x in _inputs(128, 32, seed=8, n=3))
+    b, s, h, d = q.shape
+    carry = FA.flash_carry_step_plain(q, k, v, *FA.carry_init(b, h, s, d),
+                                      0.25, True)
+    out, lse = FA.carry_finalize(*carry)
+    want_out, want_lse = FA.flash_fwd_plain(q, k, v, 0.25, True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
 
 
 def test_kernel_bounds_count_what_the_path_moves():
@@ -228,3 +317,11 @@ def test_kernel_bounds_count_what_the_path_moves():
                                  **shape) == 4 * 12_582_912 + 393_216
     assert FA.flash_kernel_flops("flash_dkv", causal=True, **shape) == (
         8 * 64 * 50_380_800)
+    # K4 at the ring's per-rank shape: q, k, v once, m and l in and out,
+    # the f32 acc in and out
+    ring = dict(b=4, h=12, s=1024, d=64)
+    assert FA.flash_kernel_bytes("flash_carry", dtype=torch.bfloat16,
+                                 **ring) == (3 * 6_291_456 + 4 * 196_608
+                                             + 2 * 12_582_912)
+    assert FA.flash_kernel_flops("flash_carry", causal=False, **ring) == (
+        4 * 64 * 4 * 12 * 1024 * 1024)

@@ -1,5 +1,5 @@
 """The hand-written decode-attention kernels (K5, K6) and flash-attention
-kernels (K1-K3) against their plain PyTorch versions, on CUDA tensors.
+kernels (K1-K4) against their plain PyTorch versions, on CUDA tensors.
 
 Needs the card; each test decides inside itself to skip where there is
 none. This file imports neither jax nor the JAX package, so it also runs
@@ -8,7 +8,7 @@ on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_kernels_gpu.py
 
-Tolerances: float32 1e-5 for K5/K6 and 1e-4 for K1-K3 (the kernels sum
+Tolerances: float32 1e-5 for K5/K6 and 1e-4 for K1-K4 (the kernels sum
 the same products in another order; a flash output sums up to S products,
 a gradient of K3 up to S of them per query tile); bf16 outputs 1e-2, one
 bf16 step at |x| < 2 (the kernel rounds an f32 result once, the plain
@@ -164,7 +164,8 @@ def test_flash_kernels_match_plain_versions_on_the_card(kind, causal):
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
         assert FA.LAUNCHES == {"flash_fwd": before["flash_fwd"] + 1,
                                "flash_dq": before["flash_dq"] + 2,
-                               "flash_dkv": before["flash_dkv"] + 2}
+                               "flash_dkv": before["flash_dkv"] + 2,
+                               "flash_carry": before["flash_carry"]}
 
 
 @pytest.mark.gpu
@@ -241,5 +242,68 @@ def test_the_model_trains_through_the_kernels_at_a_ragged_length():
     TrainLoop(DataParallel().make_train_step(loss_fn), state,
               iter(lambda: batch, None), hooks=[StopAtStepHook(2)]).run()
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {name: 2 * cfg.num_layers for name in FA.LAUNCHES}
+    assert FA.LAUNCHES == {"flash_fwd": 2 * cfg.num_layers,
+                           "flash_dq": 2 * cfg.num_layers,
+                           "flash_dkv": 2 * cfg.num_layers,
+                           "flash_carry": 0}
     assert FA.fallback_stats() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("diag", [True, False], ids=["diag", "full"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_carry_kernel_matches_its_plain_version_on_the_card(kind, diag):
+    """K4 at the ring's per-rank shape (B=4, H=12, hd=64) and at a ragged
+    S_loc = 1000: two visits in a row (a fresh carry, then the carry the
+    first one left), in place, against the plain version; the normalised
+    output at 1e-4 (f32) or 1e-2 (bf16), the carry's running max m at
+    1e-4 (the LSE's bound in the K1 test: score sums in another order) and
+    l, acc relative to their largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    tol = FLASH_TOL[kind]
+    for s in (1024, 1000):
+        b, h, hd = 4, 12, 64
+        q, k0, v0, k1, v1 = (torch.randn(b, s, h, hd, generator=gen,
+                                         device=dev).to(dtype)
+                             for _ in range(5))
+        scale = hd ** -0.5
+        carry = FA.carry_init(b, h, s, hd, device=dev)
+        want = tuple(t.clone() for t in carry)
+        before = FA.LAUNCHES["flash_carry"]
+        for kk, vv, d in ((k0, v0, False), (k1, v1, diag)):
+            got = FA.flash_carry_step(q, kk, vv, *carry, scale=scale, diag=d)
+            assert all(a is b for a, b in zip(got, carry))  # in place
+            want = FA.flash_carry_step_plain(q, kk, vv, *want, scale, d)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES["flash_carry"] == before + 2
+        torch.testing.assert_close(carry[0], want[0], atol=1e-4, rtol=1e-5)
+        for got_t, want_t in zip(carry[1:], want[1:]):
+            torch.testing.assert_close(got_t / want_t.abs().amax(),
+                                       want_t / want_t.abs().amax(),
+                                       atol=tol, rtol=0)
+        out, lse = FA.carry_finalize(*carry)
+        ref, ref_lse = FA.carry_finalize(*want)
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_carry_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    m, l, acc = FA.carry_init(1, 2, 64, 64, device=dev)
+    with pytest.raises(ValueError):  # a carry of the wrong length
+        FA.flash_carry_step(q, q, q, m[:, :, :32].contiguous(), l, acc,
+                            scale=0.125, diag=True)
+    with pytest.raises(ValueError):  # acc not f32
+        FA.flash_carry_step(q, q, q, m, l, acc.bfloat16(), scale=0.125,
+                            diag=True)
+    with pytest.raises(ValueError):  # a carry on the CPU
+        FA.flash_carry_step(q, q, q, m.cpu(), l, acc, scale=0.125,
+                            diag=True)

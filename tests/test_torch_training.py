@@ -38,6 +38,10 @@ from distributed_tensorflow_guide_tpu.parallel.data_parallel import (
 from distributed_tensorflow_guide_tpu_torch import bridge
 from distributed_tensorflow_guide_tpu_torch.core import precision
 from distributed_tensorflow_guide_tpu_torch.core.dist import is_chief
+from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+    MeshSpec,
+    build_mesh,
+)
 from distributed_tensorflow_guide_tpu_torch.models import transformer as ttf
 from distributed_tensorflow_guide_tpu_torch.ops import fused_ce
 from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
@@ -372,16 +376,17 @@ def test_deferred_knobs_raise_naming_their_roadmap_item(call, item):
 
 
 def test_data_parallel_takes_a_process_group_of_one_rank(jparams, tmp_path):
-    """A group of one rank is the world of one: the step runs no
-    collective and gives the step without a group, bit for bit."""
+    """A mesh over a process group of one rank is the world of one: the
+    step's all-reduce moves nothing and the step gives the step without a
+    mesh, bit for bit."""
     import torch.distributed as dist
 
     batch = {"tokens": _tokens(12)}
 
-    def one_step(group):
+    def one_step(mesh):
         m = _model(jparams)
         st = TrainState(m, torch.optim.SGD(m.parameters(), lr=0.1))
-        _, mets = DataParallel(group, device="cpu").make_train_step(
+        _, mets = DataParallel(mesh, device="cpu").make_train_step(
             ttf.make_lm_loss_fn(m))(st, batch)
         return mets["loss"], m.state_dict()
 
@@ -389,9 +394,9 @@ def test_data_parallel_takes_a_process_group_of_one_rank(jparams, tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
                             rank=0, world_size=1)
     try:
-        group = dist.new_group([0])
-        assert is_chief()
-        loss, got = one_step(group)
+        mesh = build_mesh(MeshSpec(data=-1))
+        assert mesh.axis("data").size == 1 and is_chief()
+        loss, got = one_step(mesh)
     finally:
         dist.destroy_process_group()
     assert loss.item() == want_loss.item()
