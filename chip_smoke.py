@@ -20,7 +20,8 @@ and check them.
    the same teacher-forced check;
 6. hold the flash kernels K1 (forward), K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8, H=12, hd=64: S=1024 bf16 causal and not,
-   a ragged S=1000 and an f32 case; time kernel, plain version, bound and
+   a ragged S=1000 and an f32 case, and K1 alone at the SP phase's global
+   shape (B=4, S=4096, causal); time kernel, plain version, bound and
    one ``scaled_dot_product_attention`` forward (K1) and backward (K2 and
    K3 together; captured with its forward, less the forward) as
    yardsticks; check that the backward kernels are bitwise repeatable and
@@ -35,7 +36,7 @@ and check them.
    attention path, two runs of one step must give bitwise-equal
    gradients, and one step under ``bf16_remat`` must launch K1 24 times;
    one more step, with CUDA events around each kernel call, gives the
-   flash kernels' share of a step;
+   flash kernels' share of a step, K1's on its own;
 8. hold the ring carry kernel K4 against its plain version at the ring's
    per-rank shape (B=4, H=12, S_loc=1024, hd=64, bf16), a diagonal and a
    full visit, each merged into a carry that already holds one visit;
@@ -483,10 +484,10 @@ def check_one_shot(cfg, model, rng, kind, seed) -> int:
 # ---- phase 6: the flash kernels against their plain versions --------------
 
 
-def _flash_case(results, gen, *, S, dtype, causal):
-    """K1, K2 and K3 at one shape against their plain versions. Returns
-    the kernel ms of each at this shape."""
-    B, H, hd = 8, 12, 64
+def _flash_case(results, gen, *, S, dtype, causal, B=8, backward=True):
+    """K1, K2 and K3 (K1 alone without ``backward``) at one shape against
+    their plain versions. Returns the kernel ms of each at this shape."""
+    H, hd = 12, 64
     dev = torch.device("cuda", 0)
     q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev)
                    .to(dtype) for _ in range(4))
@@ -498,7 +499,7 @@ def _flash_case(results, gen, *, S, dtype, causal):
     case = {"B": B, "H": H, "S": S, "hd": hd, "causal": causal,
             "dtype": "f32" if f32 else "bf16"}
     shape = dict(b=B, h=H, s=S, d=hd)
-    library = S == 1024 and not f32
+    library = S in (1024, 4096) and not f32
 
     # K1
     out, lse = FA.flash_fwd(q, k, v, **kw)
@@ -519,6 +520,16 @@ def _flash_case(results, gen, *, S, dtype, causal):
         with torch.no_grad():
             lib_fwd = graph_ms(lambda i: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=causal), 10)
+    ms = {"flash_fwd": graph_ms(lambda i: FA.flash_fwd(q, k, v, **kw), 10)}
+    _record(results, "flash_fwd", case, out, ref, ms["flash_fwd"],
+            time_ms(lambda i: FA.flash_fwd_plain(q, k, v, scale, causal), 3,
+                    warmup=1),
+            FA.flash_kernel_bytes("flash_fwd", dtype=dtype, **shape),
+            FA.flash_kernel_flops("flash_fwd", causal=causal, **shape),
+            lib_fwd, tol, flops_s)
+    if not backward:
+        return ms
+    if library:
         doh = do.transpose(1, 2)
 
         def lib_fwd_bwd(i):
@@ -532,13 +543,6 @@ def _flash_case(results, gen, *, S, dtype, causal):
         # backward time is the captured forward + backward less the
         # captured forward
         lib_bwd = graph_ms(lib_fwd_bwd, 10) - lib_fwd
-    ms = {"flash_fwd": graph_ms(lambda i: FA.flash_fwd(q, k, v, **kw), 10)}
-    _record(results, "flash_fwd", case, out, ref, ms["flash_fwd"],
-            time_ms(lambda i: FA.flash_fwd_plain(q, k, v, scale, causal), 3,
-                    warmup=1),
-            FA.flash_kernel_bytes("flash_fwd", dtype=dtype, **shape),
-            FA.flash_kernel_flops("flash_fwd", causal=causal, **shape),
-            lib_fwd, tol, flops_s)
 
     # K2, K3 on the plain forward's out and lse
     delta = (do.float() * ref.float()).sum(-1).transpose(1, 2).contiguous()
@@ -583,6 +587,10 @@ def check_flash(results, gen) -> dict:
     _flash_case(results, gen, S=1024, dtype=torch.bfloat16, causal=False)
     _flash_case(results, gen, S=1000, dtype=torch.bfloat16, causal=True)
     _flash_case(results, gen, S=1024, dtype=torch.float32, causal=True)
+    # K1 at the SP phase's global shape, the single-process reference of
+    # phase 9
+    _flash_case(results, gen, S=SP_S, B=SP_B, dtype=torch.bfloat16,
+                causal=True, backward=False)
 
     # the public call at a ragged length: through the kernels, no
     # fallback (the JAX package's block rule binds CPU tensors only)
@@ -613,29 +621,29 @@ class _Losses(BaseHook):
         self.losses.append(metrics["loss"])
 
 
-def _in_step_flash_ms(step, state, batch, layers: int) -> float:
+def _in_step_flash_ms(step, state, batch, layers: int) -> dict:
     """One more train step with CUDA events around each call of the K1-K3
-    wrappers: their device milliseconds summed inside a real step. An
-    event pair also takes in host time between the first event and the
-    launch where the card has run dry."""
+    wrappers: their device milliseconds inside a real step, summed per
+    wrapper. An event pair also takes in host time between the first
+    event and the launch where the card has run dry."""
     names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     orig = {n: getattr(FA, n) for n in names}
     pairs = []
 
-    def timed(fn):
+    def timed(name, fn):
         def call(*a, **kw):
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
             out = fn(*a, **kw)
             end.record()
-            pairs.append((start, end))
+            pairs.append((name, start, end))
             return out
         return call
 
     try:
         for n in names:
-            setattr(FA, n, timed(orig[n]))
+            setattr(FA, n, timed(n, orig[n]))
         step(state, batch)
         torch.cuda.synchronize()
     finally:
@@ -644,7 +652,10 @@ def _in_step_flash_ms(step, state, batch, layers: int) -> float:
     if len(pairs) != 3 * layers:
         fail(f"the timed step made {len(pairs)} flash calls, expected "
              f"{3 * layers}")
-    return sum(a.elapsed_time(b) for a, b in pairs)
+    ms = dict.fromkeys(names, 0.0)
+    for name, a, b in pairs:
+        ms[name] += a.elapsed_time(b)
+    return ms
 
 
 def _grad_gaps(a: dict, b: dict) -> dict:
@@ -736,14 +747,21 @@ def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
          "tokens_per_s": B * S / (steady / 1e3), "wall_s": wall,
          "max_memory_allocated_bytes": peak, "launches": launches,
          "dispatch": loop.dispatch_stats.as_dict(),
-         # flash: events around the 36 wrapper calls of one more step;
-         # its phase-6 graph times x layers beside it; the head timed
-         # alone at the step's shape; rest = median step less both
-         "split_ms": {"flash_kernels_in_step": in_step_ms,
+         # flash: events around the 36 wrapper calls of one more step,
+         # K1 on its own; its phase-6 graph times x layers beside it; the
+         # head timed alone at the step's shape; rest = median step less
+         # both
+         "split_ms": {"flash_kernels_in_step": sum(in_step_ms.values()),
+                      "k1_flash_fwd_in_step": in_step_ms["flash_fwd"],
+                      "k2_k3_in_step": in_step_ms["flash_bwd_dq"]
+                      + in_step_ms["flash_bwd_dkv"],
                       "flash_kernels_phase6_x_layers":
                           cfg.num_layers * sum(flash_ms.values()),
+                      "k1_phase6_x_layers":
+                          cfg.num_layers * flash_ms["flash_fwd"],
                       "fused_ce_head_alone": head_ms,
-                      "rest": steady - in_step_ms - head_ms}}), flush=True)
+                      "rest": steady - sum(in_step_ms.values())
+                      - head_ms}}), flush=True)
     want = {name: steps * cfg.num_layers for name in K1_K3}
     if launches != want or FA.LAUNCHES["flash_carry"]:
         fail(f"flash launches {launches}, expected {want}")

@@ -2,53 +2,79 @@
 // of the backward, dQ (K2) and dK/dV (K3), and the ring-attention carry
 // step (K4).
 //
-// Replaces the four Pallas TPU kernels of the JAX package:
-//   K1  distributed_tensorflow_guide_tpu/ops/flash_attention.py _fwd_kernel
-//       (launcher _fwd_call)
-//   K2  distributed_tensorflow_guide_tpu/ops/flash_attention.py
-//       _bwd_dq_kernel (launcher _bwd_dq_call)
-//   K3  distributed_tensorflow_guide_tpu/ops/flash_attention.py
-//       _bwd_dkv_kernel (launcher _bwd_dkv_call)
-//   K4  distributed_tensorflow_guide_tpu/ops/flash_attention.py
-//       _carry_fwd_kernel (launcher flash_carry_step)
+// Replaces the four Pallas TPU kernels of the JAX package
+// (distributed_tensorflow_guide_tpu/ops/flash_attention.py):
+//   K1  _fwd_kernel (launcher _fwd_call)     bf16: flash_fwd_sm90<HDP, false>
+//                                            f32:  flash_fwd_kernel<D, false>
+//   K2  _bwd_dq_kernel (_bwd_dq_call)        bf16: flash_dq_tc, f32: flash_dq_kernel
+//   K3  _bwd_dkv_kernel (_bwd_dkv_call)      bf16: flash_dkv_tc, f32: flash_dkv_kernel
+//   K4  _carry_fwd_kernel (flash_carry_step) bf16: flash_fwd_sm90<HDP, true>
+//                                            f32:  flash_fwd_kernel<D, true>
 //
 // K4 is K1 with its softmax state brought in and taken out: one ring visit
 // merges the visiting KV shard into the un-normalised carry (m, l, acc) of
 // the local query shard. It is the same kernel code as K1, instantiated
 // with kCarry = true: the CTA loads its rows' m, l and acc where K1 starts
-// from (-inf, 0, 0), walks the visiting shard's KV tiles (up to the
+// from (NEG_INF, 0, 0), walks the visiting shard's KV tiles (up to the
 // diagonal when the visit is the aligned diagonal shard), and stores the
 // carry back un-normalised, in place, where K1 divides by l and writes O
-// and the LSE. At the ring's per-rank shape (S_loc = 1024, hd = 64, bf16)
-// K4 is bound by bytes: the f32 acc is read and written once per visit,
-// 2 x 4 bytes per element against 3 x 2 bytes of q, k and v.
+// and the LSE. One softmax update serves both, so the ring and the
+// standalone forward cannot drift apart.
 //
-// What bounds them: at the training path's shapes (S = 1024, hd = 64) K1
-// is about even between bytes and operations and K2/K3 are bound by
-// operations (4, 6 and 8 * hd flops per visible (query, key) pair against
-// reading q, k, v (and dO) once and writing the outputs once;
-// flash_kernel_bytes / flash_kernel_flops in flash_attention.py). What the
-// design does about it:
-//   * bf16 inputs (the training path) run every product on the tensor
-//     cores (nvcuda::wmma, bf16 operands, f32 accumulation); f32 inputs run
-//     scalar f32 FMAs, so that they keep f32's precision;
+// What bounds them (flash_kernel_bytes / flash_kernel_flops in
+// flash_attention.py; each input read once, each output written once;
+// 3.35 TB/s and 989 TFLOP/s bf16). At the training path's shape (B=8,
+// H=12, S=1024, hd=64, bf16, causal) K1 moves 50.7 MB (15.1 us) for 12.9
+// GFLOP (13.0 us): bound by bytes, nearly even with the operations; a
+// full call does twice the operations and is bound by them. K4 at the
+// ring's per-rank shape (B=4, S_loc=1024) moves 44.8 MB (13.4 us), half
+// of it the f32 acc read and written, for 12.9 GFLOP full and 6.4
+// diagonal: bound by bytes. K2 and K3 are bound by operations (6 and
+// 8 * hd per visible pair against 4 * hd for K1).
+//
+// The bf16 forward (K1, K4), flash_fwd_sm90, keeps every intermediate on
+// chip and the tensor cores fed:
+//   * a CTA owns 128 query rows: two consumer warpgroups of 64 rows and a
+//     producer warpgroup that hands its registers to them (setmaxnreg);
+//   * one producer thread loads Q once and streams the 64-key K/V tiles
+//     by TMA through a ring of shared-memory stages (full / empty
+//     mbarriers), from 4-D tensor maps over the strided q, k, v, so column
+//     slices of the qkv projection are read in place; TMA's zero fill pads
+//     the ragged rows and the head dim up to HDP = 64 or 128;
+//   * S = Q K^T and O += P V are wgmma products with f32 accumulators in
+//     registers: Q, K and V are read from 128-byte swizzled shared memory
+//     through descriptors (V transposed by the hardware), P straight from
+//     the S accumulator, rounded to bf16 in registers. O stays in
+//     registers for the CTA's life;
+//   * the online softmax runs on the accumulator registers: a row's max
+//     and sum are two shuffles within the quad that holds it, p = exp2 of
+//     one FMA; only the tiles that cross the diagonal or the ragged end
+//     are masked;
+//   * O (K1, bf16) and the carry (K4, f32) leave through shared memory by
+//     TMA stores of whole boxes; stored from the registers they went out
+//     in 32-byte pieces, and K4's store of the f32 acc took nearly as
+//     long as its products;
+//   * the longest causal query tiles launch first (the tile index is the
+//     grid's slowest dimension).
+// The backward (K2, K3) and the f32 route:
+//   * bf16 products run on the tensor cores through nvcuda::wmma (bf16
+//     operands, f32 accumulation); f32 inputs run scalar f32 FMAs, so
+//     that they keep f32's precision;
 //   * no (S, S) score or probability matrix ever reaches device memory:
-//     each CTA keeps one 64 x 64 tile of scores on chip, and the backward
-//     recomputes P from the saved per-row LSE;
-//   * the causal loops stop at the diagonal, so a causal call does about
-//     half the work of a full one;
-//   * every output tile is owned by exactly one CTA (K1, K2: a query tile;
-//     K3: a key tile), so there are no atomics and the backward is
-//     bitwise repeatable;
+//     the backward recomputes P from the saved per-row LSE;
+//   * the causal loops stop at the diagonal;
+//   * every output tile is owned by exactly one CTA (K2: a query tile; K3:
+//     a key tile), so there are no atomics and the backward is bitwise
+//     repeatable;
 //   * K3 computes the transposed score tile (keys as rows) directly, so
-//     P^T.dO and dS^T.Q read shared memory along rows, never down
-//     columns;
-//   * one definition of the masked score (masked_score) serves all three
-//     kernels, so the backward masks exactly as the forward did.
-// Not yet done (first version, correct before fast): the elementwise work
-// between the products goes through shared memory, two lanes per row; the
-// tile loads are not overlapped with the products (no cp.async / TMA
-// pipeline); no wgmma, no warp specialisation.
+//     P^T.dO and dS^T.Q read shared memory along rows;
+//   * one definition of the masked score (masked_score) serves the
+//     backward kernels and the f32 forward; the bf16 forward applies the
+//     same rule (a key past S or, under the causal mask, past the row).
+// Not yet done for K2 and K3: the elementwise work between the products
+// goes through shared memory, two lanes per row; the tile loads are not
+// overlapped with the products (no cp.async / TMA pipeline); no wgmma, no
+// warp specialisation.
 
 // Layouts (row-major; element strides):
 //   q, k, v      (B, S, H, hd) with strides (sb, ss, sh, 1), shared by all
@@ -62,8 +88,11 @@
 // accumulation in float32. head_dim: a multiple of 8 up to 128. Any S:
 // rows and keys past S in the last tile are loaded as zeros and masked.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
@@ -476,17 +505,17 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ==== bf16 inputs: the products on the tensor cores ========================
+// ==== bf16 backward (K2, K3): the products on the tensor cores =============
 //
-// The same three functions for bf16 q, k, v, with every product a warp-wide
+// The backward for bf16 q, k, v, with every product a warp-wide
 // nvcuda::wmma 16x16x16 (bf16 operands, f32 accumulation). A CTA of four
 // warps owns 64 rows (16 per warp); tiles sit in shared memory as bf16,
 // zero-padded to a head dim hdp that is a multiple of 16. The elementwise
-// work between the products (mask, online softmax, dS) runs in f32 on a
-// score tile staged in shared memory, two lanes per row. The operands of
-// the second product of each kernel (P in K1 and K3, dS in K2 and K3) are
-// rounded to bf16 on the way in, as flash attention does on tensor cores;
-// the plain versions round at the same points. l sums the f32 P.
+// work between the products (mask, P, dS) runs in f32 on a score tile
+// staged in shared memory, two lanes per row. The operands of the second
+// product of each kernel (P in K3, dS in K2 and K3) are rounded to bf16 on
+// the way in, as flash attention does on tensor cores; the plain versions
+// round at the same points.
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
@@ -583,123 +612,531 @@ __device__ __forceinline__ void store_rows_tc(FragC (&acc)[NF], float* stage,
   __syncwarp();
 }
 
-// ---- K1 (and K4) on the tensor cores --------------------------------------
-// grid (ceil(S / kTile), H, B), kTcThreads. Each warp owns 16 query rows;
-// its O accumulator lives in shared memory (f32) so that the online
-// softmax can rescale it row by row. kCarry (K4): m, l and the accumulator
-// start from and end in m_io, l_io, acc_io, un-normalised.
-template <bool kCarry>
-__global__ void __launch_bounds__(kTcThreads)
-flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out,
-             float* __restrict__ lse, float* __restrict__ m_io,
-             float* __restrict__ l_io, float* __restrict__ acc_io,
-             long long sb, long long ss, long long sh, int S, int H, int hd,
-             float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hdp = padded_hd(hd);
-  const int ld = hdp + 8, ldo = hdp + 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + kTile * ld;
-  bf16* v_s = k_s + kTile * ld;
-  float* s_w = reinterpret_cast<float*>(v_s + kTile * ld) + warp * 16 * kLdS;
-  bf16* p_w = reinterpret_cast<bf16*>(
-                  reinterpret_cast<float*>(v_s + kTile * ld) +
-                  kTcWarps * 16 * kLdS) + warp * 16 * kLdP;
-  float* o_all = reinterpret_cast<float*>(
-      reinterpret_cast<bf16*>(reinterpret_cast<float*>(v_s + kTile * ld) +
-                              kTcWarps * 16 * kLdS) +
-      kTcWarps * 16 * kLdP);
-  float* o_w = o_all + warp * 16 * ldo;
-  float* alpha_w = o_all + kTcWarps * 16 * ldo + warp * 16;
+// ==== bf16 forward (K1, K4): wgmma on register accumulators, TMA ==========
+//
+// One template, flash_fwd_sm90<HDP, kCarry>, serves K1 (kCarry = false)
+// and K4 (kCarry = true); the design is in the note at the top of the
+// file. Tiles sit in shared memory in the 128-byte swizzled layout that
+// TMA writes and wgmma reads: boxes of 64 rows x 64 bf16 columns (128
+// bytes), 16-byte chunk c of row r at chunk c ^ (r % 8).
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const long long off = (long long)b * sb + (long long)h * sh;
-  const long long rows = ((long long)b * H + h) * S;  // (B, H, S) offset
-  load_tile_bf16(q_s, ld, q + off, ss, q0, S, hd, hdp);
-  for (int i = lane; i < 16 * ldo; i += 32) {
-    const int rr = i / ldo, d = i % ldo, row = q0 + warp * 16 + rr;
-    o_w[i] = (kCarry && row < S && d < hd) ? acc_io[(rows + row) * hd + d]
-                                           : 0.f;
+constexpr int kFwdRows = 128;            // query rows per CTA
+constexpr int kWgRows = 64;              // query rows per consumer warpgroup
+constexpr int kAtomCols = 64;            // bf16 columns per 128-byte row
+constexpr int kBoxBytes = kTile * 128;   // one 64-row x 128-byte box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor for the 128-byte swizzled layout: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 64] (+)= A . B, A and B read from shared memory through their
+// descriptors (both K-major); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A . B with A (64 x 16 bf16) from registers in the
+// accumulator-like fragment layout and B read through its descriptor,
+// MN-major (transposed by the hardware).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A . B with A (64 x 16 bf16) from registers in the
+// accumulator-like fragment layout and B read through its descriptor,
+// MN-major (transposed by the hardware).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- mbarriers and TMA ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Waits for the completion of the barrier's phase of the given parity. A
+// wait that never ends (a lost arrival) traps, so a fault ends the
+// kernel with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n % 256 == 0) {  // ten seconds of waiting: a fault, not a load
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
   }
+}
+// One box (64 columns, 1 head, 64 rows, 1 batch) of a 4-D (hd, H, S, B)
+// tensor map into shared memory, completing on bar. Out-of-range
+// columns and rows arrive as zeros.
+__device__ __forceinline__ void tma_load_box(uint8_t* dst,
+                                             const CUtensorMap* map,
+                                             uint64_t* bar, int col, int h,
+                                             int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
 
-  const int r = lane >> 1, half = lane & 1;  // two lanes per row
-  const int qpos = q0 + warp * 16 + r;
-  const bool carried = kCarry && qpos < S;
-  float m = carried ? m_io[rows + qpos] : kNegInf;
-  float l = carried ? l_io[rows + qpos] : 0.f;
+// The inverse of tma_load_box: one bf16 box of a 4-D (hd, H, S, B) map
+// from shared memory to device memory.
+__device__ __forceinline__ void tma_store_bf16_box(const CUtensorMap* map,
+                                                   const uint8_t* src,
+                                                   int col, int h, int row,
+                                                   int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+// One f32 box (32 columns, 64 rows) of a 3-D (hd, S, B * H) map from
+// shared memory to device memory.
+__device__ __forceinline__ void tma_store_f32_box(const CUtensorMap* map,
+                                                  const uint8_t* src,
+                                                  int col, int row,
+                                                  int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+}
 
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    __syncthreads();
-    load_tile_bf16(k_s, ld, k + off, ss, kv0, S, hd, hdp);
-    load_tile_bf16(v_s, ld, v + off, ss, kv0, S, hd, hdp);
-    __syncthreads();
-    scores_tc(s_w, q_s + warp * 16 * ld, ld, k_s, ld, hdp);
-    __syncwarp();
-    float sv[32];
-    float mx = kNegInf;
+// One KV tile of kTile keys merged into a warpgroup's 64 rows. q_s, k_s,
+// v_s: shared addresses of the warpgroup's Q and of the tile's K and V
+// (HDP / 64 boxes each, 128-byte swizzled). The thread holds rows qpos[0]
+// and qpos[1] = qpos[0] + 8; its accumulator entry i sits in row
+// (i >> 1) & 1 at column 8 (i >> 2) + 2 (lane & 3) + (i & 1).
+//
+// The online softmax keeps m in the natural-log domain, as the carry
+// stores it, and exponentiates in base 2 with the scale folded into one
+// FMA. A masked score is -inf before the max, so its p is exactly 0, and
+// a row whose m is still NEG_INF gets alpha = exp2(-huge) = 0 on its
+// first live tile, never NaN. l sums the f32 P; P enters P V as bf16.
+// Only a tile that crosses the diagonal or the ragged end is masked.
+template <int HDP>
+__device__ __forceinline__ void fwd_tile(float (&o)[HDP / 2], float (&m)[2],
+                                         float (&l)[2], const int (&qpos)[2],
+                                         uint32_t q_s, uint32_t k_s,
+                                         uint32_t v_s, int kv0, int S,
+                                         bool mask, bool causal,
+                                         float scale) {
+  const int lane = threadIdx.x & 31;
+  float s[32];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      sv[j] = masked_score(s_w[r * kLdS + c], scale, qpos, kv0 + c, S,
-                           causal);
-      mx = fmaxf(mx, sv[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      float p = expf(sv[j] - m_new);
-      if (sv[j] <= kNegInf * 0.5f) p = 0.f;
-      rs += p;
-      p_w[r * kLdP + half * 32 + j] = __float2bfloat16(p);
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l = l * alpha + rs;
-    m = m_new;
-    if (half == 0) alpha_w[r] = alpha;
-    __syncwarp();
-    for (int i = lane; i < 16 * hdp; i += 32) {
-      const int rr = i / hdp, d = i % hdp;
-      o_w[rr * ldo + d] *= alpha_w[rr];
-    }
-    __syncwarp();
-    for (int n = 0; n < hdp / 16; ++n) {
-      FragC c;
-      wmma::load_matrix_sync(c, o_w + n * 16, ldo, wmma::mem_row_major);
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n64(s, sw128_desc(q_s + off, 16, 1024),
+                 sw128_desc(k_s + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+
+  if (mask) {
+    const int c0 = kv0 + 2 * (lane & 3);
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA fa;
-        FragBr fb;
-        wmma::load_matrix_sync(fa, p_w + kk * 16, kLdP);
-        wmma::load_matrix_sync(fb, v_s + kk * 16 * ld + n * 16, ld);
-        wmma::mma_sync(c, fa, fb, c);
+    for (int i = 0; i < 32; ++i) {
+      const int col = c0 + 8 * (i >> 2) + (i & 1);
+      if (col >= S || (causal && col > qpos[(i >> 1) & 1]))
+        s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float mb[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale);
+    alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+    mb[r] = m_new * kLog2e;
+    m[r] = m_new;
+  }
+  const float sl2 = scale * kLog2e;
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float p = exp2f(fmaf(s[i], sl2, -mb[(i >> 1) & 1]));
+    s[i] = p;
+    rs[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l[r] = l[r] * alpha[r] + rs[r];
+  }
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+  // the S accumulator's layout is the A operand's: P stays in registers
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      a[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
+  wgmma_fence();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // keys [16 kk, 16 kk + 16) of V, MN-major: boxes of 64 head-dim
+    // columns kBoxBytes apart, 8-key groups 1024 bytes apart
+    const uint64_t dv = sw128_desc(v_s + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (HDP == 64)
+      wgmma_rs_n64(o, a[kk], dv);
+    else
+      wgmma_rs_n128(o, a[kk], dv);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
+}
+
+// The thread's two rows, carried in (K4) or fresh (K1).
+template <int HDP, bool kCarry>
+__device__ __forceinline__ void fwd_open(float (&o)[HDP / 2], float (&m)[2],
+                                         float (&l)[2], const int (&qpos)[2],
+                                         const float* __restrict__ m_io,
+                                         const float* __restrict__ l_io,
+                                         const float* __restrict__ acc_io,
+                                         long long rows, int S, int hd) {
+  const int c0 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = kCarry && qpos[r] < S;
+    m[r] = in ? m_io[rows + qpos[r]] : kNegInf;
+    l[r] = in ? l_io[rows + qpos[r]] : 0.f;
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      float2 v = make_float2(0.f, 0.f);
+      if (in && c0 + 8 * j < hd)
+        v = *reinterpret_cast<const float2*>(
+            acc_io + (rows + qpos[r]) * hd + c0 + 8 * j);
+      o[4 * j + 2 * r] = v.x;
+      o[4 * j + 2 * r + 1] = v.y;
+    }
+  }
+}
+
+// The warpgroup's 64 rows out, through shared memory and one TMA store
+// per box (a row-by-row store from the accumulator layout wrote 32-byte
+// pieces and cost K4 nearly as much as its products). K4 stores the carry back
+// un-normalised, in place: acc as f32 into c_s (boxes of 32 columns),
+// m and l directly. K1 divides by l and writes O as bf16 into its own Q
+// tile (free after the last product; boxes of 64 columns) and the
+// natural-log LSE directly; a row with l = 0 gives 0 and m + log(1).
+// Both boxes are 128-byte swizzled, so the 8 rows a warp writes at once
+// fall in different banks. TMA clips rows past S and columns past hd.
+template <int HDP, bool kCarry>
+__device__ __forceinline__ void fwd_close(const float (&o)[HDP / 2],
+                                          const float (&m)[2],
+                                          const float (&l)[2],
+                                          const int (&qpos)[2], int r0,
+                                          uint8_t* q_w, uint8_t* c_w,
+                                          const CUtensorMap* tm_o,
+                                          float* __restrict__ lse,
+                                          float* __restrict__ m_io,
+                                          float* __restrict__ l_io,
+                                          long long rows, int b, int h,
+                                          int S, int H) {
+  const int q4 = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qpos[r] - r0;  // 0..63 within the warpgroup's box
+    uint8_t* line = (kCarry ? c_w : q_w) + row * 128;
+    if (kCarry) {
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int chunk = (2 * (j % 4) + (q4 >> 1)) ^ (row & 7);
+        *reinterpret_cast<float2*>(line + (j / 4) * kBoxBytes +
+                                   chunk * 16 + 8 * (q4 & 1)) =
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
       }
-      wmma::store_matrix_sync(o_w + n * 16, c, ldo, wmma::mem_row_major);
+      if (q4 == 0 && qpos[r] < S) {
+        m_io[rows + qpos[r]] = m[r];
+        l_io[rows + qpos[r]] = l[r];
+      }
+    } else {
+      const float safe_l = (l[r] == 0.f) ? 1.f : l[r];
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int chunk = (j % 8) ^ (row & 7);
+        *reinterpret_cast<__nv_bfloat162*>(line + (j / 8) * kBoxBytes +
+                                           chunk * 16 + 4 * q4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] / safe_l,
+                                  o[4 * j + 2 * r + 1] / safe_l);
+      }
+      if (q4 == 0 && qpos[r] < S) lse[rows + qpos[r]] = m[r] + logf(safe_l);
     }
-    __syncwarp();
   }
+  // the generic-proxy writes above become visible to TMA, then one thread
+  // of the warpgroup stores its boxes once all 128 have written
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+  if ((threadIdx.x & 127) == 0) {
+    if (kCarry) {
+      for (int a = 0; a < HDP / 32; ++a)
+        tma_store_f32_box(tm_o, c_w + a * kBoxBytes, a * 32, r0,
+                          b * H + h);
+    } else {
+      for (int a = 0; a < HDP / kAtomCols; ++a)
+        tma_store_bf16_box(tm_o, q_w + a * kBoxBytes, a * kAtomCols, h, r0,
+                           b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    // shared memory stays the CTA's until TMA has read it
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
 
-  if (qpos >= S) return;
-  if (kCarry) {
-    for (int d = half; d < hd; d += 2)
-      acc_io[(rows + qpos) * hd + d] = o_w[r * ldo + d];
-    if (half == 0) {
-      m_io[rows + qpos] = m;
-      l_io[rows + qpos] = l;
+constexpr int kStages = 2;           // K/V tiles in flight
+constexpr int kFwdThreads = 384;  // consumer warpgroups 0, 1; producer 2
+// Registers per thread after the rebalancing: the producer warpgroup
+// keeps few, the consumers take the rest of the CTA's pool, which is
+// what the launch gave it (ptxas's count, 168 under these launch bounds,
+// times kFwdThreads). setmaxnreg.inc would wait forever for registers the
+// pool lacks, so the launcher checks the plan against the compiled count.
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// grid (H, B, ceil(S / kFwdRows)): the longest causal rows launch first.
+// Warpgroup 2 is the producer: one thread loads Q once and streams the
+// K/V tiles through a ring of kStages stages (full / empty mbarriers),
+// with its registers given to the consumers (setmaxnreg). Warpgroups 0 and 1
+// each own 64 query rows and walk every tile of the CTA, skipping the
+// products of a tile none of their keys can see.
+template <int HDP, bool kCarry>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_o,
+               float* __restrict__ lse, float* __restrict__ m_io,
+               float* __restrict__ l_io, const float* __restrict__ acc_io,
+               int S, int H, int hd, float scale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int kBoxes = HDP / kAtomCols;
+  constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // one K or V tile
+  uint8_t* q_s = smem;  // two warpgroups' rows
+  uint8_t* k_s = q_s + 2 * kTileBytes;
+  uint8_t* v_s = k_s + kStages * kTileBytes;
+  uint8_t* c_s = v_s + kStages * kTileBytes;  // K4: the f32 carry out
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      c_s + (kCarry ? 2 * (HDP / 32) * kBoxBytes : 0));
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows;
+  const int kv_end = causal ? min(S, q0 + kFwdRows) : S;
+  const int n_kv = (kv_end + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    return;
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float safe_l = (l == 0.f) ? 1.f : l;
-  bf16* orow = out + (((long long)b * S + qpos) * H + h) * hd;
-  for (int d = half; d < hd; d += 2)
-    orow[d] = __float2bfloat16(o_w[r * ldo + d] / safe_l);
-  if (half == 0) lse[rows + qpos] = m + logf(safe_l);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * kTileBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int a = 0; a < kBoxes; ++a)
+          tma_load_box(q_s + (w * kBoxes + a) * kBoxBytes, &tm_q, q_full,
+                       a * kAtomCols, h, q0 + w * kWgRows, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        for (int a = 0; a < kBoxes; ++a) {
+          tma_load_box(k_s + st * kTileBytes + a * kBoxBytes, &tm_k,
+                       &full[st], a * kAtomCols, h, it * kTile, b);
+          tma_load_box(v_s + st * kTileBytes + a * kBoxBytes, &tm_v,
+                       &full[st], a * kAtomCols, h, it * kTile, b);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int r0 = q0 + wg * kWgRows;
+    const long long rows = ((long long)b * H + h) * S;
+    const int qpos[2] = {r0 + 16 * (t >> 5) + ((t & 31) >> 2),
+                         r0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8};
+    float o[HDP / 2], m[2], l[2];
+    fwd_open<HDP, kCarry>(o, m, l, qpos, m_io, l_io, acc_io, rows, S, hd);
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int st = it % kStages, kv0 = it * kTile;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!(causal && kv0 > r0 + kWgRows - 1)) {  // a key is visible
+        const bool mask =
+            kv0 + kTile > S || (causal && kv0 + kTile - 1 > r0);
+        fwd_tile<HDP>(o, m, l, qpos,
+                      smem_u32(q_s + wg * kTileBytes),
+                      smem_u32(k_s + st * kTileBytes),
+                      smem_u32(v_s + st * kTileBytes), kv0, S, mask,
+                      causal != 0, scale);
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+    fwd_close<HDP, kCarry>(o, m, l, qpos, r0, q_s + wg * kTileBytes,
+                           c_s + wg * (HDP / 32) * kBoxBytes, &tm_o, lse,
+                           m_io, l_io, rows, b, h, S, H);
+  }
+}
+
+size_t fwd_sm90_smem(int hdp, bool carry) {
+  return 1024 + (2 + 2 * kStages) * (hdp / kAtomCols) * kBoxBytes +
+         (carry ? 2 * (hdp / 32) * kBoxBytes : 0) +
+         (2 * kStages + 1) * sizeof(uint64_t);
 }
 
 // ---- K2 on the tensor cores -----------------------------------------------
@@ -848,13 +1285,6 @@ flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows_tc(dv_acc, st_w, dv, b, h, kv0 + warp * 16, S, H, hd, hdp);
 }
 
-size_t fwd_tc_smem(int hd) {
-  const int hdp = (hd + 15) & ~15;
-  return 3 * kTile * (hdp + 8) * sizeof(bf16) +
-         kTcWarps * 16 * kLdS * sizeof(float) +
-         kTcWarps * 16 * kLdP * sizeof(bf16) +
-         kTcWarps * 16 * (hdp + 4) * sizeof(float) + kTile * sizeof(float);
-}
 size_t dq_tc_smem(int hd) {
   const int hdp = (hd + 15) & ~15;
   return 4 * kTile * (hdp + 8) * sizeof(bf16) +
@@ -955,21 +1385,7 @@ int launch_tc(int which, const Args& a) {
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
   int rc = 0;
-  if (which == 0) {
-    static const int set = opt_in(flash_fwd_tc<false>, fwd_tc_smem(128));
-    rc = set;
-    if (rc) return rc;
-    flash_fwd_tc<false><<<grid, kTcThreads, fwd_tc_smem(a.hd), a.stream>>>(
-        q, k, v, static_cast<bf16*>(a.out0), a.lse_out, nullptr, nullptr,
-        nullptr, a.sb, a.ss, a.sh, a.S, a.H, a.hd, a.scale, a.causal);
-  } else if (which == 3) {
-    static const int set = opt_in(flash_fwd_tc<true>, fwd_tc_smem(128));
-    rc = set;
-    if (rc) return rc;
-    flash_fwd_tc<true><<<grid, kTcThreads, fwd_tc_smem(a.hd), a.stream>>>(
-        q, k, v, nullptr, nullptr, a.m, a.l, a.acc, a.sb, a.ss, a.sh, a.S,
-        a.H, a.hd, a.scale, a.causal);
-  } else if (which == 1) {
+  if (which == 1) {
     static const int set = opt_in(flash_dq_tc<NF>, dq_tc_smem(128));
     rc = set;
     if (rc) return rc;
@@ -989,6 +1405,114 @@ int launch_tc(int which, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, looked up in the loaded libcuda at run time
+// (no link flag).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Codes the wrapper raises on, beside CUDA's own.
+constexpr int kNoTensorMapEntry = 9001;  // libcuda lacks the function
+constexpr int kTensorMapRefused = 9002;  // libcuda refused the layout
+constexpr int kRegisterPlanUnmet = 9003;  // the kernel's pool is too small
+
+// A tiled map with 128-byte swizzle and unit element strides; dims and
+// strides innermost first (strides in bytes, one fewer than dims).
+int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
+           const void* base, const cuuint64_t* dims,
+           const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return kNoTensorMapEntry;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, type, rank, const_cast<void*>(base), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapRefused;
+}
+
+// A 4-D bf16 map (hd, H, S, B) over base with the element strides
+// (sh, ss, sb), boxes of 64 columns x 64 rows.
+int map_bf16(CUtensorMap* map, const void* base, const Args& a,
+             long long sb, long long ss, long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H,
+                              (cuuint64_t)a.S, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(bf16),
+                                 (cuuint64_t)ss * sizeof(bf16),
+                                 (cuuint64_t)sb * sizeof(bf16)};
+  const cuuint32_t box[4] = {kAtomCols, 1, kTile, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                strides, box);
+}
+
+// A 3-D f32 map (hd, S, B * H) over a contiguous (B, H, S, hd) tensor,
+// boxes of 32 columns (128 bytes) x 64 rows.
+int map_f32(CUtensorMap* map, const void* base, const Args& a) {
+  const cuuint64_t dims[3] = {(cuuint64_t)a.hd, (cuuint64_t)a.S,
+                              (cuuint64_t)a.B * a.H};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.hd * sizeof(float),
+                                 (cuuint64_t)a.S * a.hd * sizeof(float)};
+  const cuuint32_t box[3] = {32, kTile, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims,
+                strides, box);
+}
+
+// K1 (which 0) and K4 (which 3) for bf16: HDP = 64 or 128 columns. The
+// tensor maps are built per call (a captured graph keeps the launch's
+// copy of them).
+template <int HDP, bool kCarry>
+int launch_fwd_sm90(const Args& a) {
+  static const int set = [] {
+    const int rc = opt_in(flash_fwd_sm90<HDP, kCarry>,
+                          fwd_sm90_smem(HDP, kCarry));
+    if (rc) return rc;
+    cudaFuncAttributes at;
+    const int got = static_cast<int>(
+        cudaFuncGetAttributes(&at, flash_fwd_sm90<HDP, kCarry>));
+    if (got) return got;
+    const int plan = 128 * kProducerRegs + 256 * kConsumerRegs;
+    return at.numRegs * kFwdThreads >= plan ? 0 : kRegisterPlanUnmet;
+  }();
+  if (set) return set;
+  CUtensorMap tq, tk, tv, to;
+  int rc = map_bf16(&tq, a.q, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tk, a.k, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tv, a.v, a, a.sb, a.ss, a.sh);
+  if (!rc)
+    rc = kCarry ? map_f32(&to, a.acc, a)
+                : map_bf16(&to, a.out0, a, (long long)a.S * a.H * a.hd,
+                           (long long)a.H * a.hd, a.hd);
+  if (rc) return rc;
+  const dim3 grid(a.H, a.B, (a.S + kFwdRows - 1) / kFwdRows);
+  flash_fwd_sm90<HDP, kCarry>
+      <<<grid, kFwdThreads, fwd_sm90_smem(HDP, kCarry), a.stream>>>(
+          tq, tk, tv, to, a.lse_out, a.m, a.l, a.acc, a.S, a.H, a.hd,
+          a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDP>
+int launch_bf16(int which, const Args& a) {
+  if (which == 0) return launch_fwd_sm90<HDP, false>(a);
+  if (which == 3) return launch_fwd_sm90<HDP, true>(a);
+  return launch_tc<HDP / 16>(which, a);
+}
+
 // which: 0 K1, 1 K2, 2 K3, 3 K4. dtype codes: 0 float32 (scalar FMAs),
 // 1 bfloat16 (tensor cores).
 // Returns -1 for what no instantiation takes (the Python wrapper checks
@@ -999,7 +1523,7 @@ int dispatch(int which, int dtype, const Args& a) {
   if (dtype == 0)
     return narrow ? launch_f32<4>(which, a) : launch_f32<8>(which, a);
   if (dtype == 1)
-    return narrow ? launch_tc<4>(which, a) : launch_tc<8>(which, a);
+    return narrow ? launch_bf16<64>(which, a) : launch_bf16<128>(which, a);
   return -1;
 }
 

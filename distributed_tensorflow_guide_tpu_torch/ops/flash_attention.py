@@ -256,9 +256,11 @@ def _lib():
 
 def _kernel_layout(q, k, v):
     """q, k, v as the kernels take them: one shared stride triple over
-    (B, S, H) with the head dim contiguous, 16-byte aligned rows. Column
-    slices of one qkv tensor qualify as they are; anything else is made
-    contiguous. Returns (q, k, v, (sb, ss, sh))."""
+    (B, S, H) with the head dim contiguous, 16-byte aligned rows (the bf16
+    forward builds its TMA tensor maps from these strides). Column slices
+    of one qkv tensor qualify as they are; anything else is made
+    contiguous, and a start that is still off a 16-byte boundary raises.
+    Returns (q, k, v, (sb, ss, sh))."""
     hd = q.shape[-1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernels take float32/bfloat16, got {q.dtype}")
@@ -283,6 +285,9 @@ def _kernel_layout(q, k, v):
     if not all(fits(t) for t in (q, k, v)):
         q, k, v = (t.contiguous() for t in (q, k, v))
         strides = q.stride()
+        if not all(fits(t) for t in (q, k, v)):
+            raise ValueError("q, k and v must start on 16-byte boundaries "
+                             "(the kernels load them by TMA)")
     return q, k, v, strides[:3]
 
 
@@ -297,9 +302,16 @@ def _check_rows(name, t, shape, device):
                          f"{device}")
 
 
+_KERNEL_CODES = {9001: "libcuda has no cuTensorMapEncodeTiled",
+                 9002: "libcuda refused the TMA tensor map",
+                 9003: "the compiled kernel's registers do not hold its "
+                       "setmaxnreg plan"}
+
+
 def _raise_on(rc, name):
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cuda error {rc}")
+        why = _KERNEL_CODES.get(rc, f"cuda error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool):

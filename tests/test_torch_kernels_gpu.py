@@ -168,6 +168,66 @@ def test_flash_kernels_match_plain_versions_on_the_card(kind, causal):
                                "flash_carry": before["flash_carry"]}
 
 
+SWEEP_S = (1, 17, 63, 64, 65, 127, 128, 129, 192, 1000, 1024, 2048)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [8, 40, 64, 72, 128])
+@pytest.mark.parametrize("S", SWEEP_S)
+def test_flash_forward_edge_sweep_on_the_card(S, hd, causal):
+    """The bf16 forward template at the edges of its tiling: K1 on q, k, v
+    read in place as column slices of one (B, S, 3 * H * hd) tensor, and
+    K4 as two visits into one carry (a fresh full visit, then one masked
+    like the call), in place; both against their plain versions. S covers
+    fewer KV tiles than pipeline stages and ragged last query and KV
+    tiles; hd = 8, 40, 72 are zero-padded to the 64 or 128 columns of the
+    kernel's tiles; S = 1024 runs at B=8, H=12, more than one wave of
+    CTAs. K1 must give bitwise-equal outputs on a repeat. Tolerances as
+    in the tests above: bf16 outputs 1e-2, LSE and m 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5 + S + hd)
+    b, h = (8, 12) if S == 1024 else (2, 3)
+    scale = hd ** -0.5
+    qkv = torch.randn(b, S, 3 * h * hd, generator=gen,
+                      device=dev).bfloat16()
+    q, k, v = qkv.view(b, S, 3, h, hd).unbind(2)
+    before = dict(FA.LAUNCHES)
+    out, lse = FA.flash_fwd(q, k, v, scale=scale, causal=causal)
+    ref, ref_lse = FA.flash_fwd_plain(q, k, v, scale, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+    out2, lse2 = FA.flash_fwd(q, k, v, scale=scale, causal=causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+    k1, v1 = (t.contiguous() for t in (k, v))
+    k0, v0 = (torch.randn(b, S, h, hd, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    qc = q.contiguous()
+    carry = FA.carry_init(b, h, S, hd, device=dev)
+    want = tuple(t.clone() for t in carry)
+    for kk, vv, d in ((k0, v0, False), (k1, v1, causal)):
+        got = FA.flash_carry_step(qc, kk, vv, *carry, scale=scale, diag=d)
+        assert all(x is y for x, y in zip(got, carry))  # in place
+        want = FA.flash_carry_step_plain(qc, kk, vv, *want, scale, d)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {**before,
+                           "flash_fwd": before["flash_fwd"] + 2,
+                           "flash_carry": before["flash_carry"] + 2}
+    torch.testing.assert_close(carry[0], want[0], atol=1e-4, rtol=1e-5)
+    for got_t, want_t in zip(carry[1:], want[1:]):
+        top = want_t.abs().amax()
+        torch.testing.assert_close(got_t / top, want_t / top, atol=1e-2,
+                                   rtol=0)
+    got_out, got_lse = FA.carry_finalize(*carry)
+    ref_out, ref_lse = FA.carry_finalize(*want)
+    torch.testing.assert_close(got_out, ref_out, atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got_lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.gpu
 def test_flash_attention_on_qkv_slices_matches_the_cpu_path():
     """The autograd Function on column slices of one qkv tensor (the
@@ -206,6 +266,19 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take():
     wide = torch.randn(1, 64, 2, 136, device=dev)
     with pytest.raises(ValueError):  # head dim above 128
         FA.flash_fwd(wide, wide, wide, scale=0.1, causal=True)
+    with pytest.raises(ValueError):  # the same for the bf16 kernel
+        FA.flash_fwd(wide.bfloat16(), wide.bfloat16(), wide.bfloat16(),
+                     scale=0.1, causal=True)
+    # contiguous, but starting 2 bytes past a 16-byte boundary: no copy
+    # can fix the start, and TMA refuses it
+    flat = torch.randn(1 * 64 * 2 * 64 + 1, device=dev).bfloat16()
+    off = flat[1:].view(1, 64, 2, 64)
+    with pytest.raises(ValueError):
+        FA.flash_fwd(off, off, off, scale=0.125, causal=True)
+    m, l, acc = FA.carry_init(1, 2, 64, 64, device=dev)
+    with pytest.raises(ValueError):
+        FA.flash_carry_step(off, off, off, m, l, acc, scale=0.125,
+                            diag=True)
     lse = torch.zeros(1, 2, 63, device=dev)
     with pytest.raises(ValueError):  # lse of the wrong shape
         FA.flash_bwd_dq(q, q, q, q, lse, lse, scale=0.125, causal=True)
