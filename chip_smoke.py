@@ -5,7 +5,8 @@ and check them.
     python3 chip_smoke.py            # needs one card
 
 1. print the card (name, power limit);
-2. build the CUDA kernels from ``ops/csrc`` with ``nvcc`` (sm_90a);
+2. build the CUDA kernels from ``ops/csrc`` with ``nvcc`` (sm_90a) and
+   print ptxas's registers and spills for each Hopper flash kernel;
 3. hold each kernel against its plain PyTorch version at GPT-2 124M
    widths (K5: B=8, H=12, hd=64, S=1024, C in {1, 128, 512}; K6: block
    size 16, shuffled tables, ragged lengths, C in {1, 128}; bf16 and int8
@@ -20,13 +21,15 @@ and check them.
    the same teacher-forced check;
 6. hold the flash kernels K1 (forward), K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8, H=12, hd=64: S=1024 bf16 causal and not,
-   a ragged S=1000 and an f32 case, and K1 alone at the SP phase's global
-   shape (B=4, S=4096, causal); time kernel, plain version, bound and
-   one ``scaled_dot_product_attention`` forward (K1) and backward (K2 and
-   K3 together; captured with its forward, less the forward) as
-   yardsticks; check that the backward kernels are bitwise repeatable and
-   that the public ``flash_attention`` at S=1000 launches each kernel
-   with no fallback;
+   a ragged S=1000, an f32 case, the SP phase's global shape (B=4,
+   S=4096, causal) and hd=128 at H=6 (bf16, causal); time kernel, plain
+   version, bound and one ``scaled_dot_product_attention`` forward (K1)
+   and backward (K2 and K3 together; captured with its forward, less the
+   forward) as yardsticks, and print K2 + K3 against that backward at the
+   path's shape and the SP phase's;
+   check that the backward kernels are bitwise repeatable and that the
+   public ``flash_attention`` at S=1000 launches each kernel with no
+   fallback;
 7. train ``gpt2_124m`` (bf16 compute, f32 parameters from ``--seed``,
    B=8, S=1024, ``attn_impl="auto"`` -> flash, fused CE, Adam) through
    ``DataParallel().make_train_step`` and ``TrainLoop`` for 20 steps on one
@@ -66,6 +69,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +165,16 @@ GRAD_REL_GAP = 2e-2
 # pass: other roundings). DP's averaged gradients against the union
 # step's: GRAD_REL_GAP too (bf16 products over other batch shapes)
 SP_TOL = 2e-2
+
+
+def _kernel_name(mangled: str) -> str:
+    """flash_dq_sm90<64> for its mangled name."""
+    m = re.search(r"(flash_[a-z]+_sm90)ILi(\d+)E(?:Lb([01])E)?", mangled)
+    if not m:
+        return mangled
+    args = [m.group(2)] + ([("false", "true")[int(m.group(3))]]
+                           if m.group(3) else [])
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def fail(msg: str) -> None:
@@ -484,10 +498,10 @@ def check_one_shot(cfg, model, rng, kind, seed) -> int:
 # ---- phase 6: the flash kernels against their plain versions --------------
 
 
-def _flash_case(results, gen, *, S, dtype, causal, B=8, backward=True):
-    """K1, K2 and K3 (K1 alone without ``backward``) at one shape against
-    their plain versions. Returns the kernel ms of each at this shape."""
-    H, hd = 12, 64
+def _flash_case(results, gen, *, S, dtype, causal, B=8, H=12, hd=64):
+    """K1, K2 and K3 at one shape against their plain versions. Returns
+    the kernel ms of each at this shape and the library backward's ms
+    (None where it is not timed)."""
     dev = torch.device("cuda", 0)
     q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device=dev)
                    .to(dtype) for _ in range(4))
@@ -527,8 +541,6 @@ def _flash_case(results, gen, *, S, dtype, causal, B=8, backward=True):
             FA.flash_kernel_bytes("flash_fwd", dtype=dtype, **shape),
             FA.flash_kernel_flops("flash_fwd", causal=causal, **shape),
             lib_fwd, tol, flops_s)
-    if not backward:
-        return ms
     if library:
         doh = do.transpose(1, 2)
 
@@ -576,21 +588,32 @@ def _flash_case(results, gen, *, S, dtype, causal, B=8, backward=True):
     if not torch.allclose(dv.float(), rv.float(), atol=tol, rtol=tol):
         fail(f"flash_dkv {case}: dV disagrees (max_abs_err {err_v})")
     results[-1]["max_abs_err"] = max(results[-1]["max_abs_err"], err_v)
-    return ms
+    return ms, lib_bwd
 
 
 def check_flash(results, gen) -> dict:
     """Phase 6. Returns the kernel ms of K1-K3 at the training path's
     shape (bf16, causal, S=1024)."""
-    path_ms = _flash_case(results, gen, S=1024, dtype=torch.bfloat16,
-                          causal=True)
+    path_ms, path_lib = _flash_case(results, gen, S=1024,
+                                    dtype=torch.bfloat16, causal=True)
     _flash_case(results, gen, S=1024, dtype=torch.bfloat16, causal=False)
     _flash_case(results, gen, S=1000, dtype=torch.bfloat16, causal=True)
     _flash_case(results, gen, S=1024, dtype=torch.float32, causal=True)
-    # K1 at the SP phase's global shape, the single-process reference of
-    # phase 9
-    _flash_case(results, gen, S=SP_S, B=SP_B, dtype=torch.bfloat16,
-                causal=True, backward=False)
+    # the SP phase's global shape, the single-process reference of phase 9
+    sp_ms, sp_lib = _flash_case(results, gen, S=SP_S, B=SP_B,
+                                dtype=torch.bfloat16, causal=True)
+    # the HDP = 128 instances (ptxas spills K3's) at the path's operations
+    _flash_case(results, gen, S=1024, H=6, hd=128, dtype=torch.bfloat16,
+                causal=True)
+    versus = {}
+    for label, ms, lib in (("B=8 S=1024", path_ms, path_lib),
+                           (f"B={SP_B} S={SP_S}", sp_ms, sp_lib)):
+        pair = ms["flash_dq"] + ms["flash_dkv"]
+        versus[label] = {"k2_ms": ms["flash_dq"], "k3_ms": ms["flash_dkv"],
+                         "k2_k3_ms": pair, "sdpa_backward_ms": lib,
+                         "x_sdpa": pair / lib}
+    print("flash backward K2 + K3 against the SDPA backward (bf16, causal): "
+          + json.dumps(versus), flush=True)
 
     # the public call at a ragged length: through the kernels, no
     # fallback (the JAX package's block rule binds CPU tensors only)
@@ -748,13 +771,15 @@ def check_training(cfg, rng, seed, kind, flash_ms) -> dict:
          "max_memory_allocated_bytes": peak, "launches": launches,
          "dispatch": loop.dispatch_stats.as_dict(),
          # flash: events around the 36 wrapper calls of one more step,
-         # K1 on its own; its phase-6 graph times x layers beside it; the
-         # head timed alone at the step's shape; rest = median step less
-         # both
+         # K1 and K2 + K3 on their own; their phase-6 graph times x layers
+         # beside them; the head timed alone at the step's shape; rest =
+         # median step less both
          "split_ms": {"flash_kernels_in_step": sum(in_step_ms.values()),
                       "k1_flash_fwd_in_step": in_step_ms["flash_fwd"],
                       "k2_k3_in_step": in_step_ms["flash_bwd_dq"]
                       + in_step_ms["flash_bwd_dkv"],
+                      "k2_k3_phase6_x_layers": cfg.num_layers
+                      * (flash_ms["flash_dq"] + flash_ms["flash_dkv"]),
                       "flash_kernels_phase6_x_layers":
                           cfg.num_layers * sum(flash_ms.values()),
                       "k1_phase6_x_layers":
@@ -1104,6 +1129,11 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    usage, warnings = _build.ptxas_usage("flash_attention")
+    print("ptxas (registers, spill bytes) of the Hopper flash kernels: "
+          + json.dumps({_kernel_name(k): v for k, v in usage.items()
+                        if "_sm90" in k}
+                       | {"warnings": warnings}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rng = np.random.RandomState(args.seed)
@@ -1148,8 +1178,8 @@ def main() -> int:
     ] + [
         {"name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,
          "replaces": FLASH_REPLACES[name], "launches": launches[name],
-         **head(name, lambda r: r["S"] == 1024 and r["causal"]
-                and r["dtype"] == "bf16")}
+         **head(name, lambda r: r["S"] == 1024 and r["hd"] == 64
+                and r["causal"] and r["dtype"] == "bf16")}
         for name in K1_K3
     ] + [
         {"name": "flash_carry", "route": "cuda", "source": FA.KERNEL_SOURCE,

@@ -6,7 +6,9 @@ PyTorch headers, so a build takes seconds, not minutes), the first time
 a kernel is asked for. Libraries are named by the hash of their source
 and flags, so an edited source rebuilds and an unchanged one is reused.
 They go to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``); ``DTG_TORCH_BUILD_DIR`` overrides the location.
+``.gitignore``); ``DTG_TORCH_BUILD_DIR`` overrides the location. ptxas's
+report of each kernel (registers, spills) is kept beside its library and
+read back by :func:`ptxas_usage`.
 
 Nothing here runs at import: the CPU test suite imports every module,
 on machines that have no ``nvcc``.
@@ -25,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -68,8 +70,33 @@ def _compile(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name} "
                            f"(rc {proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".ptxas").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_usage(name: str) -> tuple[dict[str, dict], list[str]]:
+    """ptxas's report for the built ``csrc/<name>.cu``: mangled kernel
+    name -> {"registers", "spill_stores", "spill_loads"} (bytes), and
+    ptxas's warning lines."""
+    _, out = _target(name)
+    usage: dict[str, dict] = {}
+    warnings, fn = [], None
+    for line in out.with_suffix(".ptxas").read_text().splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            usage[fn] = {}
+        elif "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip()
+        elif "spill stores" in line and fn in usage:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            usage[fn]["spill_stores"], usage[fn]["spill_loads"] = nums[1:3]
+        elif "Used" in line and "registers" in line and fn in usage:
+            usage[fn]["registers"] = int(line.split("Used")[1].split()[0])
+        elif "warning" in line.lower():
+            warnings.append(line.strip())
+    return usage, warnings
 
 
 def build_all() -> dict[str, Path]:

@@ -6,8 +6,10 @@
 // (distributed_tensorflow_guide_tpu/ops/flash_attention.py):
 //   K1  _fwd_kernel (launcher _fwd_call)     bf16: flash_fwd_sm90<HDP, false>
 //                                            f32:  flash_fwd_kernel<D, false>
-//   K2  _bwd_dq_kernel (_bwd_dq_call)        bf16: flash_dq_tc, f32: flash_dq_kernel
-//   K3  _bwd_dkv_kernel (_bwd_dkv_call)      bf16: flash_dkv_tc, f32: flash_dkv_kernel
+//   K2  _bwd_dq_kernel (_bwd_dq_call)        bf16: flash_dq_sm90<HDP>
+//                                            f32:  flash_dq_kernel<D>
+//   K3  _bwd_dkv_kernel (_bwd_dkv_call)      bf16: flash_dkv_sm90<HDP>
+//                                            f32:  flash_dkv_kernel<D>
 //   K4  _carry_fwd_kernel (flash_carry_step) bf16: flash_fwd_sm90<HDP, true>
 //                                            f32:  flash_fwd_kernel<D, true>
 //
@@ -29,52 +31,54 @@
 // full call does twice the operations and is bound by them. K4 at the
 // ring's per-rank shape (B=4, S_loc=1024) moves 44.8 MB (13.4 us), half
 // of it the f32 acc read and written, for 12.9 GFLOP full and 6.4
-// diagonal: bound by bytes. K2 and K3 are bound by operations (6 and
-// 8 * hd per visible pair against 4 * hd for K1).
+// diagonal: bound by bytes. K2 and K3 are bound by operations: 6 * hd
+// (K2: Q K^T, dO V^T, dS K) and 8 * hd (K3: K Q^T, V dO^T, P^T dO, dS^T Q)
+// per visible pair against 4 * hd for K1; at the path's shape 19.4 GFLOP
+// (19.6 us) and 25.8 GFLOP (26.1 us) against 64 and 76 MB (19 and 23 us).
 //
-// The bf16 forward (K1, K4), flash_fwd_sm90, keeps every intermediate on
-// chip and the tensor cores fed:
-//   * a CTA owns 128 query rows: two consumer warpgroups of 64 rows and a
-//     producer warpgroup that hands its registers to them (setmaxnreg);
-//   * one producer thread loads Q once and streams the 64-key K/V tiles
-//     by TMA through a ring of shared-memory stages (full / empty
+// The bf16 kernels (flash_fwd_sm90, flash_dq_sm90, flash_dkv_sm90) share
+// one design, which keeps every intermediate on chip and the tensor cores
+// fed:
+//   * a CTA owns 128 rows of its output (K1, K2, K4: queries; K3: keys):
+//     two consumer warpgroups of 64 rows and a producer warpgroup that
+//     hands its registers to them (setmaxnreg);
+//   * the producer loads the CTA's own rows once (Q; K2: Q and dO; K3: K
+//     and V) and streams the other side's 64-row tiles (K and V; K3: Q and
+//     dO) by TMA through a ring of shared-memory stages (full / empty
 //     mbarriers), from 4-D tensor maps over the strided q, k, v, so column
 //     slices of the qkv projection are read in place; TMA's zero fill pads
 //     the ragged rows and the head dim up to HDP = 64 or 128;
-//   * S = Q K^T and O += P V are wgmma products with f32 accumulators in
-//     registers: Q, K and V are read from 128-byte swizzled shared memory
-//     through descriptors (V transposed by the hardware), P straight from
-//     the S accumulator, rounded to bf16 in registers. O stays in
-//     registers for the CTA's life;
-//   * the online softmax runs on the accumulator registers: a row's max
-//     and sum are two shuffles within the quad that holds it, p = exp2 of
-//     one FMA; only the tiles that cross the diagonal or the ragged end
-//     are masked;
-//   * O (K1, bf16) and the carry (K4, f32) leave through shared memory by
-//     TMA stores of whole boxes; stored from the registers they went out
-//     in 32-byte pieces, and K4's store of the f32 acc took nearly as
-//     long as its products;
-//   * the longest causal query tiles launch first (the tile index is the
-//     grid's slowest dimension).
-// The backward (K2, K3) and the f32 route:
-//   * bf16 products run on the tensor cores through nvcuda::wmma (bf16
-//     operands, f32 accumulation); f32 inputs run scalar f32 FMAs, so
-//     that they keep f32's precision;
-//   * no (S, S) score or probability matrix ever reaches device memory:
-//     the backward recomputes P from the saved per-row LSE;
-//   * the causal loops stop at the diagonal;
+//   * every product is a wgmma with an f32 accumulator in registers:
+//     scores (S = Q K^T, K2's dP = dO V^T, K3's S^T = K Q^T and
+//     dP^T = V dO^T) read two K-major operands from 128-byte swizzled
+//     shared memory through descriptors; accumulations (O += P V, dQ +=
+//     dS K, dV += P^T dO, dK += dS^T Q) take their A straight from a score
+//     accumulator, rounded to bf16 in registers, and B MN-major
+//     (transposed by the hardware). Accumulators stay in registers for the
+//     CTA's life;
+//   * the elementwise work runs on the accumulator registers: the online
+//     softmax (a row's max and sum are two shuffles within the quad that
+//     holds it), P = exp2 of one FMA from the saved LSE in the backward,
+//     dS = P (dP - delta) scale; only the tiles that cross the diagonal or
+//     the ragged end are masked, with -inf, so a masked p is exactly 0. The
+//     backward issues its two score products together and computes P
+//     while the second runs;
+//   * outputs (O, dQ, dK, dV as bf16; K4's f32 carry) leave through shared
+//     memory by TMA stores of whole boxes, which clip rows past S and
+//     columns past hd; stored from the registers they went out in 32-byte
+//     pieces, and K4's store of the f32 acc took nearly as long as its
+//     products;
 //   * every output tile is owned by exactly one CTA (K2: a query tile; K3:
 //     a key tile), so there are no atomics and the backward is bitwise
-//     repeatable;
-//   * K3 computes the transposed score tile (keys as rows) directly, so
-//     P^T.dO and dS^T.Q read shared memory along rows;
-//   * one definition of the masked score (masked_score) serves the
-//     backward kernels and the f32 forward; the bf16 forward applies the
-//     same rule (a key past S or, under the causal mask, past the row).
-// Not yet done for K2 and K3: the elementwise work between the products
-// goes through shared memory, two lanes per row; the tile loads are not
-// overlapped with the products (no cp.async / TMA pipeline); no wgmma, no
-// warp specialisation.
+//     repeatable; no (S, S) matrix reaches device memory;
+//   * the longest causal walks launch first (the tile index is the grid's
+//     slowest dimension; K1, K2, K4: the last query tiles, K3: the first
+//     key tiles).
+// P (in P V and P^T dO) and dS are rounded to bf16 before their product,
+// at the points where the plain versions round them.
+// The f32 route (flash_*_kernel) runs scalar f32 FMAs, one CTA of 256
+// threads per 64-row tile, so that f32 inputs keep f32's precision; one
+// definition of the masked score (masked_score) serves it.
 
 // Layouts (row-major; element strides):
 //   q, k, v      (B, S, H, hd) with strides (sb, ss, sh, 1), shared by all
@@ -93,7 +97,6 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -505,112 +508,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ==== bf16 backward (K2, K3): the products on the tensor cores =============
-//
-// The backward for bf16 q, k, v, with every product a warp-wide
-// nvcuda::wmma 16x16x16 (bf16 operands, f32 accumulation). A CTA of four
-// warps owns 64 rows (16 per warp); tiles sit in shared memory as bf16,
-// zero-padded to a head dim hdp that is a multiple of 16. The elementwise
-// work between the products (mask, P, dS) runs in f32 on a score tile
-// staged in shared memory, two lanes per row. The operands of the second
-// product of each kernel (P in K3, dS in K2 and K3) are rounded to bf16 on
-// the way in, as flash attention does on tensor cores; the plain versions
-// round at the same points.
-
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kLdS = kTile + 4;  // f32 score tile pitch (multiple of 4)
-constexpr int kLdP = kTile + 8;  // bf16 P / dS tile pitch (multiple of 8)
-
-__device__ __forceinline__ int padded_hd(int hd) { return (hd + 15) & ~15; }
-
-// Rows [r0, r0 + kTile) of one (b, h) slice into dst[kTile][ld] as bf16,
-// copied in 16-byte vectors; rows past S and columns [hd, hdp) are zero.
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, int ld,
-                                               const bf16* __restrict__ base,
-                                               long long row_stride, int r0,
-                                               int S, int hd, int hdp) {
-  const int vec_per_row = hdp / 8;
-  for (int idx = threadIdx.x; idx < kTile * vec_per_row; idx += blockDim.x) {
-    const int r = idx / vec_per_row;
-    const int d0 = (idx % vec_per_row) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S && d0 < hd)
-      raw = *reinterpret_cast<const uint4*>(
-          base + (long long)(r0 + r) * row_stride + d0);
-    *reinterpret_cast<uint4*>(dst + r * ld + d0) = raw;
-  }
-}
-
-// out[16][16 * 4] = A[16 rows][hdp] . B[64 rows][hdp]^T: the 16 x 64 score
-// tile of one warp, stored row-major with pitch kLdS.
-__device__ __forceinline__ void scores_tc(float* out, const bf16* a, int lda,
-                                          const bf16* b, int ldb, int hdp) {
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    for (int kk = 0; kk < hdp / 16; ++kk) {
-      FragA fa;
-      FragBc fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, lda);
-      wmma::load_matrix_sync(fb, b + n * 16 * ldb + kk * 16, ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n * 16, c, kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += P[16][64] . V[64][16 n .. 16 n + 16) for the live n < hdp / 16.
-template <int NF>
-__device__ __forceinline__ void accumulate_tc(FragC (&acc)[NF], const bf16* p,
-                                              const bf16* v, int ldv,
-                                              int hdp) {
-#pragma unroll
-  for (int n = 0; n < NF; ++n) {
-    if (n * 16 >= hdp) break;
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA fa;
-      FragBr fb;
-      wmma::load_matrix_sync(fa, p + kk * 16, kLdP);
-      wmma::load_matrix_sync(fb, v + kk * 16 * ldv + n * 16, ldv);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// The accumulators of one warp (16 rows) into rows [row0, row0 + 16) of a
-// contiguous (B, S, H, hd) bf16 tensor, through f32 staging in shared
-// memory (the fragment layout is opaque).
-template <int NF>
-__device__ __forceinline__ void store_rows_tc(FragC (&acc)[NF], float* stage,
-                                              bf16* dst, int b, int h,
-                                              int row0, int S, int H, int hd,
-                                              int hdp) {
-  const int lds = hdp + 4;
-#pragma unroll
-  for (int n = 0; n < NF; ++n) {
-    if (n * 16 >= hdp) break;
-    wmma::store_matrix_sync(stage + n * 16, acc[n], lds, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < 16 * hd; i += 32) {
-    const int r = i / hd, d = i % hd;
-    if (row0 + r < S)
-      dst[(((long long)b * S + row0 + r) * H + h) * hd + d] =
-          __float2bfloat16(stage[r * lds + d]);
-  }
-  __syncwarp();
-}
 
 // ==== bf16 forward (K1, K4): wgmma on register accumulators, TMA ==========
 //
@@ -620,8 +518,8 @@ __device__ __forceinline__ void store_rows_tc(FragC (&acc)[NF], float* stage,
 // TMA writes and wgmma reads: boxes of 64 rows x 64 bf16 columns (128
 // bytes), 16-byte chunk c of row r at chunk c ^ (r % 8).
 
-constexpr int kFwdRows = 128;            // query rows per CTA
-constexpr int kWgRows = 64;              // query rows per consumer warpgroup
+constexpr int kCtaRows = 128;            // rows (queries; K3: keys) per CTA
+constexpr int kWgRows = 64;              // rows per consumer warpgroup
 constexpr int kAtomCols = 64;            // bf16 columns per 128-byte row
 constexpr int kBoxBytes = kTile * 128;   // one 64-row x 128-byte box
 constexpr float kLog2e = 1.4426950408889634f;
@@ -746,6 +644,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Keeps the registers of an A operand (a 64 x 64 tile as bf16) alive and
+// in place until the products that read them have been waited for.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
+}
+
+// A 64 x 64 f32 accumulator as bf16 in the A-operand layout of the next
+// product: the accumulator's layout is the A operand's.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      a[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
+}
+
+// D[64 x 64] = A . B^T over HDP columns (issued, not committed): A the
+// warpgroup's 64 rows, B a tile's 64 rows, both K-major in 128-byte
+// swizzled boxes of 64 columns.
+template <int HDP>
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint32_t a_s,
+                                             uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n64(d, sw128_desc(a_s + off, 16, 1024),
+                 sw128_desc(b_s + off, 16, 1024), kk > 0);
+  }
+}
+
+// D[64 x HDP] += A . B (issued, not committed): A a 64 x 64 tile in
+// registers (pack_a), B a tile's 64 rows read MN-major (transposed by the
+// hardware): rows [16 kk, 16 kk + 16) per product, boxes of 64 columns
+// kBoxBytes apart, 8-row groups 1024 bytes apart.
+template <int HDP>
+__device__ __forceinline__ void wgmma_accumulate(float (&d)[HDP / 2],
+                                                 const uint32_t (&a)[4][4],
+                                                 uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(b_s + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (HDP == 64)
+      wgmma_rs_n64(d, a[kk], db);
+    else
+      wgmma_rs_n128(d, a[kk], db);
+  }
+}
+
 // ---- mbarriers and TMA ----
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -831,6 +781,21 @@ __device__ __forceinline__ void tma_store_f32_box(const CUtensorMap* map,
       : "memory");
 }
 
+// -inf for the entries of a score tile (the thread's rows qpos, keys
+// from kv0) whose key is past S or, under the causal mask, past the
+// row's query: masked_score's rule, on the accumulator layout (entry i
+// in row (i >> 1) & 1, column 8 (i >> 2) + 2 (lane & 3) + (i & 1)).
+__device__ __forceinline__ void mask_keys(float (&s)[32],
+                                          const int (&qpos)[2], int kv0,
+                                          int S, bool causal) {
+  const int c0 = kv0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = c0 + 8 * (i >> 2) + (i & 1);
+    if (col >= S || (causal && col > qpos[(i >> 1) & 1])) s[i] = -INFINITY;
+  }
+}
+
 // One KV tile of kTile keys merged into a warpgroup's 64 rows. q_s, k_s,
 // v_s: shared addresses of the warpgroup's Q and of the tile's K and V
 // (HDP / 64 boxes each, 128-byte swizzled). The thread holds rows qpos[0]
@@ -850,30 +815,16 @@ __device__ __forceinline__ void fwd_tile(float (&o)[HDP / 2], float (&m)[2],
                                          uint32_t v_s, int kv0, int S,
                                          bool mask, bool causal,
                                          float scale) {
-  const int lane = threadIdx.x & 31;
   float s[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(s, sw128_desc(q_s + off, 16, 1024),
-                 sw128_desc(k_s + off, 16, 1024), kk > 0);
-  }
+  wgmma_scores<HDP>(s, q_s, k_s);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
 
-  if (mask) {
-    const int c0 = kv0 + 2 * (lane & 3);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = c0 + 8 * (i >> 2) + (i & 1);
-      if (col >= S || (causal && col > qpos[(i >> 1) & 1]))
-        s[i] = -INFINITY;
-    }
-  }
+  if (mask) mask_keys(s, qpos, kv0, S, causal);
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
@@ -904,32 +855,15 @@ __device__ __forceinline__ void fwd_tile(float (&o)[HDP / 2], float (&m)[2],
 #pragma unroll
   for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
-  // the S accumulator's layout is the A operand's: P stays in registers
-  uint32_t a[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      a[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
+  uint32_t a[4][4];  // P stays in registers
+  pack_a(a, s);
   wgmma_fence();
   fence_regs(o);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    // keys [16 kk, 16 kk + 16) of V, MN-major: boxes of 64 head-dim
-    // columns kBoxBytes apart, 8-key groups 1024 bytes apart
-    const uint64_t dv = sw128_desc(v_s + kk * 16 * 128, kBoxBytes, 1024);
-    if constexpr (HDP == 64)
-      wgmma_rs_n64(o, a[kk], dv);
-    else
-      wgmma_rs_n128(o, a[kk], dv);
-  }
+  wgmma_accumulate<HDP>(o, a, v_s);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
+  fence_regs(a);
 }
 
 // The thread's two rows, carried in (K4) or fresh (K1).
@@ -958,6 +892,50 @@ __device__ __forceinline__ void fwd_open(float (&o)[HDP / 2], float (&m)[2],
   }
 }
 
+// Row `row` (0..63 within the warpgroup's box) of the thread's accumulator
+// row r, divided by div, as bf16 into the 128-byte swizzled boxes of 64
+// columns at w; the 8 rows a warp writes at once fall in different banks.
+template <int HDP>
+__device__ __forceinline__ void stage_row_bf16(const float (&o)[HDP / 2],
+                                               int r, int row, float div,
+                                               uint8_t* w) {
+  const int q4 = threadIdx.x & 3;
+  uint8_t* line = w + row * 128;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int chunk = (j % 8) ^ (row & 7);
+    *reinterpret_cast<__nv_bfloat162*>(line + (j / 8) * kBoxBytes +
+                                       chunk * 16 + 4 * q4) =
+        __floats2bfloat162_rn(o[4 * j + 2 * r] / div,
+                              o[4 * j + 2 * r + 1] / div);
+  }
+}
+
+// Makes the warpgroup's staged rows visible to TMA (generic-proxy writes)
+// once all 128 threads have written them; true for the one thread that
+// then stores them.
+__device__ __forceinline__ bool wg_staged() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+  return (threadIdx.x & 127) == 0;
+}
+
+// The n bf16 boxes of 64 columns at w to rows [r0, r0 + 64) of a 4-D
+// (hd, H, S, B) map.
+__device__ __forceinline__ void tma_store_rows_bf16(const CUtensorMap* map,
+                                                    const uint8_t* w, int n,
+                                                    int h, int r0, int b) {
+  for (int a = 0; a < n; ++a)
+    tma_store_bf16_box(map, w + a * kBoxBytes, a * kAtomCols, h, r0, b);
+}
+
+// Commits the thread's TMA stores and waits until they have read shared
+// memory (it stays the CTA's until then).
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // The warpgroup's 64 rows out, through shared memory and one TMA store
 // per box (a row-by-row store from the accumulator layout wrote 32-byte
 // pieces and cost K4 nearly as much as its products). K4 stores the carry back
@@ -965,8 +943,8 @@ __device__ __forceinline__ void fwd_open(float (&o)[HDP / 2], float (&m)[2],
 // m and l directly. K1 divides by l and writes O as bf16 into its own Q
 // tile (free after the last product; boxes of 64 columns) and the
 // natural-log LSE directly; a row with l = 0 gives 0 and m + log(1).
-// Both boxes are 128-byte swizzled, so the 8 rows a warp writes at once
-// fall in different banks. TMA clips rows past S and columns past hd.
+// Both boxes are 128-byte swizzled. TMA clips rows past S and columns
+// past hd.
 template <int HDP, bool kCarry>
 __device__ __forceinline__ void fwd_close(const float (&o)[HDP / 2],
                                           const float (&m)[2],
@@ -983,8 +961,8 @@ __device__ __forceinline__ void fwd_close(const float (&o)[HDP / 2],
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = qpos[r] - r0;  // 0..63 within the warpgroup's box
-    uint8_t* line = (kCarry ? c_w : q_w) + row * 128;
     if (kCarry) {
+      uint8_t* line = c_w + row * 128;
 #pragma unroll
       for (int j = 0; j < HDP / 8; ++j) {
         const int chunk = (2 * (j % 4) + (q4 >> 1)) ^ (row & 7);
@@ -998,55 +976,63 @@ __device__ __forceinline__ void fwd_close(const float (&o)[HDP / 2],
       }
     } else {
       const float safe_l = (l[r] == 0.f) ? 1.f : l[r];
-#pragma unroll
-      for (int j = 0; j < HDP / 8; ++j) {
-        const int chunk = (j % 8) ^ (row & 7);
-        *reinterpret_cast<__nv_bfloat162*>(line + (j / 8) * kBoxBytes +
-                                           chunk * 16 + 4 * q4) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] / safe_l,
-                                  o[4 * j + 2 * r + 1] / safe_l);
-      }
+      stage_row_bf16<HDP>(o, r, row, safe_l, q_w);
       if (q4 == 0 && qpos[r] < S) lse[rows + qpos[r]] = m[r] + logf(safe_l);
     }
   }
-  // the generic-proxy writes above become visible to TMA, then one thread
-  // of the warpgroup stores its boxes once all 128 have written
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
-  if ((threadIdx.x & 127) == 0) {
+  if (wg_staged()) {
     if (kCarry) {
       for (int a = 0; a < HDP / 32; ++a)
         tma_store_f32_box(tm_o, c_w + a * kBoxBytes, a * 32, r0,
                           b * H + h);
     } else {
-      for (int a = 0; a < HDP / kAtomCols; ++a)
-        tma_store_bf16_box(tm_o, q_w + a * kBoxBytes, a * kAtomCols, h, r0,
-                           b);
+      tma_store_rows_bf16(tm_o, q_w, HDP / kAtomCols, h, r0, b);
     }
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    // shared memory stays the CTA's until TMA has read it
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    tma_store_drain();
   }
 }
 
-constexpr int kStages = 2;           // K/V tiles in flight
-constexpr int kFwdThreads = 384;  // consumer warpgroups 0, 1; producer 2
+constexpr int kStages = 2;         // tiles of the streamed side in flight
+constexpr int kSm90Threads = 384;  // consumer warpgroups 0, 1; producer 2
 // Registers per thread after the rebalancing: the producer warpgroup
 // keeps few, the consumers take the rest of the CTA's pool, which is
 // what the launch gave it (ptxas's count, 168 under these launch bounds,
-// times kFwdThreads). setmaxnreg.inc would wait forever for registers the
+// times kSm90Threads). setmaxnreg.inc would wait forever for registers the
 // pool lacks, so the launcher checks the plan against the compiled count.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
-// grid (H, B, ceil(S / kFwdRows)): the longest causal rows launch first.
+// The dynamic shared memory, aligned to the 1024 bytes that the 128-byte
+// swizzle's 8-row atoms repeat over.
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// The ring's barriers, laid out full[kStages], empty[kStages], then one
+// for the CTA's own rows: a full barrier completes on `arrivals`
+// arrivals and its TMA bytes, an empty one on one arrival per consumer
+// warp, the last on one arrival and its bytes. Then the CTA syncs.
+__device__ __forceinline__ void init_ring(uint64_t* full, int arrivals) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], arrivals);
+      mbar_init(&full[kStages + s], 8);
+    }
+    mbar_init(&full[2 * kStages], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// grid (H, B, ceil(S / kCtaRows)): the longest causal rows launch first.
 // Warpgroup 2 is the producer: one thread loads Q once and streams the
 // K/V tiles through a ring of kStages stages (full / empty mbarriers),
 // with its registers given to the consumers (setmaxnreg). Warpgroups 0 and 1
 // each own 64 query rows and walk every tile of the CTA, skipping the
 // products of a tile none of their keys can see.
 template <int HDP, bool kCarry>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(kSm90Threads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
@@ -1055,8 +1041,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                float* __restrict__ l_io, const float* __restrict__ acc_io,
                int S, int H, int hd, float scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = aligned_smem(smem_raw);
   constexpr int kBoxes = HDP / kAtomCols;
   constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;  // one K or V tile
   uint8_t* q_s = smem;  // two warpgroups' rows
@@ -1069,18 +1054,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* q_full = empty + kStages;
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows;
-  const int kv_end = causal ? min(S, q0 + kFwdRows) : S;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kCtaRows;
+  const int kv_end = causal ? min(S, q0 + kCtaRows) : S;
   const int n_kv = (kv_end + kTile - 1) / kTile;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
-    }
-    mbar_init(q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring(full, 1);
 
   if (threadIdx.x >= 256) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -1139,163 +1116,381 @@ size_t fwd_sm90_smem(int hdp, bool carry) {
          (2 * kStages + 1) * sizeof(uint64_t);
 }
 
-// ---- K2 on the tensor cores -----------------------------------------------
-// grid (ceil(S / kTile), H, B), kTcThreads. Each warp owns 16 query rows
-// and keeps its dQ accumulators in registers for the whole KV walk.
-template <int NF>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            bf16* __restrict__ dq, long long sb, long long ss, long long sh,
-            int S, int H, int hd, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hdp = padded_hd(hd);
-  const int ld = hdp + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kTile * ld;
-  bf16* k_s = do_s + kTile * ld;
-  bf16* v_s = k_s + kTile * ld;
-  float* scratch = reinterpret_cast<float*>(v_s + kTile * ld);
-  float* s_w = scratch + warp * 2 * 16 * kLdS;  // then dP, adjacent
-  float* dp_w = s_w + 16 * kLdS;
-  bf16* ds_w = reinterpret_cast<bf16*>(scratch + kTcWarps * 2 * 16 * kLdS) +
-               warp * 16 * kLdP;
-  float* lse_s = reinterpret_cast<float*>(
-      reinterpret_cast<bf16*>(scratch + kTcWarps * 2 * 16 * kLdS) +
-      kTcWarps * 16 * kLdP);
-  float* dl_s = lse_s + kTile;
+// ==== bf16 backward (K2, K3): wgmma on register accumulators, TMA ==========
+//
+// flash_dq_sm90<HDP> (K2) and flash_dkv_sm90<HDP> (K3) are built like the
+// forward: 384 threads, consumer warpgroups 0 and 1 of 64 rows each, a
+// producer warpgroup that loads the CTA's own rows once and streams the
+// other side's 64-row tiles through a kStages ring. Every product is a
+// wgmma of the forward's two kinds: a score-like tile from two K-major
+// operands in shared memory (wgmma_ss), and an accumulation whose A is a
+// 64 x 64 score-like tile rounded to bf16 in registers (wgmma_rs, B read
+// MN-major as the forward reads V). The elementwise work (mask, P, dS)
+// runs on the accumulator registers; nothing between the products goes
+// through shared memory.
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const long long off = (long long)b * sb + (long long)h * sh;
-  const long long off_c = ((long long)b * S * H + h) * hd;
-  const long long rows = ((long long)b * H + h) * S;
-  load_tile_bf16(q_s, ld, q + off, ss, q0, S, hd, hdp);
-  load_tile_bf16(do_s, ld, dout + off_c, (long long)H * hd, q0, S, hd, hdp);
-  load_rows(lse_s, lse + rows, q0, S);
-  load_rows(dl_s, delta + rows, q0, S);
-
-  FragC acc[NF];
+// K2, one KV tile into a warpgroup's dQ. q_s, do_s: the warpgroup's Q and
+// dO; k_s, v_s: the tile's K and V. lse2: the rows' LSE times log2(e);
+// dl: their delta. S = Q K^T and dP = dO V^T are issued together; P is
+// computed while dP is still running; dS = P (dP - delta) scale is rounded
+// to bf16 in the A-operand layout and dQ += dS K.
+template <int HDP>
+__device__ __forceinline__ void dq_tile(float (&dq)[HDP / 2],
+                                        const int (&qpos)[2],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], uint32_t q_s,
+                                        uint32_t do_s, uint32_t k_s,
+                                        uint32_t v_s, int kv0, int S,
+                                        bool mask, bool causal, float scale) {
+  float s[32], dp[32];
 #pragma unroll
-  for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[n], 0.f);
-  const int r = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + r;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  wgmma_fence();
+  wgmma_scores<HDP>(s, q_s, k_s);
+  wgmma_commit();
+  wgmma_scores<HDP>(dp, do_s, v_s);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(s);
 
-  const int kv_end = causal ? min(S, q0 + kTile) : S;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    __syncthreads();
-    load_tile_bf16(k_s, ld, k + off, ss, kv0, S, hd, hdp);
-    load_tile_bf16(v_s, ld, v + off, ss, kv0, S, hd, hdp);
-    __syncthreads();
-    scores_tc(s_w, q_s + warp * 16 * ld, ld, k_s, ld, hdp);
-    scores_tc(dp_w, do_s + warp * 16 * ld, ld, v_s, ld, hdp);
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;
-      const float sm = masked_score(s_w[r * kLdS + c], scale, q0 + row,
-                                    kv0 + c, S, causal);
-      const float p = expf(sm - lse_s[row]);
-      ds_w[r * kLdP + c] =
-          __float2bfloat16(p * (dp_w[r * kLdS + c] - dl_s[row]) * scale);
-    }
-    __syncwarp();
-    accumulate_tc(acc, ds_w, k_s, ld, hdp);
-  }
-  store_rows_tc(acc, s_w, dq, b, h, q0 + warp * 16, S, H, hd, hdp);
-}
-
-// ---- K3 on the tensor cores -----------------------------------------------
-// grid (ceil(S / kTile), H, B), kTcThreads. Each warp owns 16 key rows,
-// builds the transposed score tile (its keys x 64 queries) directly and
-// keeps its dK and dV accumulators in registers.
-template <int NF>
-__global__ void __launch_bounds__(kTcThreads)
-flash_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, long long sb,
-             long long ss, long long sh, int S, int H, int hd, float scale,
-             int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hdp = padded_hd(hd);
-  const int ld = hdp + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kTile * ld;
-  bf16* q_s = v_s + kTile * ld;
-  bf16* do_s = q_s + kTile * ld;
-  float* scratch = reinterpret_cast<float*>(do_s + kTile * ld);
-  float* st_w = scratch + warp * 2 * 16 * kLdS;
-  float* dpt_w = st_w + 16 * kLdS;
-  bf16* pt_w = reinterpret_cast<bf16*>(scratch + kTcWarps * 2 * 16 * kLdS) +
-               warp * 2 * 16 * kLdP;
-  bf16* dst_w = pt_w + 16 * kLdP;
-  float* lse_s = reinterpret_cast<float*>(
-      reinterpret_cast<bf16*>(scratch + kTcWarps * 2 * 16 * kLdS) +
-      kTcWarps * 2 * 16 * kLdP);
-  float* dl_s = lse_s + kTile;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kv0 = blockIdx.x * kTile;
-  const long long off = (long long)b * sb + (long long)h * sh;
-  const long long off_c = ((long long)b * S * H + h) * hd;
-  const long long rows = ((long long)b * H + h) * S;
-  load_tile_bf16(k_s, ld, k + off, ss, kv0, S, hd, hdp);
-  load_tile_bf16(v_s, ld, v + off, ss, kv0, S, hd, hdp);
-
-  FragC dk_acc[NF], dv_acc[NF];
+  if (mask) mask_keys(s, qpos, kv0, S, causal);
+  const float sl2 = scale * kLog2e;
 #pragma unroll
-  for (int n = 0; n < NF; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-  const int r = lane >> 1, half = lane & 1;
-  const int kpos = kv0 + warp * 16 + r;
+  for (int i = 0; i < 32; ++i)
+    s[i] = exp2f(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
+  wgmma_wait<0>();
+  fence_regs(dp);
 
-  const int q_begin = causal ? (kv0 / kTile) * kTile : 0;
-  for (int q0 = q_begin; q0 < S; q0 += kTile) {
-    __syncthreads();
-    load_tile_bf16(q_s, ld, q + off, ss, q0, S, hd, hdp);
-    load_tile_bf16(do_s, ld, dout + off_c, (long long)H * hd, q0, S, hd,
-                   hdp);
-    load_rows(lse_s, lse + rows, q0, S);
-    load_rows(dl_s, delta + rows, q0, S);
-    __syncthreads();
-    scores_tc(st_w, k_s + warp * 16 * ld, ld, q_s, ld, hdp);
-    scores_tc(dpt_w, v_s + warp * 16 * ld, ld, do_s, ld, hdp);
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int c = half * 32 + j;  // query row within the tile
-      const float sm = masked_score(st_w[r * kLdS + c], scale, q0 + c, kpos,
-                                    S, causal);
-      const float p = expf(sm - lse_s[c]);
-      pt_w[r * kLdP + c] = __float2bfloat16(p);
-      dst_w[r * kLdP + c] =
-          __float2bfloat16(p * (dpt_w[r * kLdS + c] - dl_s[c]) * scale);
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = 8 * kk + 2 * t, r = t & 1;  // entries i, i + 1: row r
+      a[kk][t] = pack_bf16(s[i] * (dp[i] - dl[r]) * scale,
+                           s[i + 1] * (dp[i + 1] - dl[r]) * scale);
     }
-    __syncwarp();
-    accumulate_tc(dv_acc, pt_w, do_s, ld, hdp);
-    accumulate_tc(dk_acc, dst_w, q_s, ld, hdp);
-  }
-  store_rows_tc(dk_acc, st_w, dk, b, h, kv0 + warp * 16, S, H, hd, hdp);
-  store_rows_tc(dv_acc, st_w, dv, b, h, kv0 + warp * 16, S, H, hd, hdp);
+  wgmma_fence();
+  fence_regs(dq);
+  wgmma_accumulate<HDP>(dq, a, k_s);  // K read as the forward reads V
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  fence_regs(a);
 }
 
-size_t dq_tc_smem(int hd) {
-  const int hdp = (hd + 15) & ~15;
-  return 4 * kTile * (hdp + 8) * sizeof(bf16) +
-         kTcWarps * 2 * 16 * kLdS * sizeof(float) +
-         kTcWarps * 16 * kLdP * sizeof(bf16) + 2 * kTile * sizeof(float);
+// grid (H, B, ceil(S / kCtaRows)): the longest causal rows launch first.
+// The CTA owns 128 query rows; one producer thread loads their Q and dO
+// once and streams the K/V tiles they can see through the ring. Each
+// consumer thread reads the LSE and delta of its two rows once (0 past
+// S, so a ragged row makes no inf - inf), keeps dQ in registers for the
+// whole walk and skips the products of a tile none of its warpgroup's
+// rows can see. dQ leaves as bf16 through the warpgroup's Q tile (free
+// after its last product) by TMA store.
+template <int HDP>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_dq,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, int S, int H, float scale,
+              int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  constexpr int kBoxes = HDP / kAtomCols;
+  constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  uint8_t* q_s = smem;  // two warpgroups' rows of Q, then of dO
+  uint8_t* do_s = q_s + 2 * kTileBytes;
+  uint8_t* k_s = do_s + 2 * kTileBytes;
+  uint8_t* v_s = k_s + kStages * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kCtaRows;
+  const int kv_end = causal ? min(S, q0 + kCtaRows) : S;
+  const int n_kv = (kv_end + kTile - 1) / kTile;
+  init_ring(full, 1);
+
+  if (threadIdx.x >= 256) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 4 * kTileBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int a = 0; a < kBoxes; ++a) {
+          tma_load_box(q_s + (w * kBoxes + a) * kBoxBytes, &tm_q, q_full,
+                       a * kAtomCols, h, q0 + w * kWgRows, b);
+          tma_load_box(do_s + (w * kBoxes + a) * kBoxBytes, &tm_do, q_full,
+                       a * kAtomCols, h, q0 + w * kWgRows, b);
+        }
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], 2 * kTileBytes);
+        for (int a = 0; a < kBoxes; ++a) {
+          tma_load_box(k_s + st * kTileBytes + a * kBoxBytes, &tm_k,
+                       &full[st], a * kAtomCols, h, it * kTile, b);
+          tma_load_box(v_s + st * kTileBytes + a * kBoxBytes, &tm_v,
+                       &full[st], a * kAtomCols, h, it * kTile, b);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int r0 = q0 + wg * kWgRows;
+    const long long rows = ((long long)b * H + h) * S;
+    const int qpos[2] = {r0 + 16 * (t >> 5) + ((t & 31) >> 2),
+                         r0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8};
+    float lse2[2], dl[2], dq[HDP / 2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = qpos[r] < S;
+      lse2[r] = in ? lse[rows + qpos[r]] * kLog2e : 0.f;
+      dl[r] = in ? delta[rows + qpos[r]] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int st = it % kStages, kv0 = it * kTile;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!(causal && kv0 > r0 + kWgRows - 1)) {  // a key is visible
+        const bool mask =
+            kv0 + kTile > S || (causal && kv0 + kTile - 1 > r0);
+        dq_tile<HDP>(dq, qpos, lse2, dl, smem_u32(q_s + wg * kTileBytes),
+                     smem_u32(do_s + wg * kTileBytes),
+                     smem_u32(k_s + st * kTileBytes),
+                     smem_u32(v_s + st * kTileBytes), kv0, S, mask,
+                     causal != 0, scale);
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+    uint8_t* q_w = q_s + wg * kTileBytes;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      stage_row_bf16<HDP>(dq, r, qpos[r] - r0, 1.f, q_w);
+    if (wg_staged()) {
+      tma_store_rows_bf16(&tm_dq, q_w, kBoxes, h, r0, b);
+      tma_store_drain();
+    }
+  }
 }
-size_t dkv_tc_smem(int hd) {
-  const int hdp = (hd + 15) & ~15;
-  return 4 * kTile * (hdp + 8) * sizeof(bf16) +
-         kTcWarps * 2 * 16 * kLdS * sizeof(float) +
-         kTcWarps * 2 * 16 * kLdP * sizeof(bf16) + 2 * kTile * sizeof(float);
+
+// K3, one query tile into a warpgroup's dK and dV, computed transposed
+// (the warpgroup's keys as rows, the tile's queries as columns). k_s, v_s:
+// the warpgroup's K and V; q_s, do_s: the tile's Q and dO; lse2, dl: the
+// tile's 64 LSE (times log2(e)) and delta values in shared memory. The
+// thread's column j of an accumulator entry is the same for its two rows,
+// so it reads each value once. S^T = K Q^T and dP^T = V dO^T are issued
+// together; P^T is computed while dP^T runs, rounded to bf16 and
+// dV += P^T dO issued; then dS^T = P^T (dP^T - delta) scale, rounded, and
+// dK += dS^T Q.
+template <int HDP>
+__device__ __forceinline__ void dkv_tile(float (&dk)[HDP / 2],
+                                         float (&dv)[HDP / 2],
+                                         const int (&kpos)[2], uint32_t k_s,
+                                         uint32_t v_s, uint32_t q_s,
+                                         uint32_t do_s,
+                                         const float* __restrict__ lse2,
+                                         const float* __restrict__ dl,
+                                         int q0, int S, bool mask,
+                                         bool causal, float scale) {
+  const int c0 = 2 * (threadIdx.x & 3);
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  wgmma_fence();
+  wgmma_scores<HDP>(s, k_s, q_s);
+  wgmma_commit();
+  wgmma_scores<HDP>(dp, v_s, do_s);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(s);
+
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = q0 + c0 + 8 * (i >> 2) + (i & 1);  // a query
+      if (col >= S || (causal && col < kpos[(i >> 1) & 1])) s[i] = -INFINITY;
+    }
+  }
+  const float sl2 = scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c0 + 8 * j);
+    s[4 * j] = exp2f(fmaf(s[4 * j], sl2, -l2.x));
+    s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -l2.y));
+    s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -l2.x));
+    s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -l2.y));
+  }
+  uint32_t ap[4][4];
+  pack_a(ap, s);
+  wgmma_fence();
+  fence_regs(dv);
+  wgmma_accumulate<HDP>(dv, ap, do_s);
+  wgmma_commit();
+  wgmma_wait<1>();  // S^T and dP^T done; dV may still run
+  fence_regs(dp);
+
+  uint32_t ads[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = 8 * kk + 2 * t;  // entries i, i + 1: two columns
+      const float2 d = *reinterpret_cast<const float2*>(dl + c0 + 8 * (i >> 2));
+      ads[kk][t] = pack_bf16(s[i] * (dp[i] - d.x) * scale,
+                             s[i + 1] * (dp[i + 1] - d.y) * scale);
+    }
+  wgmma_fence();
+  fence_regs(dk);
+  wgmma_accumulate<HDP>(dk, ads, q_s);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
+  fence_regs(ap);
+  fence_regs(ads);
+}
+
+// grid (H, B, ceil(S / kCtaRows)): the first key tiles, which the most
+// query tiles see, launch first. The CTA owns 128 key rows; one producer
+// thread loads their K and V once and streams the 64-row Q and dO tiles
+// that can see them (under the causal mask, from the CTA's first key on).
+// The tile's LSE (times log2(e)) and delta travel with it in the same
+// stage: each lane of the producer warp reads two of each (0 past S) and
+// arrives on the stage's full barrier, whose count is the warp's 32
+// lanes, lane 0's arrival also expecting the TMA bytes. Each consumer
+// warpgroup owns 64 keys, keeps dK and dV in registers and skips the
+// products of a tile none of whose queries sees its keys. dK and dV leave
+// as bf16 through the warpgroup's K and V tiles by TMA store.
+template <int HDP>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_dkv_sm90(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_dk,
+               const __grid_constant__ CUtensorMap tm_dv,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, int S, int H, float scale,
+               int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  constexpr int kBoxes = HDP / kAtomCols;
+  constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  uint8_t* k_s = smem;  // two warpgroups' keys of K, then of V
+  uint8_t* v_s = k_s + 2 * kTileBytes;
+  uint8_t* q_s = v_s + 2 * kTileBytes;
+  uint8_t* do_s = q_s + kStages * kTileBytes;
+  float* rows_s = reinterpret_cast<float*>(do_s + kStages * kTileBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kCtaRows;
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = (S - q_begin + kTile - 1) / kTile;
+  const long long rows = ((long long)b * H + h) * S;
+  init_ring(full, 32);  // the producer warp's lanes
+
+  if (threadIdx.x >= 256) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 4 * kTileBytes);
+        for (int w = 0; w < 2; ++w)
+          for (int a = 0; a < kBoxes; ++a) {
+            tma_load_box(k_s + (w * kBoxes + a) * kBoxBytes, &tm_k, kv_full,
+                         a * kAtomCols, h, k0 + w * kWgRows, b);
+            tma_load_box(v_s + (w * kBoxes + a) * kBoxBytes, &tm_v, kv_full,
+                         a * kAtomCols, h, k0 + w * kWgRows, b);
+          }
+      }
+      for (int it = 0; it < n_q; ++it) {
+        const int st = it % kStages, q0 = q_begin + it * kTile;
+        float l2[2], d[2];  // read before the wait: the loads overlap it
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int r = q0 + lane + 32 * u;
+          l2[u] = r < S ? lse[rows + r] * kLog2e : 0.f;
+          d[u] = r < S ? delta[rows + r] : 0.f;
+        }
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        float* rs = rows_s + st * 2 * kTile;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          rs[lane + 32 * u] = l2[u];
+          rs[kTile + lane + 32 * u] = d[u];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * kTileBytes);
+          for (int a = 0; a < kBoxes; ++a) {
+            tma_load_box(q_s + st * kTileBytes + a * kBoxBytes, &tm_q,
+                         &full[st], a * kAtomCols, h, q0, b);
+            tma_load_box(do_s + st * kTileBytes + a * kBoxBytes, &tm_do,
+                         &full[st], a * kAtomCols, h, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int c0 = k0 + wg * kWgRows;  // the warpgroup's first key
+    const int kpos[2] = {c0 + 16 * (t >> 5) + ((t & 31) >> 2),
+                         c0 + 16 * (t >> 5) + ((t & 31) >> 2) + 8};
+    float dk[HDP / 2], dv[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_q; ++it) {
+      const int st = it % kStages, q0 = q_begin + it * kTile;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      if (!(causal && q0 + kTile - 1 < c0)) {  // a query sees a key
+        const bool mask = q0 + kTile > S || (causal && q0 < c0 + kWgRows - 1);
+        const float* rs = rows_s + st * 2 * kTile;
+        dkv_tile<HDP>(dk, dv, kpos, smem_u32(k_s + wg * kTileBytes),
+                      smem_u32(v_s + wg * kTileBytes),
+                      smem_u32(q_s + st * kTileBytes),
+                      smem_u32(do_s + st * kTileBytes), rs, rs + kTile, q0,
+                      S, mask, causal != 0, scale);
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+    uint8_t* k_w = k_s + wg * kTileBytes;
+    uint8_t* v_w = v_s + wg * kTileBytes;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      stage_row_bf16<HDP>(dk, r, kpos[r] - c0, 1.f, k_w);
+      stage_row_bf16<HDP>(dv, r, kpos[r] - c0, 1.f, v_w);
+    }
+    if (wg_staged()) {
+      tma_store_rows_bf16(&tm_dk, k_w, kBoxes, h, c0, b);
+      tma_store_rows_bf16(&tm_dv, v_w, kBoxes, h, c0, b);
+      tma_store_drain();
+    }
+  }
+}
+
+size_t dq_sm90_smem(int hdp) {
+  return 1024 + (4 + 2 * kStages) * (hdp / kAtomCols) * kBoxBytes +
+         (2 * kStages + 1) * sizeof(uint64_t);
+}
+size_t dkv_sm90_smem(int hdp) {
+  return 1024 + (4 + 2 * kStages) * (hdp / kAtomCols) * kBoxBytes +
+         kStages * 2 * kTile * sizeof(float) +
+         (2 * kStages + 1) * sizeof(uint64_t);
 }
 
 // dynamic shared memory, in bytes, of each kernel at head dim hd
@@ -1378,33 +1573,6 @@ int launch_f32(int which, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NF>
-int launch_tc(int which, const Args& a) {
-  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  int rc = 0;
-  if (which == 1) {
-    static const int set = opt_in(flash_dq_tc<NF>, dq_tc_smem(128));
-    rc = set;
-    if (rc) return rc;
-    flash_dq_tc<NF><<<grid, kTcThreads, dq_tc_smem(a.hd), a.stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
-        static_cast<bf16*>(a.out0), a.sb, a.ss, a.sh, a.S, a.H, a.hd,
-        a.scale, a.causal);
-  } else {
-    static const int set = opt_in(flash_dkv_tc<NF>, dkv_tc_smem(128));
-    rc = set;
-    if (rc) return rc;
-    flash_dkv_tc<NF><<<grid, kTcThreads, dkv_tc_smem(a.hd), a.stream>>>(
-        q, k, v, static_cast<const bf16*>(a.dout), a.lse_in, a.delta,
-        static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sb, a.ss,
-        a.sh, a.S, a.H, a.hd, a.scale, a.causal);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // cuTensorMapEncodeTiled, looked up in the loaded libcuda at run time
 // (no link flag).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1472,45 +1640,89 @@ int map_f32(CUtensorMap* map, const void* base, const Args& a) {
                 strides, box);
 }
 
-// K1 (which 0) and K4 (which 3) for bf16: HDP = 64 or 128 columns. The
-// tensor maps are built per call (a captured graph keeps the launch's
-// copy of them).
+// A contiguous (B, S, H, hd) bf16 tensor's map.
+int map_bf16_contig(CUtensorMap* map, const void* base, const Args& a) {
+  return map_bf16(map, base, a, (long long)a.S * a.H * a.hd,
+                  (long long)a.H * a.hd, a.hd);
+}
+
+// Once per sm90 kernel: opts in to its shared memory and checks that the
+// compiled register count holds the setmaxnreg plan (code 9003 if not).
+template <typename K>
+int sm90_ready(K kernel, size_t smem) {
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  cudaFuncAttributes at;
+  const int got = static_cast<int>(cudaFuncGetAttributes(&at, kernel));
+  if (got) return got;
+  const int plan = 128 * kProducerRegs + 256 * kConsumerRegs;
+  return at.numRegs * kSm90Threads >= plan ? 0 : kRegisterPlanUnmet;
+}
+
+// The bf16 kernels: HDP = 64 or 128 columns. The tensor maps are built
+// per call (a captured graph keeps the launch's copy of them).
 template <int HDP, bool kCarry>
-int launch_fwd_sm90(const Args& a) {
-  static const int set = [] {
-    const int rc = opt_in(flash_fwd_sm90<HDP, kCarry>,
-                          fwd_sm90_smem(HDP, kCarry));
-    if (rc) return rc;
-    cudaFuncAttributes at;
-    const int got = static_cast<int>(
-        cudaFuncGetAttributes(&at, flash_fwd_sm90<HDP, kCarry>));
-    if (got) return got;
-    const int plan = 128 * kProducerRegs + 256 * kConsumerRegs;
-    return at.numRegs * kFwdThreads >= plan ? 0 : kRegisterPlanUnmet;
-  }();
+int launch_fwd_sm90(const Args& a) {  // K1 (kCarry false), K4
+  static const int set = sm90_ready(flash_fwd_sm90<HDP, kCarry>,
+                                    fwd_sm90_smem(HDP, kCarry));
   if (set) return set;
   CUtensorMap tq, tk, tv, to;
   int rc = map_bf16(&tq, a.q, a, a.sb, a.ss, a.sh);
   if (!rc) rc = map_bf16(&tk, a.k, a, a.sb, a.ss, a.sh);
   if (!rc) rc = map_bf16(&tv, a.v, a, a.sb, a.ss, a.sh);
   if (!rc)
-    rc = kCarry ? map_f32(&to, a.acc, a)
-                : map_bf16(&to, a.out0, a, (long long)a.S * a.H * a.hd,
-                           (long long)a.H * a.hd, a.hd);
+    rc = kCarry ? map_f32(&to, a.acc, a) : map_bf16_contig(&to, a.out0, a);
   if (rc) return rc;
-  const dim3 grid(a.H, a.B, (a.S + kFwdRows - 1) / kFwdRows);
+  const dim3 grid(a.H, a.B, (a.S + kCtaRows - 1) / kCtaRows);
   flash_fwd_sm90<HDP, kCarry>
-      <<<grid, kFwdThreads, fwd_sm90_smem(HDP, kCarry), a.stream>>>(
+      <<<grid, kSm90Threads, fwd_sm90_smem(HDP, kCarry), a.stream>>>(
           tq, tk, tv, to, a.lse_out, a.m, a.l, a.acc, a.S, a.H, a.hd,
           a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HDP>
+int launch_dq_sm90(const Args& a) {  // K2
+  static const int set = sm90_ready(flash_dq_sm90<HDP>, dq_sm90_smem(HDP));
+  if (set) return set;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int rc = map_bf16(&tq, a.q, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tk, a.k, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tv, a.v, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16_contig(&tdo, a.dout, a);
+  if (!rc) rc = map_bf16_contig(&tdq, a.out0, a);
+  if (rc) return rc;
+  const dim3 grid(a.H, a.B, (a.S + kCtaRows - 1) / kCtaRows);
+  flash_dq_sm90<HDP><<<grid, kSm90Threads, dq_sm90_smem(HDP), a.stream>>>(
+      tq, tk, tv, tdo, tdq, a.lse_in, a.delta, a.S, a.H, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDP>
+int launch_dkv_sm90(const Args& a) {  // K3
+  static const int set = sm90_ready(flash_dkv_sm90<HDP>, dkv_sm90_smem(HDP));
+  if (set) return set;
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int rc = map_bf16(&tq, a.q, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tk, a.k, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16(&tv, a.v, a, a.sb, a.ss, a.sh);
+  if (!rc) rc = map_bf16_contig(&tdo, a.dout, a);
+  if (!rc) rc = map_bf16_contig(&tdk, a.out0, a);
+  if (!rc) rc = map_bf16_contig(&tdv, a.out1, a);
+  if (rc) return rc;
+  const dim3 grid(a.H, a.B, (a.S + kCtaRows - 1) / kCtaRows);
+  flash_dkv_sm90<HDP><<<grid, kSm90Threads, dkv_sm90_smem(HDP), a.stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, a.lse_in, a.delta, a.S, a.H, a.scale,
+      a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HDP>
 int launch_bf16(int which, const Args& a) {
   if (which == 0) return launch_fwd_sm90<HDP, false>(a);
-  if (which == 3) return launch_fwd_sm90<HDP, true>(a);
-  return launch_tc<HDP / 16>(which, a);
+  if (which == 1) return launch_dq_sm90<HDP>(a);
+  if (which == 2) return launch_dkv_sm90<HDP>(a);
+  return launch_fwd_sm90<HDP, true>(a);
 }
 
 // which: 0 K1, 1 K2, 2 K3, 3 K4. dtype codes: 0 float32 (scalar FMAs),

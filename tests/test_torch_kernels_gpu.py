@@ -229,6 +229,55 @@ def test_flash_forward_edge_sweep_on_the_card(S, hd, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", [8, 40, 64, 72, 128])
+@pytest.mark.parametrize("S", SWEEP_S)
+def test_flash_backward_edge_sweep_on_the_card(S, hd, causal):
+    """The bf16 backward kernels K2 (dQ) and K3 (dK, dV) at the edges of
+    their tiling, on q, k, v read in place as column slices of one
+    (B, S, 3 * H * hd) tensor, from the plain forward's LSE and delta:
+    against their plain versions at 1e-2 (one bf16 step) relative to the
+    larger of the reference's largest entry and 1: a gradient sums up to
+    S rounded dS products, so its small entries carry the large ones'
+    rounding, as K4's acc in the sweep above, and where the reference is
+    below 1 the bound is the 1e-2 absolute of the test above (at S = 1 dQ
+    is cancellation noise: one key, so dP - delta is 0 in exact
+    arithmetic); bitwise equal on a repeat; one launch of each per call.
+    S covers fewer tiles than pipeline stages, ragged last query and key
+    tiles and, at S = 1024 (B=8, H=12), more than one wave of CTAs;
+    hd = 8, 40, 72 are zero-padded to 64 or 128 columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7 + S + hd)
+    b, h = (8, 12) if S == 1024 else (2, 3)
+    scale = hd ** -0.5
+    qkv = torch.randn(b, S, 3 * h * hd, generator=gen,
+                      device=dev).bfloat16()
+    q, k, v = qkv.view(b, S, 3, h, hd).unbind(2)
+    do = torch.randn(b, S, h, hd, generator=gen, device=dev).bfloat16()
+    out, lse = FA.flash_fwd_plain(q, k, v, scale, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    kw = dict(scale=scale, causal=causal)
+    before = dict(FA.LAUNCHES)
+    dq = FA.flash_bwd_dq(*args, **kw)
+    dk, dv = FA.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {**before, "flash_dq": before["flash_dq"] + 1,
+                           "flash_dkv": before["flash_dkv"] + 1}
+    want = (FA.flash_bwd_dq_plain(*args, scale, causal),
+            *FA.flash_bwd_dkv_plain(*args, scale, causal))
+    for name, got_t, want_t in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        top = want_t.float().abs().amax().clamp_min(1.0)
+        torch.testing.assert_close(got_t.float() / top, want_t.float() / top,
+                                   atol=1e-2, rtol=0, msg=name)
+    dk2, dv2 = FA.flash_bwd_dkv(*args, **kw)
+    assert torch.equal(dq, FA.flash_bwd_dq(*args, **kw))
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.gpu
 def test_flash_attention_on_qkv_slices_matches_the_cpu_path():
     """The autograd Function on column slices of one qkv tensor (the
     layout the model hands it, read in place by the kernels) against the
