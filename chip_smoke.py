@@ -6,19 +6,27 @@ and check them.
 
 1. print the card (name, power limit);
 2. build the CUDA kernels from ``ops/csrc`` with ``nvcc`` (sm_90a) and
-   print ptxas's registers and spills for each Hopper flash kernel;
+   print ptxas's registers and spills for each Hopper flash kernel and
+   each decode kernel;
 3. hold each kernel against its plain PyTorch version at GPT-2 124M
-   widths (K5: B=8, H=12, hd=64, S=1024, C in {1, 128, 512}; K6: block
-   size 16, shuffled tables, ragged lengths, C in {1, 128}; bf16 and int8
-   caches) and time kernel, plain version, bound and, for K5 at C=1, one
-   ``scaled_dot_product_attention`` call as a yardstick;
+   widths (K5: B=8, H=12, hd=64, S=1024, C in {1, 128, 512}, and the
+   one-shot's prompt, B=4, C=512; K6: block size 16, shuffled tables,
+   ragged lengths, B=8, C in {1, 128}, and the engine's prefill chunk,
+   B=1, C=128; bf16 and int8 caches) and time kernel, plain version,
+   bound and, for every bf16 K5 case, one
+   ``scaled_dot_product_attention`` call over the live slice (a chunk
+   with an explicit boolean mask, or ``is_causal`` where it starts the
+   cache) as a yardstick; then time K6's two regimes at chunk widths
+   around the threshold that picks between them;
 4. serve 12 requests through ``ServeEngine`` on ``gpt2_124m`` in bf16
    (random weights from ``--seed``), greedy and sampled: every greedy
    token is checked against a teacher-forced training-view forward, the
    pool must be leak-free, and the K6 launch count must equal the steps
-   times the layers;
+   times the layers, both regimes among them (printed by regime);
 5. run the one-shot generator (K5) at B=4 with a 512-token prompt, with
-   the same teacher-forced check;
+   the same teacher-forced check; K5 must launch once a layer in the
+   chunk regime (the prompt) and once a layer a later token in the split
+   one;
 6. hold the flash kernels K1 (forward), K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8, H=12, hd=64: S=1024 bf16 causal and not,
    a ragged S=1000, an f32 case, the SP phase's global shape (B=4,
@@ -167,13 +175,41 @@ GRAD_REL_GAP = 2e-2
 SP_TOL = 2e-2
 
 
+_TYPE_CODES = {"f": "float", "a": "int8_t"}
+
+
 def _kernel_name(mangled: str) -> str:
-    """flash_dq_sm90<64> for its mangled name."""
-    m = re.search(r"(flash_[a-z]+_sm90)ILi(\d+)E(?:Lb([01])E)?", mangled)
+    """flash_dq_sm90<64> or decode_split_kernel<bf16, int8_t, true, 64>
+    for a kernel's mangled name (template arguments of types, bools and
+    ints only)."""
+    m = re.search(r"(flash_[a-z]+_sm90|decode_[a-z]+_(?:kernel|sm90))"
+                  r"I(.*?)EEv", mangled)
     if not m:
         return mangled
-    args = [m.group(2)] + ([("false", "true")[int(m.group(3))]]
-                           if m.group(3) else [])
+    args, rest, last = [], m.group(2), None
+    while rest:
+        if rest[0].isdigit():
+            n = int(re.match(r"\d+", rest).group())
+            skip = len(str(n))
+            last = rest[skip:skip + n].replace("__nv_bfloat16", "bf16")
+            args.append(last)
+            rest = rest[skip + n:]
+        elif rest[0] in _TYPE_CODES:
+            last = _TYPE_CODES[rest[0]]
+            args.append(last)
+            rest = rest[1:]
+        elif rest[0] == "S":  # a substitution: the type seen before
+            args.append(last)
+            rest = rest[rest.index("_") + 1:]
+        elif rest.startswith("Lb"):
+            args.append(("false", "true")[int(rest[2])])
+            rest = rest[4:]
+        elif rest.startswith("Li"):
+            num = re.match(r"Li(\d+)E", rest)
+            args.append(num.group(1))
+            rest = rest[num.end():]
+        else:
+            return mangled
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -259,124 +295,181 @@ def _record(results, name, case, out, ref, kernel_ms, plain_ms, nbytes,
              f"(max_abs_err {err})")
 
 
-def check_k5(results, gen):
-    B, H, hd, S = 8, 12, 64, 1024
+def _regime(q, cache_dtype) -> str:
+    return DA.decode_regime(q.dtype, cache_dtype, q.shape[-1], q.shape[1])
+
+
+def _k5_case(results, gen, *, B, C, length, kv, S=1024, H=12, hd=64,
+             library=False):
+    """K5 at one shape against its plain version; times kernel, plain
+    version and, with ``library``, one ``scaled_dot_product_attention``
+    over the live slice (C=1: no mask; a chunk that starts the cache:
+    ``is_causal``; any other chunk: an explicit boolean mask)."""
     dev = torch.device("cuda", 0)
+    index = length - C
+
+    def make():
+        k = torch.randn(B, H, S, hd, generator=gen, device=dev)
+        v = torch.randn(B, H, S, hd, generator=gen, device=dev)
+        if kv == "int8":
+            k8, ks = DA.quantize_kv(k)
+            v8, vs = DA.quantize_kv(v)
+            return (k8, v8, ks[:, :, None].contiguous(),
+                    vs[:, :, None].contiguous())
+        return (k.bfloat16(), v.bfloat16(), None, None)
+
+    cache_dtype = torch.int8 if kv == "int8" else torch.bfloat16
+    nbytes = DA.decode_kernel_hbm_bytes(
+        b=B, h=H, s=S, d=hd, dtype=cache_dtype, chunk=C,
+        effective_len=length)
+    sets = _cache_copies(make, nbytes)
+    q = torch.randn(B, C, H, hd, generator=gen, device=dev).bfloat16()
+
+    def kern(i):
+        k, v, ks, vs = sets[i % len(sets)]
+        return DA.decode_attention(q, k, v, index, key_scale=ks,
+                                   value_scale=vs)
+
+    def plain(i):
+        k, v, ks, vs = sets[i % len(sets)]
+        return DA.decode_attention_plain(q, k, v, index, key_scale=ks,
+                                         value_scale=vs)
+
+    out, ref = kern(0), plain(0)
+    torch.cuda.synchronize()
+    kernel_ms = graph_ms(kern, 50)
+    plain_ms = time_ms(plain, 5, warmup=1)
+    library_ms = None
+    if library:
+        mask = None
+        if C > 1 and index > 0:  # row c sees keys up to index + c
+            mask = (torch.arange(length, device=dev)[None, :]
+                    <= index + torch.arange(C, device=dev)[:, None])
+
+        def lib(i):
+            k, v = sets[i % len(sets)][:2]
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k[:, :, :length], v[:, :, :length],
+                attn_mask=mask, is_causal=C > 1 and index == 0)
+
+        lib_out = lib(0).transpose(1, 2)
+        if not torch.allclose(lib_out.float(), ref.float(),
+                              atol=BF16_ATOL, rtol=BF16_RTOL):
+            fail(f"the library yardstick disagrees with K5 at C={C}")
+        library_ms = graph_ms(lib, 50)
+    q_pos = [[index + c for c in range(C)]] * (B * H)
+    flops = 4 * hd * _visible_pairs(q_pos)
+    _record(results, "decode_attention",
+            {"B": B, "C": C, "S": S, "length": length, "cache": kv,
+             "regime": _regime(q, cache_dtype)},
+            out, ref, kernel_ms, plain_ms, nbytes, flops, library_ms)
+
+
+def check_k5(results, gen):
     for kv in ("bf16", "int8"):
         for C in (1, 128, 512):
-            for length in (S, 700):
-                index = length - C
-
-                def make():
-                    k = torch.randn(B, H, S, hd, generator=gen, device=dev)
-                    v = torch.randn(B, H, S, hd, generator=gen, device=dev)
-                    if kv == "int8":
-                        k8, ks = DA.quantize_kv(k)
-                        v8, vs = DA.quantize_kv(v)
-                        return (k8, v8, ks[:, :, None].contiguous(),
-                                vs[:, :, None].contiguous())
-                    return (k.bfloat16(), v.bfloat16(), None, None)
-
-                cache_dtype = torch.int8 if kv == "int8" else torch.bfloat16
-                nbytes = DA.decode_kernel_hbm_bytes(
-                    b=B, h=H, s=S, d=hd, dtype=cache_dtype, chunk=C,
-                    effective_len=length)
-                sets = _cache_copies(make, nbytes)
-                q = torch.randn(B, C, H, hd, generator=gen,
-                                device=dev).bfloat16()
-
-                def kern(i, q=q, sets=sets, index=index):
-                    k, v, ks, vs = sets[i % len(sets)]
-                    return DA.decode_attention(q, k, v, index, key_scale=ks,
-                                               value_scale=vs)
-
-                def plain(i, q=q, sets=sets, index=index):
-                    k, v, ks, vs = sets[i % len(sets)]
-                    return DA.decode_attention_plain(
-                        q, k, v, index, key_scale=ks, value_scale=vs)
-
-                out, ref = kern(0), plain(0)
-                torch.cuda.synchronize()
-                kernel_ms = graph_ms(kern, 50)
-                plain_ms = time_ms(plain, 5, warmup=1)
-                library_ms = None
-                if C == 1 and kv == "bf16":
-                    def lib(i, q=q, sets=sets, length=length):
-                        k, v = sets[i % len(sets)][:2]
-                        return F.scaled_dot_product_attention(
-                            q.transpose(1, 2), k[:, :, :length],
-                            v[:, :, :length])
-                    lib_out = lib(0).transpose(1, 2)
-                    if not torch.allclose(lib_out.float(), ref.float(),
-                                          atol=BF16_ATOL, rtol=BF16_RTOL):
-                        fail("the library yardstick disagrees with K5")
-                    library_ms = graph_ms(lib, 50)
-                q_pos = [[index + c for c in range(C)]] * (B * H)
-                flops = 4 * hd * _visible_pairs(q_pos)
-                _record(results, "decode_attention",
-                        {"B": B, "C": C, "S": S, "length": length,
-                         "cache": kv},
-                        out, ref, kernel_ms, plain_ms, nbytes, flops,
-                        library_ms)
-                del sets
+            for length in (1024, 700):
+                _k5_case(results, gen, B=8, C=C, length=length, kv=kv,
+                         library=kv == "bf16")
+    # the one-shot generator's prompt: B=4, 512 tokens in one chunk
+    _k5_case(results, gen, B=4, C=512, length=512, kv="bf16", library=True)
 
 
-def check_k6(results, gen, rng):
-    B, H, hd, bs, S = 8, 12, 64, 16, 1024
+def _k6_case(results, gen, perm, *, B, C, kv, lengths_np, H=12, hd=64,
+             bs=16, S=1024):
+    """K6 at one shape; ``perm`` (B * S / bs,) shuffles the pool blocks."""
     n_blk = S // bs
     N = B * n_blk + 1  # + the trash block
     dev = torch.device("cuda", 0)
-    perm = rng.permutation(B * n_blk).astype(np.int32)
     tables = torch.as_tensor(perm.reshape(B, n_blk), device=dev)
+    lengths = torch.as_tensor(lengths_np, device=dev)
+
+    def make():
+        k = torch.randn(N, H, bs, hd, generator=gen, device=dev)
+        v = torch.randn(N, H, bs, hd, generator=gen, device=dev)
+        if kv == "int8":
+            k8, ks = DA.quantize_kv(k)
+            v8, vs = DA.quantize_kv(v)
+            return (k8, v8, ks[:, :, None].contiguous(),
+                    vs[:, :, None].contiguous())
+        return (k.bfloat16(), v.bfloat16(), None, None)
+
+    cache_dtype = torch.int8 if kv == "int8" else torch.bfloat16
+    nbytes = sum(DA.decode_kernel_hbm_bytes(
+        b=1, h=H, s=S, d=hd, dtype=cache_dtype, chunk=C,
+        effective_len=int(n)) for n in lengths_np)
+    pool_bytes = N * H * bs * DA.cache_slot_bytes(hd, cache_dtype)
+    sets = _cache_copies(make, pool_bytes)
+    q = torch.randn(B, C, H, hd, generator=gen, device=dev).bfloat16()
+
+    def kern(i):
+        k, v, ks, vs = sets[i % len(sets)]
+        return DA.paged_decode_attention(
+            q, k, v, tables, lengths, key_scale_pool=ks,
+            value_scale_pool=vs, block_size=bs)
+
+    def plain(i):
+        k, v, ks, vs = sets[i % len(sets)]
+        return DA.paged_decode_attention_plain(
+            q, k, v, tables, lengths, key_scale_pool=ks,
+            value_scale_pool=vs, block_size=bs)
+
+    out, ref = kern(0), plain(0)
+    torch.cuda.synchronize()
+    kernel_ms = graph_ms(kern, 50)
+    plain_ms = time_ms(plain, 5, warmup=1)
+    q_pos = [[int(n) - C + c for c in range(C)]
+             for n in lengths_np for _ in range(H)]
+    flops = 4 * hd * _visible_pairs(q_pos)
+    _record(results, "paged_decode_attention",
+            {"B": B, "C": C, "block_size": bs,
+             "lengths": lengths_np.tolist(), "cache": kv,
+             "regime": _regime(q, cache_dtype)},
+            out, ref, kernel_ms, plain_ms, nbytes, flops)
+
+
+def check_k6(results, gen, rng, seed):
+    B, S, bs = 8, 1024, 16
+    perm = rng.permutation(B * S // bs).astype(np.int32)
+    # the engine's prefill chunk has a stream of its own, so that ``rng``
+    # draws what it drew before this case existed (the ragged lengths
+    # here, the prompts of phase 4)
+    perm_one = np.random.RandomState(seed + 1).permutation(
+        S // bs).astype(np.int32)
     for kv in ("bf16", "int8"):
         for C in (1, 128):
             lengths_np = rng.randint(C, S + 1, size=B).astype(np.int32)
             lengths_np[0] = S  # one request at the full length
-            lengths = torch.as_tensor(lengths_np, device=dev)
+            _k6_case(results, gen, perm, B=B, C=C, kv=kv,
+                     lengths_np=lengths_np)
+        # one request, 128 rows, at its fifth chunk of a 700-token prompt
+        _k6_case(results, gen, perm_one, B=1, C=128, kv=kv,
+                 lengths_np=np.array([640], np.int32))
 
-            def make():
-                k = torch.randn(N, H, bs, hd, generator=gen, device=dev)
-                v = torch.randn(N, H, bs, hd, generator=gen, device=dev)
-                if kv == "int8":
-                    k8, ks = DA.quantize_kv(k)
-                    v8, vs = DA.quantize_kv(v)
-                    return (k8, v8, ks[:, :, None].contiguous(),
-                            vs[:, :, None].contiguous())
-                return (k.bfloat16(), v.bfloat16(), None, None)
 
-            cache_dtype = torch.int8 if kv == "int8" else torch.bfloat16
-            nbytes = sum(DA.decode_kernel_hbm_bytes(
-                b=1, h=H, s=S, d=hd, dtype=cache_dtype, chunk=C,
-                effective_len=int(n)) for n in lengths_np)
-            pool_bytes = N * H * bs * DA.cache_slot_bytes(hd, cache_dtype)
-            sets = _cache_copies(make, pool_bytes)
-            q = torch.randn(B, C, H, hd, generator=gen,
-                            device=dev).bfloat16()
-
-            def kern(i, q=q, sets=sets, lengths=lengths):
-                k, v, ks, vs = sets[i % len(sets)]
-                return DA.paged_decode_attention(
-                    q, k, v, tables, lengths, key_scale_pool=ks,
-                    value_scale_pool=vs, block_size=bs)
-
-            def plain(i, q=q, sets=sets, lengths=lengths):
-                k, v, ks, vs = sets[i % len(sets)]
-                return DA.paged_decode_attention_plain(
-                    q, k, v, tables, lengths, key_scale_pool=ks,
-                    value_scale_pool=vs, block_size=bs)
-
-            out, ref = kern(0), plain(0)
-            torch.cuda.synchronize()
-            kernel_ms = graph_ms(kern, 50)
-            plain_ms = time_ms(plain, 5, warmup=1)
-            q_pos = [[int(n) - C + c for c in range(C)]
-                     for n in lengths_np for _ in range(H)]
-            flops = 4 * hd * _visible_pairs(q_pos)
-            _record(results, "paged_decode_attention",
-                    {"B": B, "C": C, "block_size": bs,
-                     "lengths": lengths_np.tolist(), "cache": kv},
-                    out, ref, kernel_ms, plain_ms, nbytes, flops)
-            del sets
+def check_regime_threshold(gen) -> None:
+    """Both regimes of K6 (B=8, bf16, length 1024, block size 16) at chunk
+    widths around ``CHUNK_MIN_ROWS``, each named to the kernel's entry
+    point, timed in CUDA graphs: the measurement the threshold rests
+    on."""
+    dev = torch.device("cuda", 0)
+    B, H, hd, bs, S = 8, 12, 64, 16, 1024
+    n_blk = S // bs
+    k, v = (torch.randn(B * n_blk + 1, H, bs, hd, generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    tables = torch.arange(B * n_blk, dtype=torch.int32,
+                          device=dev).view(B, n_blk)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    times = {}
+    for C in (4, 8, 10, 12, 16, 32):
+        q = torch.randn(B, C, H, hd, generator=gen, device=dev).bfloat16()
+        times[C] = {regime: graph_ms(
+            lambda i: DA.paged_decode_attention_kernel(
+                q, k, v, tables, lengths, block_size=bs, regime=regime), 20)
+            for regime in ("split", "chunk")}
+    print(f"decode regimes by chunk width (K6, B=8, bf16, length {S}; "
+          f"threshold {DA.CHUNK_MIN_ROWS}): " + json.dumps(times),
+          flush=True)
 
 
 # ---- phases 4-5: the engine and the one-shot generator --------------------
@@ -434,8 +527,14 @@ def run_engine(cfg, model, prompts, *, temperature, top_k, seed):
         "prefill_chunks": eng.steps["prefill"], "wall_s": wall}
 
 
-def check_engine(cfg, model, rng, kind, seed) -> int:
-    """Phase 4: greedy and sampled engine runs. Returns K6's launches."""
+def _regime_launches(name: str) -> dict:
+    return {regime: DA.REGIME_LAUNCHES[f"{name}.{regime}"]
+            for regime in ("split", "chunk")}
+
+
+def check_engine(cfg, model, rng, kind, seed) -> dict:
+    """Phase 4: greedy and sampled engine runs. Returns K6's launches by
+    regime."""
     prompts = [rng.randint(0, 50257, rng.randint(32, 701)).astype(np.int32)
                for _ in range(12)]
     DA.reset_launch_counts()
@@ -459,12 +558,17 @@ def check_engine(cfg, model, rng, kind, seed) -> int:
              f"{cfg.num_layers} layers")
     if DA.LAUNCHES["decode_attention"]:
         fail("the engine launched K5")
-    return launches
+    by_regime = _regime_launches("paged_decode_attention")
+    print(f"K6 launches by regime: {json.dumps(by_regime)}", flush=True)
+    if sum(by_regime.values()) != launches or not all(by_regime.values()):
+        fail(f"K6 regime launches {by_regime} do not add up to {launches} "
+             f"or miss a regime")
+    return by_regime
 
 
-def check_one_shot(cfg, model, rng, kind, seed) -> int:
+def check_one_shot(cfg, model, rng, kind, seed) -> dict:
     """Phase 5: the one-shot generator at B=4 with a 512-token prompt.
-    Returns K5's launches."""
+    Returns K5's launches by regime."""
     B, P, new_tokens = 4, 512, 64
     prompt = rng.randint(0, 50257, (B, P)).astype(np.int64)
     generate = make_generate_fn(cfg, max_new_tokens=new_tokens,
@@ -482,6 +586,12 @@ def check_one_shot(cfg, model, rng, kind, seed) -> int:
              f"{cfg.num_layers}")
     if DA.LAUNCHES["paged_decode_attention"]:
         fail("the one-shot generator launched K6")
+    # the prompt in the chunk regime, each later token in the split one
+    by_regime = _regime_launches("decode_attention")
+    want = {"split": (new_tokens - 1) * cfg.num_layers,
+            "chunk": cfg.num_layers}
+    if by_regime != want:
+        fail(f"K5 regime launches {by_regime}, expected {want}")
     new = out[:, P:].cpu().numpy()
     gap = max(teacher_forced_gap(model, prompt[b], new[b])
               for b in range(B))
@@ -492,7 +602,7 @@ def check_one_shot(cfg, model, rng, kind, seed) -> int:
     if gap > LOGIT_MARGIN:
         fail(f"one-shot: an emitted token sits {gap} below the best logit "
              f"(margin {LOGIT_MARGIN})")
-    return launches
+    return by_regime
 
 
 # ---- phase 6: the flash kernels against their plain versions --------------
@@ -1129,23 +1239,28 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    usage, warnings = _build.ptxas_usage("flash_attention")
-    print("ptxas (registers, spill bytes) of the Hopper flash kernels: "
-          + json.dumps({_kernel_name(k): v for k, v in usage.items()
-                        if "_sm90" in k}
-                       | {"warnings": warnings}), flush=True)
+    for lib, label in (("flash_attention", "Hopper flash kernels"),
+                       ("decode_attention", "decode kernels")):
+        usage, warnings = _build.ptxas_usage(lib)
+        print(f"ptxas (registers, spill bytes) of the {label}: "
+              + json.dumps({_kernel_name(k): v for k, v in usage.items()
+                            if "_sm90" in k or "decode_" in k}
+                           | {"warnings": warnings}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rng = np.random.RandomState(args.seed)
     results = []
     check_k5(results, gen)
-    check_k6(results, gen, rng)
+    check_k6(results, gen, rng, args.seed)
+    check_regime_threshold(gen)
     cfg = gpt2_124m(dtype=torch.bfloat16)
     model = Transformer(cfg).init_weights(args.seed).to("cuda")
-    launches = {"paged_decode_attention": check_engine(cfg, model, rng, kind,
-                                                       args.seed),
-                "decode_attention": check_one_shot(cfg, model, rng, kind,
-                                                   args.seed)}
+    by_regime = {"paged_decode_attention": check_engine(cfg, model, rng,
+                                                        kind, args.seed),
+                 "decode_attention": check_one_shot(cfg, model, rng, kind,
+                                                    args.seed)}
+    launches = {f"{name}.{regime}": n for name, counts in by_regime.items()
+                for regime, n in counts.items()}
     del model
     torch.cuda.empty_cache()
     flash_ms = check_flash(results, gen)
@@ -1155,26 +1270,37 @@ def main() -> int:
     launches["flash_carry"] = check_sp(kind, args.seed)
     check_dp(kind, args.seed)
 
-    def head(name, pick):
-        rows = [r for r in results if r["kernel"] == name]
+    def head(name, pick, regime=None):
+        rows = [r for r in results if r["kernel"] == name
+                and regime in (None, r.get("regime"))]
         r = next(r for r in rows if pick(r))
         return {"ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
                 "max_abs_err": max(x["max_abs_err"] for x in rows)}
 
+    # K5 and K6 one entry a regime, each at its main-path shape: the
+    # decode step (C=1) and the prefill chunk (K5: the one-shot's prompt;
+    # K6: the engine's chunk)
+    decode_picks = {
+        ("decode_attention", "split"): lambda r: (
+            r["C"] == 1 and r["B"] == 8 and r["length"] == r["S"]),
+        ("decode_attention", "chunk"): lambda r: (
+            r["C"] == 512 and r["B"] == 4),
+        ("paged_decode_attention", "split"): lambda r: (
+            r["C"] == 1 and r["B"] == 8),
+        ("paged_decode_attention", "chunk"): lambda r: (
+            r["C"] == 128 and r["B"] == 1),
+    }
     kernels = [
-        {"name": "decode_attention", "route": "cuda",
-         "source": DA.KERNEL_SOURCE, "replaces": K5_REPLACES,
-         "launches": launches["decode_attention"],
-         **head("decode_attention",
-                lambda r: r["C"] == 1 and r["cache"] == "bf16"
-                and r["length"] == r["S"])},
-        {"name": "paged_decode_attention", "route": "cuda",
-         "source": DA.KERNEL_SOURCE, "replaces": K6_REPLACES,
-         "launches": launches["paged_decode_attention"],
-         **head("paged_decode_attention",
-                lambda r: r["C"] == 1 and r["cache"] == "bf16")},
+        {"name": f"{name}.{regime}", "route": "cuda",
+         "source": DA.KERNEL_SOURCE,
+         "replaces": K5_REPLACES if name == "decode_attention"
+         else K6_REPLACES,
+         "launches": launches[f"{name}.{regime}"],
+         **head(name, lambda r, pick=pick: r["cache"] == "bf16" and pick(r),
+                regime)}
+        for (name, regime), pick in decode_picks.items()
     ] + [
         {"name": name, "route": "cuda", "source": FA.KERNEL_SOURCE,
          "replaces": FLASH_REPLACES[name], "launches": launches[name],

@@ -137,6 +137,18 @@ class TransformerConfig:
         return torch.int8 if self.kv_dtype == "int8" else self.dtype
 
 
+def check_placement(cfg: TransformerConfig, device) -> None:
+    """Refuse, where the model meets the card, a head dim wider than the
+    port's kernels take (``ops/flash_attention.MAX_HEAD_DIM``, the limit
+    of all six); the CPU's plain versions take any."""
+    if (torch.device(device).type == "cuda"
+            and cfg.head_dim > FA.MAX_HEAD_DIM):
+        raise ValueError(
+            f"head_dim {cfg.head_dim} (d_model {cfg.d_model} / "
+            f"{cfg.num_heads} heads): the CUDA kernels take head dims up "
+            f"to {FA.MAX_HEAD_DIM}")
+
+
 def gpt2_124m(**kw) -> TransformerConfig:
     """GPT-2 small (124M): 12L, 768d, 12h, causal; vocab 50257 padded to
     50304."""
@@ -371,6 +383,13 @@ class Transformer(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
+
+    def _apply(self, fn, *args, **kwargs):
+        # every move (.to, .cuda, ...) goes through here: refuse a head dim
+        # the card's kernels do not take before any weight moves
+        check_placement(self.cfg, fn(torch.empty(0, device=self.device))
+                        .device)
+        return super()._apply(fn, *args, **kwargs)
 
     def init_cache(self, batch_size: int) -> list[dict]:
         """Zeroed contiguous cache, kernel layout (B, H, max_len, hd) per

@@ -3,8 +3,10 @@
 Every ``.cu`` source under ``ops/csrc/`` is compiled for Hopper
 (``sm_90a``) into its own shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds, not minutes), the first time
-a kernel is asked for. Libraries are named by the hash of their source
-and flags, so an edited source rebuilds and an unchanged one is reused.
+a kernel is asked for. The sources share the headers ``csrc/*.cuh``.
+Libraries are named by the hash of their source, the headers and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.
 They go to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``); ``DTG_TORCH_BUILD_DIR`` overrides the location. ptxas's
 report of each kernel (registers, spills) is kept beside its library and
@@ -52,11 +54,19 @@ def nvcc() -> str:
         "from source on the machine with the card")
 
 
+def source_digest(name: str) -> str:
+    """The cache key of ``csrc/<name>.cu``'s library: a hash of the source,
+    of every header under ``csrc/`` (sources include them, so an edited
+    header must rebuild) and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, build_dir() / f"lib{name}_{digest[:16]}.so"
+    return src, build_dir() / f"lib{name}_{source_digest(name)[:16]}.so"
 
 
 def _compile(name: str) -> Path:

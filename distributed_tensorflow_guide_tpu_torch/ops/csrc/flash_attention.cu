@@ -92,19 +92,12 @@
 // accumulation in float32. head_dim: a multiple of 8 up to 128. Any S:
 // rows and keys past S in the last tile are loaded as zeros and masked.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <math.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kTile = 64;           // query rows and key rows per tile
 constexpr int kThreads = 256;       // 16 x 16: (ty, tx)
 constexpr int kPitchP = kTile + 1;  // row pitch of a score tile in smem
-constexpr float kNegInf = -1e30f;   // NEG_INF of the Pallas kernels
 
 // Rows [r0, r0 + kTile) of one (b, h) slice into dst[kTile][pitch]
 // (16-byte loads). Rows at or past S are zero.
@@ -520,241 +513,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kCtaRows = 128;            // rows (queries; K3: keys) per CTA
 constexpr int kWgRows = 64;              // rows per consumer warpgroup
-constexpr int kAtomCols = 64;            // bf16 columns per 128-byte row
-constexpr int kBoxBytes = kTile * 128;   // one 64-row x 128-byte box
-constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor for the 128-byte swizzled layout: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x 64] (+)= A . B, A and B read from shared memory through their
-// descriptors (both K-major); scale_d = 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64 x 64] += A . B with A (64 x 16 bf16) from registers in the
-// accumulator-like fragment layout and B read through its descriptor,
-// MN-major (transposed by the hardware).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A . B with A (64 x 16 bf16) from registers in the
-// accumulator-like fragment layout and B read through its descriptor,
-// MN-major (transposed by the hardware).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Keeps the registers of an A operand (a 64 x 64 tile as bf16) alive and
-// in place until the products that read them have been waited for.
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) asm volatile("" : "+r"(a[kk][t])::"memory");
-}
-
-// A 64 x 64 f32 accumulator as bf16 in the A-operand layout of the next
-// product: the accumulator's layout is the A operand's.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&s)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      a[kk][t] = pack_bf16(s[8 * kk + 2 * t], s[8 * kk + 2 * t + 1]);
-}
-
-// D[64 x 64] = A . B^T over HDP columns (issued, not committed): A the
-// warpgroup's 64 rows, B a tile's 64 rows, both K-major in 128-byte
-// swizzled boxes of 64 columns.
-template <int HDP>
-__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint32_t a_s,
-                                             uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n64(d, sw128_desc(a_s + off, 16, 1024),
-                 sw128_desc(b_s + off, 16, 1024), kk > 0);
-  }
-}
-
-// D[64 x HDP] += A . B (issued, not committed): A a 64 x 64 tile in
-// registers (pack_a), B a tile's 64 rows read MN-major (transposed by the
-// hardware): rows [16 kk, 16 kk + 16) per product, boxes of 64 columns
-// kBoxBytes apart, 8-row groups 1024 bytes apart.
-template <int HDP>
-__device__ __forceinline__ void wgmma_accumulate(float (&d)[HDP / 2],
-                                                 const uint32_t (&a)[4][4],
-                                                 uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t db = sw128_desc(b_s + kk * 16 * 128, kBoxBytes, 1024);
-    if constexpr (HDP == 64)
-      wgmma_rs_n64(d, a[kk], db);
-    else
-      wgmma_rs_n128(d, a[kk], db);
-  }
-}
-
-// ---- mbarriers and TMA ----
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of the given parity. A
-// wait that never ends (a lost arrival) traps, so a fault ends the
-// kernel with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n % 256 == 0) {  // ten seconds of waiting: a fault, not a load
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > 10000000000ull) __trap();
-    }
-  }
-}
-// One box (64 columns, 1 head, 64 rows, 1 batch) of a 4-D (hd, H, S, B)
-// tensor map into shared memory, completing on bar. Out-of-range
-// columns and rows arrive as zeros.
-__device__ __forceinline__ void tma_load_box(uint8_t* dst,
-                                             const CUtensorMap* map,
-                                             uint64_t* bar, int col, int h,
-                                             int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
-      "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
+// ---- TMA stores ----
 
 // The inverse of tma_load_box: one bf16 box of a 4-D (hd, H, S, B) map
 // from shared memory to device memory.
@@ -1001,13 +761,6 @@ constexpr int kSm90Threads = 384;  // consumer warpgroups 0, 1; producer 2
 // pool lacks, so the launcher checks the plan against the compiled count.
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-
-// The dynamic shared memory, aligned to the 1024 bytes that the 128-byte
-// swizzle's 8-row atoms repeat over.
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
 
 // The ring's barriers, laid out full[kStages], empty[kStages], then one
 // for the CTA's own rows: a full barrier completes on `arrivals`
@@ -1571,47 +1324,6 @@ int launch_f32(int which, const Args& a) {
         a.sh, a.S, a.H, a.hd, a.scale, a.causal);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// cuTensorMapEncodeTiled, looked up in the loaded libcuda at run time
-// (no link flag).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Codes the wrapper raises on, beside CUDA's own.
-constexpr int kNoTensorMapEntry = 9001;  // libcuda lacks the function
-constexpr int kTensorMapRefused = 9002;  // libcuda refused the layout
-constexpr int kRegisterPlanUnmet = 9003;  // the kernel's pool is too small
-
-// A tiled map with 128-byte swizzle and unit element strides; dims and
-// strides innermost first (strides in bytes, one fewer than dims).
-int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
-           const void* base, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return kNoTensorMapEntry;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, type, rank, const_cast<void*>(base), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kTensorMapRefused;
 }
 
 // A 4-D bf16 map (hd, H, S, B) over base with the element strides

@@ -1,7 +1,7 @@
 """Decode attention: a chunk of C queries against a KV cache.
 
 Two kernels, both written by hand for Hopper in ``csrc/decode_attention.cu``
-(one templated CUDA kernel, built by ``ops/_build.py``):
+(built by ``ops/_build.py``):
 
 * **K5** :func:`decode_attention` reads a contiguous kernel-layout cache
   ``(B, H, S, hd)``; every request of the batch sits at the same
@@ -12,16 +12,35 @@ Two kernels, both written by hand for Hopper in ``csrc/decode_attention.cu``
   chunks, ``serve/engine.py``).
 
 Both read only the live slice of the cache (the chunk's last position
-bounds the KV loop), keep the online softmax in registers, and read an
-int8 cache natively: the per-row f32 scales fold into the score columns
-(k) and into the probability columns (v, after the normaliser has been
+bounds the KV loop), keep the online softmax on chip, and read an int8
+cache natively: the per-row f32 scales fold into the score columns (k)
+and into the probability columns (v, after the normaliser has been
 summed), never into a dequantised copy.
+
+Two regimes, picked on the host from C (:func:`decode_regime`):
+
+* ``"split"`` — decode steps and short chunks, and every f32 call: the
+  key axis is cut into splits of ``SPLIT_KEYS`` absolute positions (half
+  that for f32 rows wider than 64), one CTA per split, and a second
+  kernel merges the splits' (m, l, acc) in split order. The plan is made
+  here alone and handed to the kernels (split count and keys a split):
+  the count comes from host-known sizes only (:func:`split_count`: K5's
+  length, K6's table width times the block size), so the wrapper reads
+  no device value and can be captured in a CUDA graph, and a request's
+  output does not depend on its batch-mates. The kernels' entry point
+  refuses a plan that does not cover the span.
+  :func:`split_attention_plain` is the same algorithm in PyTorch.
+* ``"chunk"`` — prefill chunks of at least ``CHUNK_MIN_ROWS`` rows with
+  bf16 queries, a bf16 or int8 cache and a head dim that is a multiple of
+  8: 64-row query tiles against 64-key tiles on the tensor cores
+  (``wgmma``).
 
 Dispatch rule: a wrapper runs its plain PyTorch version only when the
 tensors lie on the CPU (the parity tests). A CUDA tensor launches the
-kernel or raises; nothing falls back. Each launch adds one to
-``LAUNCHES[name]`` so a run can show that its main path went through the
-kernels.
+kernels or raises; nothing falls back. Each wrapper call adds one to
+``LAUNCHES[name]``, however many kernels it launches, and one to
+``REGIME_LAUNCHES[name + "." + regime]``, so a run can show that its main
+path went through the kernels, and through which regime how often.
 """
 
 from __future__ import annotations
@@ -30,22 +49,31 @@ import ctypes
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.ops.flash_attention import (
+    MAX_HEAD_DIM,
+    kernel_error,
+)
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
     gather_view,
 )
 
 NEG_INF = -1e30  # the finite mask value of the reference kernels
-MAX_HEAD_DIM = 128
-KERNEL_SOURCE = "distributed_tensorflow_guide_tpu_torch/ops/csrc/decode_attention.cu"
+SPLIT_KEYS = 256  # keys per split of the split regime, absolute positions
+CHUNK_MIN_ROWS = 10  # chunks of at least this many rows take the tensor cores
+KERNEL_SOURCE = ("distributed_tensorflow_guide_tpu_torch/ops/csrc/"
+                 "decode_attention.cu")
 
 LAUNCHES = {"decode_attention": 0, "paged_decode_attention": 0}
+REGIME_LAUNCHES = {f"{name}.{regime}": 0 for name in LAUNCHES
+                   for regime in ("split", "chunk")}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, REGIME_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -113,6 +141,89 @@ def _attend(q, k, v, ks, vs, q_pos):
     return (acc / safe_l.permute(0, 2, 1, 3)).to(q.dtype)
 
 
+def split_keys(kv_dtype: torch.dtype, head_dim: int) -> int:
+    """Keys a split covers: ``SPLIT_KEYS``, or half of it where a split's
+    K and V rows would not fit one CTA's shared memory (f32 rows wider
+    than 64). Fixed per cache dtype and head dim."""
+    wide = head_dim * kv_dtype.itemsize > 256
+    return SPLIT_KEYS // 2 if wide else SPLIT_KEYS
+
+
+def split_count(span: int, keys: int = SPLIT_KEYS) -> int:
+    """Splits of ``keys`` keys over ``span`` key positions (K5: the live
+    length; K6: the table width times the block size): host-known sizes
+    only, never a device length."""
+    return max(1, -(-int(span) // keys))
+
+
+def split_ranges(span: int, length: int,
+                 keys: int = SPLIT_KEYS) -> list[tuple[int, int]]:
+    """The key range [lo, hi) that each split reads for a request of live
+    ``length``, in split order. A split that starts at or past the length
+    reads nothing (lo == hi) and leaves an empty partial."""
+    return [(lo, max(lo, min(lo + keys, int(length))))
+            for lo in range(0, split_count(span, keys) * keys, keys)]
+
+
+def decode_regime(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                  head_dim: int, chunk: int) -> str:
+    """"chunk" (tensor cores) for a prefill chunk of at least
+    ``CHUNK_MIN_ROWS`` rows with bf16 queries, a bf16 or int8 cache and a
+    head dim that is a multiple of 8; "split" (split-KV on CUDA cores)
+    for everything else, every f32 call included."""
+    if (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.int8)
+            and head_dim % 8 == 0 and chunk >= CHUNK_MIN_ROWS):
+        return "chunk"
+    return "split"
+
+
+def split_attention_plain(q, k, v, ks, vs, q_pos, span: int,
+                          keys: int = SPLIT_KEYS):
+    """The split regime's algorithm in PyTorch, on :func:`_attend`'s
+    operands: for each split of ``keys`` keys the partial
+    (m, l, acc) of its keys (a split past the cache: m = NEG_INF, l = 0,
+    acc = 0), then the partials merged in split order,
+    O = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s. Equal to the one-pass
+    :func:`_attend` within f32 rounding."""
+    hd = q.shape[-1]
+    scale = 1.0 / (hd ** 0.5)
+    B, C, H = q.shape[:3]
+    qf = q.float()
+    parts = []
+    for lo, _ in split_ranges(span, span, keys):
+        kk = k[:, :, lo:lo + keys].float()
+        if kk.shape[2] == 0:
+            parts.append((qf.new_full((B, H, C, 1), NEG_INF),
+                          qf.new_zeros(B, H, C, 1),
+                          qf.new_zeros(B, H, C, hd)))
+            continue
+        s = torch.einsum("bchd,bhkd->bhck", qf, kk) * scale
+        if ks is not None:
+            s = s * ks[..., lo:lo + keys]
+        k_pos = lo + torch.arange(kk.shape[2], device=q.device)
+        mask = k_pos[None, None, :] <= q_pos[:, :, None]
+        s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
+        l = p.sum(dim=-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[..., lo:lo + keys]
+        acc = torch.einsum("bhck,bhkd->bhcd", p,
+                           v[:, :, lo:lo + keys].float())
+        parts.append((m, l, acc))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(big_m)
+    acc_sum = qf.new_zeros(B, H, C, hd)
+    for m, l, acc in parts:  # split order
+        w = torch.exp(m - big_m)
+        l_sum = l_sum + w * l
+        acc_sum = acc_sum + w * acc
+    safe_l = torch.where(l_sum == 0, torch.ones_like(l_sum), l_sum)
+    return (acc_sum / safe_l).permute(0, 2, 1, 3).to(q.dtype)
+
+
 def decode_attention_plain(q, cached_key, cached_value, index, *,
                            key_scale=None, value_scale=None):
     """K5's function in PyTorch. ``index`` is the position of the chunk's
@@ -158,17 +269,17 @@ def _lib():
     if not getattr(lib, "_dtg_bound", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dtg_decode_attention.argtypes = (
-            [vp] * 6 + [i] * 6 + [i, i, f, vp])
+            [vp] * 7 + [i] * 6 + [i, i, f, i, i, vp])
         lib.dtg_decode_attention.restype = ctypes.c_int
         lib.dtg_paged_decode_attention.argtypes = (
-            [vp] * 8 + [i] * 6 + [i, i, f, vp])
+            [vp] * 9 + [i] * 6 + [i, i, f, i, i, vp])
         lib.dtg_paged_decode_attention.restype = ctypes.c_int
         lib._dtg_bound = True
     return lib
 
 
 def _check_cuda(q, k, v, ks, vs, scale_shape):
-    """The layouts the kernel takes; anything else raises. ``scale_shape``
+    """The layouts the kernels take; anything else raises. ``scale_shape``
     is the shape int8 scale tensors must have."""
     hd = q.shape[-1]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -184,10 +295,9 @@ def _check_cuda(q, k, v, ks, vs, scale_shape):
                          and tuple(t.shape) == scale_shape for t in (ks, vs)):
         raise ValueError(f"int8 scales must be float32 of shape "
                          f"{scale_shape}")
-    per_vec = 16 // k.dtype.itemsize
-    if hd > MAX_HEAD_DIM or hd % per_vec or hd % 4:
-        raise ValueError(f"head_dim {hd}: kernel takes a multiple of "
-                         f"{per_vec} up to {MAX_HEAD_DIM}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v), ("k_scale", ks),
                     ("v_scale", vs)):
         if t is None:
@@ -202,6 +312,23 @@ def _check_cuda(q, k, v, ks, vs, scale_shape):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _plan(q, regime: str, kv_dtype, span: int):
+    """(n_splits, keys, workspace) of a launch: 0, 0 and no workspace for
+    the chunk regime; else the split count over ``span`` keys, the keys
+    of a split (the kernel takes both from here) and, for more than one
+    split, the f32 workspace of the splits' partials (acc, then m and
+    l)."""
+    B, C, H, hd = q.shape
+    if regime == "chunk":
+        return 0, 0, None
+    keys = split_keys(kv_dtype, hd)
+    n = split_count(span, keys)
+    if n == 1:
+        return n, keys, None
+    return n, keys, torch.empty(B * H * C * n * (hd + 2),
+                                dtype=torch.float32, device=q.device)
 
 
 def decode_attention(q, cached_key, cached_value, index, *,
@@ -226,15 +353,19 @@ def decode_attention(q, cached_key, cached_value, index, *,
     _check_cuda(q, cached_key, cached_value, key_scale, value_scale,
                 (B, H, 1, S))
     out = torch.empty_like(q)
+    regime = decode_regime(q.dtype, cached_key.dtype, hd, C)
+    n_splits, keys, ws = _plan(q, regime, cached_key.dtype, length)
     rc = _lib().dtg_decode_attention(
         _ptr(q), _ptr(cached_key), _ptr(cached_value), _ptr(key_scale),
-        _ptr(value_scale), _ptr(out), B, C, H, hd, S, length,
+        _ptr(value_scale), _ptr(out), _ptr(ws), B, C, H, hd, S, length,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[cached_key.dtype],
-        1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / hd ** 0.5, n_splits, keys,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
-                           f"cuda error {rc}")
+                           f"{kernel_error(rc)}")
     LAUNCHES["decode_attention"] += 1
+    REGIME_LAUNCHES[f"decode_attention.{regime}"] += 1
     return out
 
 
@@ -246,12 +377,27 @@ def paged_decode_attention(q, key_pool, value_pool, block_tables, lengths,
     int32. ``lengths`` (B,) int32 count the chunk; each is clamped to at
     least 1. int8 pools come with (N, H, 1, block_size) f32 scale pools.
     Returns (B, C, H, hd) in q's dtype. CPU tensors take the plain
-    version."""
+    version. On the card the lengths stay on the device: the split count
+    comes from the table's width."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, key_pool, value_pool, block_tables, lengths,
             key_scale_pool=key_scale_pool,
             value_scale_pool=value_scale_pool, block_size=block_size)
+    return paged_decode_attention_kernel(
+        q, key_pool, value_pool, block_tables, lengths,
+        key_scale_pool=key_scale_pool, value_scale_pool=value_scale_pool,
+        block_size=block_size)
+
+
+def paged_decode_attention_kernel(q, key_pool, value_pool, block_tables,
+                                  lengths, *, key_scale_pool=None,
+                                  value_scale_pool=None, block_size: int,
+                                  regime: str | None = None):
+    """K6 on the card: :func:`paged_decode_attention`'s CUDA path, in the
+    regime :func:`decode_regime` picks, or in ``regime`` where the caller
+    names one (the measurement the threshold rests on); a regime the
+    kernels do not take for these dtypes or head dim raises."""
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
@@ -271,14 +417,20 @@ def paged_decode_attention(q, key_pool, value_pool, block_tables, lengths,
     _check_cuda(q, key_pool, value_pool, key_scale_pool, value_scale_pool,
                 (N, H, 1, block_size))
     out = torch.empty_like(q)
+    n_blk = block_tables.shape[1]
+    regime = regime or decode_regime(q.dtype, key_pool.dtype, hd, C)
+    n_splits, keys, ws = _plan(q, regime, key_pool.dtype,
+                               n_blk * block_size)
     rc = _lib().dtg_paged_decode_attention(
         _ptr(q), _ptr(key_pool), _ptr(value_pool), _ptr(key_scale_pool),
         _ptr(value_scale_pool), _ptr(block_tables), _ptr(lengths),
-        _ptr(out), B, C, H, hd, block_size, block_tables.shape[1],
+        _ptr(out), _ptr(ws), B, C, H, hd, block_size, n_blk,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[key_pool.dtype],
-        1.0 / hd ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / hd ** 0.5, n_splits, keys,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"cuda error {rc}")
+                           f"{kernel_error(rc)}")
     LAUNCHES["paged_decode_attention"] += 1
+    REGIME_LAUNCHES[f"paged_decode_attention.{regime}"] += 1
     return out

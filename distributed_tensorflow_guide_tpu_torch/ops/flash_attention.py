@@ -19,6 +19,11 @@ a compact f32 LSE of shape (B, H, S); the backward forms
 ``delta = rowsum(dO * O)`` in f32 and runs K2 and K3. No (S, S) matrix is
 ever stored.
 
+Head dims: the kernels take multiples of 8 up to ``MAX_HEAD_DIM``; the
+wrappers zero-pad any other head dim up to the next multiple of 8 (zero
+columns change no score and no output column; the scale stays the
+caller's) and slice the outputs back.
+
 Dispatch rule: a wrapper runs its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`, :func:`flash_carry_step_plain`) only when the
@@ -52,6 +57,9 @@ from distributed_tensorflow_guide_tpu_torch.ops.attention import (
 NEG_INF = -1e30  # the finite mask value of the reference kernels
 DEFAULT_BLOCKS: tuple[int, int] = (128, 128)  # the JAX package's fallback
 TILE = 64  # rows per tile of the CUDA kernels and of the plain versions
+# The widest head dim any of the port's six kernels (K1-K6) takes; the
+# model refuses a wider one where it meets the card (``Transformer``
+# placed on CUDA). Flash pads a head dim that is not a multiple of 8.
 MAX_HEAD_DIM = 128
 KERNEL_SOURCE = "distributed_tensorflow_guide_tpu_torch/ops/csrc/flash_attention.cu"
 
@@ -254,14 +262,29 @@ def _lib():
     return lib
 
 
+def _pad_hd(t, hdp: int):
+    """``t`` with its last dim zero-padded to ``hdp`` (itself if it fits)."""
+    pad = hdp - t.shape[-1]
+    return t if pad == 0 else torch.nn.functional.pad(t, (0, pad))
+
+
+def _padded_head_dim(hd: int) -> int:
+    """The head dim the flash kernels run at: ``hd`` rounded up to a
+    multiple of 8 (zero columns change no score and no output column)."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
+    return -(-hd // 8) * 8
+
+
 def _kernel_layout(q, k, v):
     """q, k, v as the kernels take them: one shared stride triple over
-    (B, S, H) with the head dim contiguous, 16-byte aligned rows (the bf16
-    forward builds its TMA tensor maps from these strides). Column slices
-    of one qkv tensor qualify as they are; anything else is made
-    contiguous, and a start that is still off a 16-byte boundary raises.
-    Returns (q, k, v, (sb, ss, sh))."""
-    hd = q.shape[-1]
+    (B, S, H) with the head dim contiguous and a multiple of 8 (zero-padded
+    where it is not), 16-byte aligned rows (the bf16 kernels build their
+    TMA tensor maps from these strides). Column slices of one qkv tensor
+    qualify as they are; anything else, a contiguous tensor that starts
+    off a 16-byte boundary included, is copied into fresh contiguous
+    storage. Returns (q, k, v, (sb, ss, sh))."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernels take float32/bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -269,11 +292,10 @@ def _kernel_layout(q, k, v):
     if q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must share one shape")
-    if hd > MAX_HEAD_DIM or hd % 8:
-        raise ValueError(f"head_dim {hd}: the kernels take a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    hdp = _padded_head_dim(q.shape[-1])
+    q, k, v = (_pad_hd(t, hdp) for t in (q, k, v))
     per_vec = 16 // q.dtype.itemsize
     strides = q.stride()
 
@@ -283,7 +305,8 @@ def _kernel_layout(q, k, v):
                 and t.data_ptr() % 16 == 0)
 
     if not all(fits(t) for t in (q, k, v)):
-        q, k, v = (t.contiguous() for t in (q, k, v))
+        q, k, v = (t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
         strides = q.stride()
         if not all(fits(t) for t in (q, k, v)):
             raise ValueError("q, k and v must start on 16-byte boundaries "
@@ -302,16 +325,22 @@ def _check_rows(name, t, shape, device):
                          f"{device}")
 
 
-_KERNEL_CODES = {9001: "libcuda has no cuTensorMapEncodeTiled",
+_KERNEL_CODES = {-1: "no kernel takes these dtypes and sizes",
+                 9001: "libcuda has no cuTensorMapEncodeTiled",
                  9002: "libcuda refused the TMA tensor map",
                  9003: "the compiled kernel's registers do not hold its "
                        "setmaxnreg plan"}
 
 
+def kernel_error(rc: int) -> str:
+    """What a kernel library's nonzero return code means."""
+    return _KERNEL_CODES.get(rc, f"cuda error {rc}")
+
+
 def _raise_on(rc, name):
     if rc != 0:
-        why = _KERNEL_CODES.get(rc, f"cuda error {rc}")
-        raise RuntimeError(f"{name} kernel launch failed: {why}")
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{kernel_error(rc)}")
 
 
 def flash_fwd(q, k, v, *, scale: float, causal: bool):
@@ -321,6 +350,7 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
         return flash_fwd_plain(q, k, v, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
+    hd = q.shape[-1]
     q, k, v, (sb, ss, sh) = _kernel_layout(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -331,15 +361,20 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
         _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
-    return out, lse
+    return _unpad(out, hd), lse
+
+
+def _unpad(t, hd: int):
+    """A kernel's output at the caller's head dim, contiguous."""
+    return t if t.shape[-1] == hd else t[..., :hd].contiguous()
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
-    q, k, v, strides = _kernel_layout(q, k, v)
-    B, S, H, D = q.shape
-    do = do.to(q.dtype).contiguous()
     if do.shape != q.shape or do.device != q.device:
         raise ValueError("dO must match q's shape and device")
+    q, k, v, strides = _kernel_layout(q, k, v)
+    B, S, H, D = q.shape
+    do = _pad_hd(do.to(q.dtype), D).contiguous()
     for name, t in (("lse", lse), ("delta", delta)):
         _check_rows(name, t, (B, H, S), q.device)
     return q, k, v, do, strides
@@ -352,6 +387,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
+    hd = q.shape[-1]
     q, k, v, do, (sb, ss, sh) = _bwd_operands(q, k, v, do, lse, delta)
     B, S, H, D = q.shape
     dq = torch.empty_like(do)
@@ -361,7 +397,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
         H, D, scale, int(causal), _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_dq"] += 1
-    return dq
+    return _unpad(dq, hd)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
@@ -371,6 +407,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
+    hd = q.shape[-1]
     q, k, v, do, (sb, ss, sh) = _bwd_operands(q, k, v, do, lse, delta)
     B, S, H, D = q.shape
     dk = torch.empty_like(do)
@@ -382,7 +419,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
         _stream(q))
     _raise_on(rc, "flash_bwd_dkv")
     LAUNCHES["flash_dkv"] += 1
-    return dk, dv
+    return _unpad(dk, hd), _unpad(dv, hd)
 
 
 def flash_carry_step(q, k, v, m, l, acc, *, scale: float, diag: bool):
@@ -397,16 +434,20 @@ def flash_carry_step(q, k, v, m, l, acc, *, scale: float, diag: bool):
         return flash_carry_step_plain(q, k, v, m, l, acc, scale, diag)
     if q.device.type != "cuda":
         raise ValueError(f"flash_carry_step: unsupported device {q.device}")
+    hd = q.shape[-1]
     q, k, v, (sb, ss, sh) = _kernel_layout(q, k, v)
     B, S, H, D = q.shape
     _check_rows("m", m, (B, H, S), q.device)
     _check_rows("l", l, (B, H, S), q.device)
-    _check_rows("acc", acc, (B, H, S, D), q.device)
+    _check_rows("acc", acc, (B, H, S, hd), q.device)
+    acc_k = _pad_hd(acc, D).contiguous()  # acc itself unless hd was padded
     rc = _lib().dtg_flash_carry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-        l.data_ptr(), acc.data_ptr(), sb, ss, sh, B, S, H, D, scale,
+        l.data_ptr(), acc_k.data_ptr(), sb, ss, sh, B, S, H, D, scale,
         int(diag), _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(rc, "flash_carry_step")
+    if acc_k is not acc:
+        acc.copy_(acc_k[..., :hd])
     LAUNCHES["flash_carry"] += 1
     return m, l, acc
 

@@ -44,7 +44,7 @@ from distributed_tensorflow_guide_tpu_torch.core.dist import (
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
     _sample,
     decode_config,
-    position_seeds,
+    fold_in,
     sample_rows,
 )
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
@@ -116,28 +116,29 @@ def build_step_fns(cfg: TransformerConfig, *, num_blocks: int,
     pcfg = paged_config(cfg, num_blocks=num_blocks, block_size=block_size)
 
     @torch.inference_mode()
-    def decode_step(model, pool, tables, written, last_tok, keys):
-        """(S,) tokens in, (S,) tokens out."""
+    def decode_step(model, pool, tables, written, last_tok, pos_keys):
+        """(S,) tokens in, (S,) tokens out. ``pos_keys`` (S, 2): each
+        slot's key of the position it samples, host-made (None when
+        greedy)."""
         logits = model(last_tok[:, None], written, cache=pool,
                        block_tables=tables)
-        seeds = position_seeds(keys, written.to(torch.int64) + 1)
-        return sample_rows(logits[:, -1], seeds, temperature, top_k)
+        return sample_rows(logits[:, -1], pos_keys, temperature, top_k)
 
     @torch.inference_mode()
     def prefill_chunk_step(model, pool, tables, start, chunk, valid: int,
-                           key):
+                           pos_key):
         """One (1, prefill_chunk) slice of one prompt. ``valid`` rows are
         real prompt; the rest are pads whose writes land inside the
         request's blocks and are overwritten or masked forever. The sample
-        comes from row ``valid - 1`` with the seed of absolute position
-        ``start + valid``."""
+        comes from row ``valid - 1`` with ``pos_key``, the key of absolute
+        position ``start + valid`` (host-made; None when greedy)."""
         logits = model(chunk, start, cache=pool, block_tables=tables)
-        seed = position_seeds(key, start.to(torch.int64) + valid)
-        return _sample(logits[0, valid - 1][None], seed, temperature,
+        return _sample(logits[0, valid - 1][None], pos_key, temperature,
                        top_k)[0]
 
     return SimpleNamespace(decode=decode_step, prefill=prefill_chunk_step,
-                           cfg=pcfg, n_blk=pcfg.max_len // block_size)
+                           cfg=pcfg, n_blk=pcfg.max_len // block_size,
+                           sampled=temperature != 0.0)
 
 
 class ServeEngine:
@@ -349,9 +350,12 @@ class ServeEngine:
         chunk[0, :valid] = s.prompt[start:start + valid]
         tables = table_row(s.blocks, self.fns.n_blk,
                            self.sched.pool.trash_block)[None]
+        # the sample's key, folded on the host: greedy derives none
+        pos_key = (fold_in(s.rng, start + valid) if self.fns.sampled
+                   else None)
         args = (self.model, self.pool, self._tensor(tables),
                 self._tensor([start]), self._tensor(chunk, torch.int64),
-                valid, self._tensor(s.rng[None], torch.int64))
+                valid, pos_key)
         tok = self._launch(lambda: self.fns.prefill(*args),
                            tag="serve_prefill_chunk_step")
         return [Event(now, *ev) for ev in
@@ -370,9 +374,11 @@ class ServeEngine:
             written[i] = s.written
             last_tok[i] = s.pending
             keys[i] = s.rng
+        pos_keys = (fold_in(keys, written.astype(np.int64) + 1)
+                    if self.fns.sampled else None)
         args = (self.model, self.pool, self._tensor(tables),
                 self._tensor(written), self._tensor(last_tok, torch.int64),
-                self._tensor(keys, torch.int64))
+                pos_keys)
         nxt = self._launch(lambda: self.fns.decode(*args),
                            tag="serve_decode_step").tolist()
         events = []

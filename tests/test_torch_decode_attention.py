@@ -202,6 +202,7 @@ def test_cpu_tensors_take_the_plain_version_and_others_raise():
     DA.decode_attention(_t(q), _t(k), _t(v), 5)
     assert DA.LAUNCHES == {"decode_attention": 0,
                            "paged_decode_attention": 0}
+    assert set(DA.REGIME_LAUNCHES.values()) == {0}
     meta = torch.empty(B, 1, H, HD, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         DA.decode_attention(meta, _t(k), _t(v), 5)
@@ -211,3 +212,81 @@ def test_cpu_tensors_take_the_plain_version_and_others_raise():
                                   torch.ones(B, dtype=torch.int32),
                                   block_size=BS)
 
+
+
+# ---- the split regime's host plan and its plain model ----------------------
+
+
+@pytest.mark.parametrize("span,want", [(1, 1), (255, 1), (256, 1), (257, 2),
+                                       (512, 2), (700, 3), (1024, 4)])
+def test_split_count_comes_from_the_span_alone(span, want):
+    assert DA.split_count(span) == want
+    assert DA.SPLIT_KEYS == 256
+
+
+def test_split_size_is_fixed_per_cache_dtype_and_head_dim():
+    """256 keys a split, 128 where a split's f32 rows would not fit one
+    CTA (rows wider than 256 bytes); never a function of the batch."""
+    assert DA.split_keys(torch.bfloat16, 128) == 256
+    assert DA.split_keys(torch.int8, 128) == 256
+    assert DA.split_keys(torch.float32, 64) == 256
+    assert DA.split_keys(torch.float32, 80) == 128
+    assert DA.split_count(2560, 128) == 20
+    assert DA.split_ranges(300, 300, 128) == [(0, 128), (128, 256),
+                                              (256, 300)]
+
+
+def test_split_ranges_cover_each_live_length_once_in_order():
+    """Every key below the length lies in exactly one split's range, in
+    split order; splits past the length are empty; the count never
+    depends on the length (only on the span, K6's table width)."""
+    span = 1024
+    for length in (1, 2, 255, 256, 257, 511, 700, 1023, 1024):
+        ranges = DA.split_ranges(span, length)
+        assert len(ranges) == DA.split_count(span)
+        keys = [p for lo, hi in ranges for p in range(lo, hi)]
+        assert keys == list(range(length))
+        assert all(lo == s * DA.SPLIT_KEYS
+                   for s, (lo, _) in enumerate(ranges))
+        assert all(lo == hi for lo, hi in ranges if lo >= length)
+    assert DA.split_ranges(700, 1) == [(0, 1), (256, 256), (512, 512)]
+
+
+def test_regime_follows_dtype_head_dim_and_chunk_width():
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    t = DA.CHUNK_MIN_ROWS
+    assert DA.decode_regime(bf16, bf16, 64, t) == "chunk"
+    assert DA.decode_regime(bf16, i8, 64, 512) == "chunk"
+    assert DA.decode_regime(bf16, bf16, 64, t - 1) == "split"
+    assert DA.decode_regime(bf16, bf16, 64, 1) == "split"
+    assert DA.decode_regime(bf16, bf16, 12, 512) == "split"  # hd % 8
+    assert DA.decode_regime(f32, f32, 64, 512) == "split"
+    assert DA.decode_regime(f32, i8, 64, 512) == "split"
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("chunk,lengths", [
+    (1, [1, 1]), (1, [256, 257]), (1, [700, 3]), (5, [5, 600]),
+    (16, [512, 513]), (7, [1024, 300])])
+def test_split_then_combine_equals_the_one_pass_plain_version(chunk, lengths,
+                                                              quant):
+    """The split regime's algorithm (per-split partials, empty splits
+    included, merged in split order) against the one-pass plain version
+    over a 1024-key span: equal within f32 rounding (1e-5)."""
+    b, h, s, hd = len(lengths), 2, 1024, 16
+    k, v = _rand(31, b, h, s, hd), _rand(32, b, h, s, hd)
+    ks = vs = None
+    if quant:
+        k, ks = _both_quantized(k)
+        v, vs = _both_quantized(v)
+        ks, vs = _t(ks[:, :, None, :]), _t(vs[:, :, None, :])
+    k, v = _t(k), _t(v)
+    q = _t(_rand(33, b, chunk, h, hd))
+    n = torch.tensor(lengths)
+    q_pos = n[:, None] - chunk + torch.arange(chunk)[None, :]
+    # what each request may read: keys below its length
+    live = torch.arange(s)[None, :] < n[:, None]
+    k = torch.where(live[:, None, :, None], k, torch.zeros_like(k))
+    want = DA._attend(q, k, v, ks, vs, q_pos)
+    got = DA.split_attention_plain(q, k, v, ks, vs, q_pos, s)
+    torch.testing.assert_close(got, want, **TOL)

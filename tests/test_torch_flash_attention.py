@@ -325,3 +325,28 @@ def test_kernel_bounds_count_what_the_path_moves():
                                              + 2 * 12_582_912)
     assert FA.flash_kernel_flops("flash_carry", causal=False, **ring) == (
         4 * 64 * 4 * 12 * 1024 * 1024)
+
+
+def test_kernel_build_key_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library's cache name hashes its source and every csrc/*.cuh: an
+    edited header must not load a stale library."""
+    from distributed_tensorflow_guide_tpu_torch.ops import _build
+
+    for name in ("decode_attention", "flash_attention"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sm90_common.cuh"' in src
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("DTG_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    first = _build._target("k")[1]
+    assert first.parent == tmp_path / "out"
+    assert first.name.startswith("libk_") and first.suffix == ".so"
+    assert _build._target("k")[1] == first  # stable
+    (csrc / "h.cuh").write_text("// two\n")
+    second = _build._target("k")[1]
+    assert second != first
+    (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target("k")[1] not in (first, second)

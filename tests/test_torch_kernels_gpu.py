@@ -123,6 +123,209 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         DA.paged_decode_attention(
             q, k, k, torch.zeros(2, 1, dtype=torch.int64, device=dev),
             torch.ones(2, dtype=torch.int32, device=dev), block_size=32)
+    wide_q = torch.randn(2, 1, 4, 136, device=dev, dtype=torch.bfloat16)
+    wide_k = torch.randn(2, 4, 32, 136, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim above MAX_HEAD_DIM
+        DA.decode_attention(wide_q, wide_k, wide_k, 3)
+
+
+def _nan_past(x, lengths, axis):
+    """A copy of a (B, H, S, ...) cache with garbage at every position at
+    or past each request's length along ``axis`` (2 for K/V, 3 for
+    scales): NaN, or 127 in an int8 cache (whose scales get the NaN)."""
+    x = x.clone()
+    fill = 127 if x.dtype == torch.int8 else float("nan")
+    for b, n in enumerate(lengths):
+        x[b].narrow(axis - 1, n, x.shape[axis] - n).fill_(fill)
+    return x
+
+
+DECODE_C = (1, 2, 7, 9, 10, 16, 63, 64, 65, 128, 200, 512)
+DECODE_S = 640  # past two split edges (256, 512)
+
+
+def _decode_lengths(C):
+    """Live lengths of the sweep: 1, C, split and block edges +-1, S."""
+    edges = {1, C, DECODE_S}
+    for e in (8, 16, 32, 64, 256, 512):
+        edges |= {e - 1, e, e + 1}
+    return sorted(n for n in edges if C <= n <= DECODE_S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [12, 32, 64, 80, 128])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("C", DECODE_C)
+def test_decode_edge_sweep_on_the_card(C, kind, hd):
+    """K5 and K6 at the edges of both regimes (split-KV below
+    ``CHUNK_MIN_ROWS`` rows and for f32 or a head dim off a multiple of 8,
+    tensor cores from it on): C across the threshold (9, 10) and the
+    64-row tiles, live lengths of 1, C,
+    split and block edges +-1 and S, block sizes 8, 16 and 32, head dims
+    12 to 128; each against its plain version (tolerances of the first
+    test), bitwise equal on a repeat. NaN written past every length and
+    into K6's trash block must not reach the output; a K6 request gives
+    the same bits alone at B=1 as among its batch-mates."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11 + C + hd)
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    tol = dict(atol=TOL[kind], rtol=TOL[kind])
+    h, S = 2, DECODE_S
+    lengths = _decode_lengths(C)
+
+    # K5: one call per length, two requests
+    b = 2
+    k, v, ks, vs = _cache(kind, b, h, S, hd, gen, dev)
+    for n in lengths:
+        q = torch.randn(b, C, h, hd, generator=gen, device=dev).to(q_dtype)
+        want = DA.decode_attention_plain(q, k, v, n - C, key_scale=ks,
+                                         value_scale=vs)
+        dirty = [_nan_past(t, [n] * b, ax) if t is not None else None
+                 for t, ax in ((k, 2), (v, 2), (ks, 3), (vs, 3))]
+        got = DA.decode_attention(q, dirty[0], dirty[1], n - C,
+                                  key_scale=dirty[2], value_scale=dirty[3])
+        again = DA.decode_attention(q, dirty[0], dirty[1], n - C,
+                                    key_scale=dirty[2], value_scale=dirty[3])
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=f"K5 length {n}")
+        assert torch.equal(got, again), f"K5 length {n} not repeatable"
+
+    # K6: eight requests at lengths from the sweep, shuffled pool
+    b = 8
+    lens = [lengths[i % len(lengths)] for i in range(b)]
+    k, v, ks, vs = _cache(kind, b, h, S, hd, gen, dev)
+    q = torch.randn(b, C, h, hd, generator=gen, device=dev).to(q_dtype)
+    for bs in (8, 16, 32):
+        n_blk = S // bs
+        perm = torch.randperm(b * n_blk, generator=gen, device=dev)
+        tables = perm.view(b, n_blk).to(torch.int32)
+        trash = b * n_blk
+        for i, n in enumerate(lens):  # blocks past the length: the trash
+            tables[i, -(-n // bs):] = trash
+
+        def pool(x, axis, fill):
+            p = _pool(x, perm, n_blk, axis)
+            tail = torch.full_like(p[:1], fill)
+            return torch.cat([p, tail]).contiguous()
+
+        clean = [pool(t, ax, 0.0) if t is not None else None
+                 for t, ax in ((k, 2), (v, 2), (ks, 3), (vs, 3))]
+        dirty = [pool(_nan_past(t, lens, ax), ax,
+                      127 if t.dtype == torch.int8 else float("nan"))
+                 if t is not None else None
+                 for t, ax in ((k, 2), (v, 2), (ks, 3), (vs, 3))]
+        lengths_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(key_scale_pool=dirty[2], value_scale_pool=dirty[3],
+                  block_size=bs)
+        want = DA.paged_decode_attention_plain(
+            q, clean[0], clean[1], tables, lengths_t,
+            key_scale_pool=clean[2], value_scale_pool=clean[3],
+            block_size=bs)
+        got = DA.paged_decode_attention(q, dirty[0], dirty[1], tables,
+                                        lengths_t, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=f"K6 block size {bs}")
+        assert torch.equal(got, DA.paged_decode_attention(
+            q, dirty[0], dirty[1], tables, lengths_t, **kw))
+        for i in (0, b - 1):
+            alone = DA.paged_decode_attention(
+                q[i:i + 1], dirty[0], dirty[1], tables[i:i + 1].clone(),
+                lengths_t[i:i + 1].clone(), **kw)
+            assert torch.equal(alone[0], got[i]), f"request {i} alone"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_decode_over_many_splits_on_the_card(kind):
+    """A 2560-key span (10 splits; 20 for f32 rows of 128): the partials
+    go through the workspace and the combine kernel in split order;
+    against the plain versions, bitwise repeatable. hd = 128 covers the
+    f32 route's 128-key splits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    b, h, s, hd, bs = 2, 3, 2560, 128, 16
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    tol = dict(atol=TOL[kind], rtol=TOL[kind])
+    k, v, ks, vs = _cache(kind, b, h, s, hd, gen, dev)
+    n_blk = s // bs
+    perm = torch.randperm(b * n_blk, generator=gen, device=dev)
+    tables = perm.view(b, n_blk).to(torch.int32)
+    kp, vp = _pool(k, perm, n_blk, 2), _pool(v, perm, n_blk, 2)
+    ksp = None if ks is None else _pool(ks, perm, n_blk, 3)
+    vsp = None if vs is None else _pool(vs, perm, n_blk, 3)
+    for c in (1, 5):
+        q = torch.randn(b, c, h, hd, generator=gen, device=dev).to(q_dtype)
+        got = DA.decode_attention(q, k, v, 2400 - c, key_scale=ks,
+                                  value_scale=vs)
+        want = DA.decode_attention_plain(q, k, v, 2400 - c, key_scale=ks,
+                                         value_scale=vs)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert torch.equal(got, DA.decode_attention(
+            q, k, v, 2400 - c, key_scale=ks, value_scale=vs))
+        lens = torch.tensor([s, 300], dtype=torch.int32, device=dev)
+        kw = dict(key_scale_pool=ksp, value_scale_pool=vsp, block_size=bs)
+        got = DA.paged_decode_attention(q, kp, vp, tables, lens, **kw)
+        want = DA.paged_decode_attention_plain(q, kp, vp, tables, lens, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_regime_named_by_the_caller_on_the_card(kind):
+    """K6 in either regime at chunk widths on both sides of the threshold
+    (what the threshold's measurement runs): each against the plain
+    version, one wrapper launch and one launch of its regime a call. The
+    chunk regime refuses a head dim off a multiple of 8, and the kernels'
+    entry point refuses a split plan that does not cover the span or
+    whose split is wider than a CTA's lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    b, h, s, hd, bs = 3, 2, 640, 64, 16
+    tol = dict(atol=TOL[kind], rtol=TOL[kind])
+    k, v, ks, vs = _cache(kind, b, h, s, hd, gen, dev)
+    n_blk = s // bs
+    perm = torch.randperm(b * n_blk, generator=gen, device=dev)
+    tables = perm.view(b, n_blk).to(torch.int32)
+    kp, vp = _pool(k, perm, n_blk, 2), _pool(v, perm, n_blk, 2)
+    kw = dict(key_scale_pool=None if ks is None else _pool(ks, perm, n_blk, 3),
+              value_scale_pool=None if vs is None else _pool(vs, perm,
+                                                             n_blk, 3),
+              block_size=bs)
+    for c in (1, 4, 16, 128):
+        q = torch.randn(b, c, h, hd, generator=gen,
+                        device=dev).bfloat16()
+        lens = torch.tensor([s, c, 300], dtype=torch.int32, device=dev)
+        want = DA.paged_decode_attention_plain(q, kp, vp, tables, lens, **kw)
+        for regime in ("split", "chunk"):
+            before = dict(DA.REGIME_LAUNCHES)
+            calls = DA.LAUNCHES["paged_decode_attention"]
+            got = DA.paged_decode_attention_kernel(
+                q, kp, vp, tables, lens, regime=regime, **kw)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            name = f"paged_decode_attention.{regime}"
+            assert DA.REGIME_LAUNCHES == {**before, name: before[name] + 1}
+            assert DA.LAUNCHES["paged_decode_attention"] == calls + 1
+    q12 = torch.randn(b, 16, h, 16, generator=gen, device=dev).bfloat16()
+    q12 = q12[..., :12].contiguous()
+    k12 = torch.zeros(b * n_blk, h, bs, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        DA.paged_decode_attention_kernel(q12, k12, k12, tables, lens,
+                                         block_size=bs, regime="chunk")
+    if kind == "bf16":
+        out = torch.empty_like(q)
+        for n_splits, keys in ((1, 256), (3, 264)):  # 256 < 640; 264 > 256
+            rc = DA._lib().dtg_paged_decode_attention(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), None,
+                b, q.shape[1], h, hd, bs, n_blk, 1, 1, 1.0 / hd ** 0.5,
+                n_splits, keys, torch.cuda.current_stream().cuda_stream)
+            assert rc != 0
 
 
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
@@ -309,28 +512,101 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take():
         FA.flash_fwd(q.half(), q.half(), q.half(), scale=0.125, causal=True)
     with pytest.raises(TypeError):  # mixed dtypes
         FA.flash_fwd(q, q.bfloat16(), q, scale=0.125, causal=True)
+    # a head dim off a multiple of 8 is zero-padded and served
     odd = torch.randn(1, 64, 2, 12, device=dev)
-    with pytest.raises(ValueError):  # head dim not a multiple of 8
-        FA.flash_fwd(odd, odd, odd, scale=0.3, causal=True)
+    out, lse = FA.flash_fwd(odd, odd, odd, scale=0.3, causal=True)
+    ref, ref_lse = FA.flash_fwd_plain(odd, odd, odd, 0.3, True)
+    assert out.shape == odd.shape
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
     wide = torch.randn(1, 64, 2, 136, device=dev)
     with pytest.raises(ValueError):  # head dim above 128
         FA.flash_fwd(wide, wide, wide, scale=0.1, causal=True)
     with pytest.raises(ValueError):  # the same for the bf16 kernel
         FA.flash_fwd(wide.bfloat16(), wide.bfloat16(), wide.bfloat16(),
                      scale=0.1, causal=True)
-    # contiguous, but starting 2 bytes past a 16-byte boundary: no copy
-    # can fix the start, and TMA refuses it
+    # contiguous, but starting 2 bytes past a 16-byte boundary: the
+    # wrapper hands the kernels a fresh aligned copy
     flat = torch.randn(1 * 64 * 2 * 64 + 1, device=dev).bfloat16()
     off = flat[1:].view(1, 64, 2, 64)
-    with pytest.raises(ValueError):
-        FA.flash_fwd(off, off, off, scale=0.125, causal=True)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    out, lse = FA.flash_fwd(off, off, off, scale=0.125, causal=True)
+    ref, ref_lse = FA.flash_fwd_plain(off, off, off, 0.125, True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
     m, l, acc = FA.carry_init(1, 2, 64, 64, device=dev)
-    with pytest.raises(ValueError):
-        FA.flash_carry_step(off, off, off, m, l, acc, scale=0.125,
-                            diag=True)
+    want = FA.flash_carry_step_plain(off, off, off, m, l, acc, 0.125, True)
+    FA.flash_carry_step(off, off, off, m, l, acc, scale=0.125, diag=True)
+    torch.testing.assert_close(m, want[0], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(acc / want[2].abs().amax(),
+                               want[2] / want[2].abs().amax(), atol=1e-2,
+                               rtol=0)
     lse = torch.zeros(1, 2, 63, device=dev)
     with pytest.raises(ValueError):  # lse of the wrong shape
         FA.flash_bwd_dq(q, q, q, q, lse, lse, scale=0.125, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [12, 32, 80])
+def test_flash_kernels_at_head_dims_the_reference_takes(hd, kind, causal):
+    """K1-K4 at the head dims of the JAX package's flash tests (12 is off
+    a multiple of 8: the wrappers zero-pad it to 16 and slice back; the
+    scale stays 1/sqrt(hd)), through the autograd call and the carry
+    step, against the plain versions at the tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    tol = FLASH_TOL[kind]
+    b, s, h = 2, 200, 3
+    q, k, v, w = (torch.randn(b, s, h, hd, generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    scale = hd ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(FA.LAUNCHES)
+    out = FA.flash_attention(*leaves, causal=causal)
+    out.backward(w)
+    assert FA.LAUNCHES == {**before, "flash_fwd": before["flash_fwd"] + 1,
+                           "flash_dq": before["flash_dq"] + 1,
+                           "flash_dkv": before["flash_dkv"] + 1}
+    ref, ref_lse = FA.flash_fwd_plain(q, k, v, scale, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    delta = (w.float() * out.detach().float()).sum(-1).transpose(1, 2)
+    _, lse = FA.flash_fwd(q, k, v, scale=scale, causal=causal)
+    args = (q, k, v, w, lse, delta.contiguous())
+    want = (FA.flash_bwd_dq_plain(*args, scale, causal),
+            *FA.flash_bwd_dkv_plain(*args, scale, causal))
+    for name, leaf, want_t in zip("qkv", leaves, want):
+        assert leaf.grad.shape == (b, s, h, hd)
+        top = want_t.float().abs().amax().clamp_min(1.0)
+        torch.testing.assert_close(leaf.grad.float() / top,
+                                   want_t.float() / top, atol=tol, rtol=0,
+                                   msg=f"d{name}")
+    m, l, acc = FA.carry_init(b, h, s, hd, device=dev)
+    want = FA.flash_carry_step_plain(q, k, v, m, l, acc, scale, causal)
+    got = FA.flash_carry_step(q, k, v, m, l, acc, scale=scale, diag=causal)
+    assert got[2] is acc and acc.shape == (b, h, s, hd)
+    got_out, _ = FA.carry_finalize(*got)
+    ref_out, _ = FA.carry_finalize(*want)
+    torch.testing.assert_close(got_out, ref_out, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_the_model_refuses_a_head_dim_above_the_limit_on_the_card():
+    """hd = 136 > MAX_HEAD_DIM: the CPU model is built, and moving it to
+    the card raises there, naming the limit, before any weight moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = TF.TransformerConfig(vocab_size=64, num_layers=1, num_heads=2,
+                               d_model=272, d_ff=64, max_len=32,
+                               dtype=torch.bfloat16)
+    model = TF.Transformer(cfg).init_weights(0)
+    with pytest.raises(ValueError, match="up to 128"):
+        model.to("cuda")
+    assert model.device.type == "cpu"
 
 
 @pytest.mark.gpu

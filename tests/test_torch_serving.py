@@ -6,10 +6,12 @@ d_ff 64, max_len 64, float32), with the JAX weights bridged into the port.
 On the CPU the port's K6 wrapper runs its plain version; the JAX engine
 runs with ``decode_impl="auto"``, which resolves to its dense path here.
 
-* Greedy streams: port engine == JAX engine, token for token (float32
-  logits agree to ~1e-5, far inside the argmax margins of these seeds).
+* Greedy and sampled streams: port engine == JAX engine, token for
+  token (float32 logits agree to ~1e-5, far inside the argmax margins of
+  these seeds; sampling draws JAX's threefry ``fold_in(rng, p)`` keys and
+  Gumbel noise, the latter within an ulp of each log).
 * Port engine == port one-shot, bitwise, greedy and sampled: both sample
-  position p of a request with the seed of (request key, p), and the
+  position p of a request with the key of (request key, p), and the
   scheduler's interleaving, chunking and preemption never change p.
 """
 
@@ -128,6 +130,26 @@ def test_engine_greedy_streams_equal_jax_engine(jparams, model, pool):
     assert DA.LAUNCHES["paged_decode_attention"] == 0
     eng.sched.pool.check_leaks()
     assert eng.live_blocks() == 0
+
+
+@pytest.mark.parametrize("top_k", [10, None], ids=["top10", "full"])
+@pytest.mark.parametrize("pool", ["roomy", "preempting"])
+def test_engine_sampled_streams_equal_jax_engine(jparams, model, pool,
+                                                 top_k):
+    """Temperature 0.8 through both engines, the same requests and keys:
+    identical streams and scheduling, through preemption too."""
+    prompts, max_new, geo = ((PROMPTS, MAX_NEW, ROOMY) if pool == "roomy"
+                             else (TIGHT_PROMPTS, TIGHT_MAX_NEW, TIGHT))
+    jeng = JServeEngine(JCFG, jparams, temperature=0.8, top_k=top_k, **geo)
+    for i, (p, mn) in enumerate(zip(prompts, max_new)):
+        jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=mn,
+                             rng=jax.random.PRNGKey(100 + i)))
+    jeng.run()
+    eng, _ = _serve(model, temp=0.8, top_k=top_k, prompts=prompts,
+                    max_new=max_new, **geo)
+    assert eng.completions() == jeng.completions()
+    assert eng.steps == jeng.steps
+    assert eng.sched.preemptions == jeng.sched.preemptions
 
 
 # ---- port engine == port one-shot, bitwise ----------------------------------

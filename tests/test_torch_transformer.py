@@ -180,16 +180,149 @@ def test_sampled_generate_is_a_function_of_key_and_position(model):
 
 def test_sample_rows_equals_one_row_sample():
     """Row b of the engine's per-row sampler is bitwise a B=1 sample with
-    that row's seed (the engine == one-shot property)."""
+    that row's position-derived threefry key (the engine == one-shot
+    property)."""
     logits = torch.from_numpy(np.random.RandomState(7).randn(4, 256)
                               .astype(np.float32))
     keys = torch.tensor([[0, 1], [0, 2], [5, 1], [0, 1]])
-    seeds = tgen.position_seeds(keys, torch.tensor([3, 3, 3, 9]))
-    rows = tgen.sample_rows(logits, seeds, 0.9, 50)
+    pos_keys = tgen.fold_in(keys, torch.tensor([3, 3, 3, 9]))
+    rows = tgen.sample_rows(logits, pos_keys, 0.9, 50)
     for b in range(4):
-        one = tgen._sample(logits[b:b + 1], seeds[b], 0.9, 50)
+        one = tgen._sample(logits[b:b + 1], pos_keys[b], 0.9, 50)
         assert rows[b] == one[0]
-    assert len(set(seeds.tolist())) == 4
+    assert len({tuple(k) for k in pos_keys.tolist()}) == 4
+
+
+@pytest.mark.parametrize("top_k", [1, 10, 64])
+@pytest.mark.parametrize("ties", [False, True], ids=["f32", "bf16_ties"])
+def test_top_k_draw_at_the_live_columns_equals_the_full_row_draw(top_k,
+                                                                 ties):
+    """With top-k, the noise is drawn at the columns that survive the
+    mask alone (their flat indices): the token is the full-vocabulary
+    Gumbel-max draw's, for the one-key sampler (row b at b * V + v) and
+    the per-row one; with logits rounded to bf16, ties at the k-th value
+    let more than k columns through, and those draw too."""
+    rs = np.random.RandomState(top_k)
+    logits = torch.from_numpy(rs.randn(6, 3000).astype(np.float32) * 3)
+    if ties:
+        logits = logits.bfloat16().float()
+    keys = tgen.fold_in(torch.from_numpy(_raw_keys(top_k, 6)
+                                         .astype(np.int64)),
+                        torch.arange(6))
+    for keys_b in (keys, keys[:1].expand(6, 2)):
+        t = tgen._tempered(logits, 0.8, top_k)
+        assert (t > float("-inf")).sum() >= 6 * top_k
+        full = torch.argmax(
+            tgen.gumbel(keys_b, (logits.shape[-1],)) + t, dim=-1)
+        got = tgen.sample_rows(logits, keys_b, 0.8, top_k)
+        torch.testing.assert_close(got, full, rtol=0, atol=0)
+    for key in keys:
+        t = tgen._tempered(logits, 0.8, top_k)
+        full = torch.argmax(tgen.gumbel(key, t.shape) + t, dim=-1)
+        got = tgen._sample(logits, key, 0.8, top_k)
+        torch.testing.assert_close(got, full, rtol=0, atol=0)
+
+
+def _raw_keys(seed, n):
+    """n raw (2,) uint32 keys made with numpy, full 32-bit range."""
+    return np.random.RandomState(seed).randint(
+        0, 2**32, size=(n, 2), dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 5), (2, 256), (1, 50304)])
+def test_threefry_bits_uniform_and_fold_in_match_jax_bitwise(shape):
+    """The port's copy of JAX's threefry path (``jax_threefry_partitionable``
+    on, as this JAX runs): random bits, uniform floats (default range and
+    the Gumbel's [tiny, 1)) and fold-in keys, bit for bit."""
+    assert jax.config.jax_threefry_partitionable
+    tiny = float(np.finfo(np.float32).tiny)
+    for key in _raw_keys(len(shape) + shape[-1], 3):
+        jkey = jnp.asarray(key)
+        tkey = torch.from_numpy(key.astype(np.int64))
+        want = np.asarray(jax.random.bits(jkey, shape, jnp.uint32))
+        got = tgen.random_bits(tkey, shape).numpy().astype(np.uint32)
+        np.testing.assert_array_equal(got, want)
+        for lo, hi in ((0.0, 1.0), (tiny, 1.0)):
+            want = np.asarray(jax.random.uniform(jkey, shape, jnp.float32,
+                                                 lo, hi))
+            got = tgen.uniform(tkey, shape, lo, hi).numpy()
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+        for data in (0, 1, 511, 2**31 + 7, 2**32 - 1):
+            want = np.asarray(jax.random.fold_in(jkey, data))
+            got = tgen.fold_in(tkey, data).numpy().astype(np.uint32)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_fold_in_of_many_keys_and_positions_matches_jax():
+    """The engine's batched fold-in: (B, 2) keys with (B,) positions."""
+    keys = _raw_keys(3, 6)
+    pos = np.array([0, 1, 5, 63, 1000, 77], np.uint32)
+    want = np.asarray(jax.vmap(jax.random.fold_in)(jnp.asarray(keys),
+                                                   jnp.asarray(pos)))
+    got = tgen.fold_in(torch.from_numpy(keys.astype(np.int64)),
+                       torch.from_numpy(pos.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+def test_threefry_on_host_arrays_equals_the_tensor_path():
+    """Keys folded and bits drawn from numpy arrays (what the engine and
+    the one-shot generator do on the host) are bitwise the torch path's,
+    and stay numpy."""
+    keys = _raw_keys(5, 7).astype(np.int64)
+    pos = np.array([0, 1, 9, 700, 2**31, 2**32 - 1, 63], np.int64)
+    host = tgen.fold_in(keys, pos)
+    assert isinstance(host, np.ndarray)
+    np.testing.assert_array_equal(
+        host, tgen.fold_in(torch.from_numpy(keys),
+                           torch.from_numpy(pos)).numpy())
+    np.testing.assert_array_equal(tgen.fold_in(keys[2], 9), host[2])
+    n = np.array([0, 5, 50303, 2**32 + 3, 7 * 50304 + 11, 1, 2], np.int64)
+    bits = tgen._bits_at(host, n)
+    assert isinstance(bits, np.ndarray)
+    np.testing.assert_array_equal(
+        bits, tgen._bits_at(torch.from_numpy(host),
+                            torch.from_numpy(n)).numpy())
+
+
+@pytest.mark.parametrize("shape", [(4, 256), (1, 50304)])
+def test_gumbel_noise_matches_jax_within_one_ulp_of_each_log(shape):
+    """Gumbel noise -log(-log(u)) from the same key: u is bitwise JAX's
+    (test above); each of the two float32 logs may round 1 ulp apart
+    between the frameworks. So the inner log agrees within 1 ulp, and the
+    noise within that ulp carried through the outer log (d log y = dy / y,
+    large where y = -log(u) is near 1) plus 1 ulp of each side's outer
+    log."""
+    tiny = float(np.finfo(np.float32).tiny)
+    for key in _raw_keys(11, 3):
+        jkey, tkey = jnp.asarray(key), torch.from_numpy(key.astype(np.int64))
+        u = tgen.uniform(tkey, shape, tiny, 1.0)
+        inner = (-torch.log(u)).numpy()
+        np.testing.assert_array_max_ulp(inner,
+                                        np.asarray(-jnp.log(u.numpy())),
+                                        maxulp=1)
+        want = np.asarray(jax.random.gumbel(jkey, shape, jnp.float32))
+        got = tgen.gumbel(tkey, shape).numpy()
+        bound = np.spacing(inner) / inner + 2 * np.spacing(np.abs(want))
+        assert (np.abs(got.astype(np.float64) - want) <= bound).all()
+
+
+@pytest.mark.parametrize("top_k", [10, None], ids=["top10", "full"])
+def test_sampled_generate_matches_jax(jparams, model, top_k):
+    """Sampled one-shot streams (temperature 0.8) are the JAX package's,
+    token for token: the same fold_in(rng, position) keys and the same
+    categorical draw over logits that agree to ~1e-5."""
+    prompt = _tokens(9, 2, 6)
+    for seed in (3, 4):
+        jgenerate = jgen.make_generate_fn(JCFG, max_new_tokens=16,
+                                          temperature=0.8, top_k=top_k)
+        want = np.asarray(jgenerate(jparams, jnp.asarray(prompt),
+                                    jax.random.PRNGKey(seed)))
+        generate = tgen.make_generate_fn(TCFG, max_new_tokens=16,
+                                         temperature=0.8, top_k=top_k,
+                                         device="cpu")
+        got = generate(model, prompt, np.asarray(jax.random.PRNGKey(seed)))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_config_validation_and_deferred_knobs():
