@@ -9,7 +9,8 @@ kernel written by hand for Hopper (``ops/csrc/``), with a plain PyTorch
 version beside it for the CPU.
 
 Package layout (slices 1-3: the GPT-2 serving path, the training step,
-the process mesh and sequence parallelism):
+the process mesh and sequence parallelism; slice 7: the non-LM judged
+configs):
     core/        device resolution, the process group's bootstrap
                  (dist), the process mesh, precision
     collectives/ psum / pmean / ppermute / all_to_all ... over a mesh axis,
@@ -18,15 +19,18 @@ the process mesh and sequence parallelism):
     ops/         decode-attention kernels K5/K6 and flash-attention kernels
                  K1-K4 (CUDA) with their plain versions; blockwise
                  attention; the chunked fused cross-entropy
-    models/      Transformer (training, contiguous-decode and paged views),
-                 the LM loss, the one-shot generator and samplers
+    data/        synthetic datasets (MNIST, ImageNet, click-through)
+    models/      Transformer (training, contiguous-decode and paged views,
+                 a classification head: BERT), the LM and classification
+                 losses, the one-shot generator and samplers; ResNet with
+                 flax's BatchNorm, the MNIST CNN, Wide&Deep
     parallel/    data parallelism over a mesh axis, gradient accumulation,
                  sequence parallelism (ring attention, Ulysses)
-    train/       TrainState, hooks, TrainLoop
+    train/       TrainState, hooks, TrainLoop, held-out evaluation
     serve/       paged pool, scheduler, prefix index, engine, CLI
     obs/         flight recorder (copied)
-    utils/       dispatch accounting
-    bridge       flax param tree <-> state dict, numpy in and out
+    utils/       dispatch accounting, matmul and convolution FLOPs
+    bridge       flax param trees <-> state dicts, numpy in and out
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-"""Weights between the JAX package's flax param tree and this package's
-state dict.
+"""Weights between the JAX package's flax param trees and this package's
+state dicts: the Transformer (LM or classifier), ResNet, the MNIST CNN
+and Wide&Deep.
 
 The bridge takes and gives plain numpy arrays in nested dicts, so it never
 needs jax: a caller on the JAX side hands over
@@ -12,9 +13,14 @@ Layouts (flax -> torch):
 * ``proj/kernel`` (H, hd, D) -> ``attn.proj.weight`` (D, H*hd);
 * Dense kernels (in, out) -> ``nn.Linear`` weights (out, in); the MLP's
   ``up`` has a bias, ``down`` has none;
-* ``lm_head/kernel`` (D, V) -> ``lm_head.weight`` (V, D);
+* ``lm_head/kernel`` (D, V) -> ``lm_head.weight`` (V, D), or, with
+  ``cfg.num_classes``, ``classifier/kernel`` (D, C) and ``bias`` ->
+  ``classifier.weight`` (C, D) and ``classifier.bias``;
 * ``tok_emb``/``pos_emb`` ``embedding`` -> ``nn.Embedding`` weights;
-* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``.
+* LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* conv kernels (kh, kw, in, out) -> conv weights (out, in, kh, kw);
+* BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and its
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 """
 
 from __future__ import annotations
@@ -51,7 +57,10 @@ def params_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
             np.asarray(mlp["down"]["kernel"]).T)
     sd["ln_f.weight"] = _t(tree["ln_f"]["scale"])
     sd["ln_f.bias"] = _t(tree["ln_f"]["bias"])
-    sd["lm_head.weight"] = _t(np.asarray(tree["lm_head"]["kernel"]).T)
+    if cfg.num_classes is None:
+        sd["lm_head.weight"] = _t(np.asarray(tree["lm_head"]["kernel"]).T)
+    else:
+        sd.update(_dense_from(tree["classifier"], "classifier"))
     return sd
 
 
@@ -87,6 +96,180 @@ def params_to_flax(state_dict: Mapping, cfg) -> dict:
             },
         }
     tree["ln_f"] = {"scale": a("ln_f.weight"), "bias": a("ln_f.bias")}
-    tree["lm_head"] = {"kernel": np.ascontiguousarray(
-        a("lm_head.weight").T)}
+    if cfg.num_classes is None:
+        tree["lm_head"] = {"kernel": np.ascontiguousarray(
+            a("lm_head.weight").T)}
+    else:
+        tree["classifier"] = _dense_to(state_dict, "classifier")
     return tree
+
+
+# ---- the non-LM models: the module names map one to one -------------------
+
+
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def _dense_from(node: Mapping, name: str) -> dict:
+    """flax Dense (kernel (in, out), bias) -> ``name.weight`` (out, in),
+    ``name.bias``."""
+    return {f"{name}.weight": _t(np.asarray(node["kernel"]).T),
+            f"{name}.bias": _t(node["bias"])}
+
+
+def _dense_to(sd: Mapping, name: str) -> dict:
+    return {"kernel": _np(sd[f"{name}.weight"].T),
+            "bias": _np(sd[f"{name}.bias"])}
+
+
+def _conv_from(node: Mapping, name: str) -> dict:
+    """flax Conv kernel (kh, kw, in, out) -> (out, in, kh, kw), and its
+    bias where it has one."""
+    sd = {f"{name}.weight": _t(np.asarray(node["kernel"]).transpose(
+        3, 2, 0, 1))}
+    if "bias" in node:
+        sd[f"{name}.bias"] = _t(node["bias"])
+    return sd
+
+
+def _conv_to(sd: Mapping, name: str) -> dict:
+    node = {"kernel": _np(sd[f"{name}.weight"].permute(2, 3, 1, 0))}
+    if f"{name}.bias" in sd:
+        node["bias"] = _np(sd[f"{name}.bias"])
+    return node
+
+
+def _embed_from(node: Mapping, name: str) -> dict:
+    return {f"{name}.weight": _t(node["embedding"])}
+
+
+def _embed_to(sd: Mapping, name: str) -> dict:
+    return {"embedding": _np(sd[f"{name}.weight"])}
+
+
+# ResNet: a block's modules, (flax name, port name, kind); the projection
+# pair exists only where a block changes the shape
+_BLOCK = (("Conv_0", "conv0", "conv"), ("BatchNorm_0", "bn0", "norm"),
+          ("Conv_1", "conv1", "conv"), ("BatchNorm_1", "bn1", "norm"),
+          ("Conv_2", "conv2", "conv"), ("BatchNorm_2", "bn2", "norm"))
+_PROJ = (("conv_proj", "conv_proj", "conv"),
+         ("norm_proj", "norm_proj", "norm"))
+
+
+def _resnet_names(projected: list[bool]):
+    """(flax path, port name, kind) of every ResNet module, for blocks
+    that have a projection where ``projected`` says so."""
+    yield ("conv_init",), "conv_init", "conv"
+    yield ("bn_init",), "bn_init", "norm"
+    for k, proj in enumerate(projected):
+        for flax_name, name, kind in _BLOCK + (_PROJ if proj else ()):
+            yield (f"BottleneckBlock_{k}", flax_name), f"blocks.{k}.{name}", \
+                kind
+    yield ("head",), "head", "dense"
+
+
+def _at(tree: Mapping, path) -> Mapping:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def resnet_from_flax(params: Mapping, batch_stats: Mapping
+                     ) -> dict[str, torch.Tensor]:
+    """flax ResNet ``params`` and ``batch_stats`` -> the port's state
+    dict."""
+    n = sum(k.startswith("BottleneckBlock_") for k in params)
+    projected = [("conv_proj" in params[f"BottleneckBlock_{k}"])
+                 for k in range(n)]
+    sd = {}
+    for path, name, kind in _resnet_names(projected):
+        node = _at(params, path)
+        if kind == "conv":
+            sd.update(_conv_from(node, name))
+        elif kind == "dense":
+            sd.update(_dense_from(node, name))
+        else:
+            stats = _at(batch_stats, path)
+            sd.update({f"{name}.weight": _t(node["scale"]),
+                       f"{name}.bias": _t(node["bias"]),
+                       f"{name}.running_mean": _t(stats["mean"]),
+                       f"{name}.running_var": _t(stats["var"])})
+    return sd
+
+
+def resnet_to_flax(state_dict: Mapping) -> tuple[dict, dict]:
+    """The inverse of :func:`resnet_from_flax`: ``(params,
+    batch_stats)``. Gradients (a dict without the buffers) give an empty
+    ``batch_stats``."""
+    projected = [f"blocks.{k}.conv_proj.weight" in state_dict
+                 for k in range(_count(state_dict, "blocks."))]
+    params, stats = {}, {}
+    for path, name, kind in _resnet_names(projected):
+        if kind == "conv":
+            node = _conv_to(state_dict, name)
+        elif kind == "dense":
+            node = _dense_to(state_dict, name)
+        else:
+            node = {"scale": _np(state_dict[f"{name}.weight"]),
+                    "bias": _np(state_dict[f"{name}.bias"])}
+            if f"{name}.running_mean" in state_dict:
+                _put(stats, path, {
+                    "mean": _np(state_dict[f"{name}.running_mean"]),
+                    "var": _np(state_dict[f"{name}.running_var"])})
+        _put(params, path, node)
+    return params, stats
+
+
+def _put(tree: dict, path, node) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = node
+
+
+def mnist_cnn_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``MNISTCNN`` params -> the port's state dict. ``Dense_0``'s
+    rows are in NHWC flatten order, which the port's model keeps."""
+    return {**_conv_from(params["Conv_0"], "conv0"),
+            **_conv_from(params["Conv_1"], "conv1"),
+            **_dense_from(params["Dense_0"], "dense0"),
+            **_dense_from(params["Dense_1"], "dense1")}
+
+
+def mnist_cnn_to_flax(state_dict: Mapping) -> dict:
+    return {"Conv_0": _conv_to(state_dict, "conv0"),
+            "Conv_1": _conv_to(state_dict, "conv1"),
+            "Dense_0": _dense_to(state_dict, "dense0"),
+            "Dense_1": _dense_to(state_dict, "dense1")}
+
+
+def _wide_deep_names(n_fields: int, n_mlp: int):
+    for i in range(n_fields):
+        yield f"wide_{i}", f"wide.{i}", "embed"
+        yield f"emb_{i}", f"emb.{i}", "embed"
+    yield "wide_dense", "wide_dense", "dense"
+    for j in range(n_mlp):
+        yield f"mlp_{j}", f"mlp.{j}", "dense"
+    yield "deep_out", "deep_out", "dense"
+
+
+def _count(keys, prefix: str) -> int:
+    return len({k.split(".")[1] for k in keys if k.startswith(prefix)})
+
+
+def wide_deep_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``WideDeep`` params -> the port's state dict."""
+    n_fields = sum(k.startswith("emb_") for k in params)
+    n_mlp = sum(k.startswith("mlp_") for k in params)
+    sd = {}
+    for flax_name, name, kind in _wide_deep_names(n_fields, n_mlp):
+        conv = _embed_from if kind == "embed" else _dense_from
+        sd.update(conv(params[flax_name], name))
+    return sd
+
+
+def wide_deep_to_flax(state_dict: Mapping) -> dict:
+    names = _wide_deep_names(_count(state_dict, "emb."),
+                             _count(state_dict, "mlp."))
+    return {flax_name: (_embed_to if kind == "embed" else _dense_to)(
+        state_dict, name) for flax_name, name, kind in names}

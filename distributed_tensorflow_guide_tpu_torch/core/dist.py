@@ -17,6 +17,7 @@ with cards; that is then a property of the group the caller built, and
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
 import logging
@@ -133,6 +134,8 @@ def initialize(config: DistConfig | None = None, *,
         join, attempts=int(os.environ.get("DTG_INIT_RETRIES", "3")),
         base_delay_s=float(os.environ.get("DTG_INIT_BACKOFF_S", "1.0")),
         what="init_process_group")
+    atexit.unregister(shutdown)  # registered once, however often joined
+    atexit.register(shutdown)
     log.info("process group: rank %d/%d, backend %s", config.rank,
              config.world_size, backend)
     return True
@@ -150,6 +153,20 @@ def reinitialize(config: DistConfig | None = None, *,
     if dist.is_initialized():
         dist.destroy_process_group()
     return initialize(config, backend=backend, timeout_s=timeout_s)
+
+
+def shutdown() -> None:
+    """Destroy the process group, then release the store. :func:`initialize`
+    registers it to run at exit: a rank that left both to the
+    interpreter's teardown sometimes aborted after its work was done
+    (SIGABRT, ``terminate called without an active exception``: a C++
+    thread object destroyed while still running) when several gloo jobs
+    ran on one host at once."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _STORE.update(where=None, store=None, groups=0)
 
 
 def is_chief() -> bool:

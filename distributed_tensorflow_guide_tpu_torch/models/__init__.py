@@ -1,1 +1,2 @@
-"""The Transformer and its generator."""
+"""The models: the Transformer (LM and classifier) and its generator,
+ResNet, the MNIST CNN and Wide&Deep."""

@@ -14,6 +14,11 @@ views:
   request; the chunk's k/v scatter through per-request block tables and
   the K6 kernel (``paged_decode_attention``) reads the pool.
 
+With ``cfg.num_classes`` set the model is a sequence classifier (BERT,
+``bert_base``): the first position's final hidden state goes through an
+f32 ``classifier`` with a bias, and there is no LM head and no decode
+view.
+
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
 chunk's rows into it **in place**, so a step function holds one copy of
@@ -36,6 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributed_tensorflow_guide_tpu_torch.models.initializers import (
+    lecun_normal,
+)
+from distributed_tensorflow_guide_tpu_torch.models.losses import (
+    accuracy,
+    cross_entropy_loss,
+)
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
@@ -71,6 +83,8 @@ class TransformerConfig:
     # activation checkpointing of the training view: "none", "attention"
     # (only the attention sub-layer) or "block" (each whole block)
     remat_mode: str = "none"
+    # set: a classification head over the first ([CLS]) position
+    num_classes: int | None = None
     # "dense" (scores at dtype, f32 softmax), "flash" (K1-K3; on the CPU
     # it falls back to the blockwise path on shapes the JAX block rule
     # does not take) or "auto": flash for causal sequences of 1024 tokens
@@ -105,6 +119,10 @@ class TransformerConfig:
         if (self.paged_num_blocks is None) != (self.paged_block_size is None):
             raise ValueError(
                 "paged_num_blocks and paged_block_size must be set together")
+        if self.num_classes is not None and self.decode:
+            raise ValueError(
+                "a classification config (num_classes) has no serving "
+                "view: the engine and the generator need an LM head")
         if self.paged_block_size is not None:
             if (self.paged_block_size < 1
                     or self.max_len % self.paged_block_size):
@@ -155,6 +173,14 @@ def gpt2_124m(**kw) -> TransformerConfig:
     return TransformerConfig(
         vocab_size=50304, num_layers=12, num_heads=12, d_model=768,
         d_ff=3072, max_len=1024, causal=True, **kw)
+
+
+def bert_base(num_classes: int = 2, **kw) -> TransformerConfig:
+    """BERT-base (110M): 12L, 768d, 12h, bidirectional, a classification
+    head; vocab 30522 padded to 30592."""
+    return TransformerConfig(
+        vocab_size=30592, num_layers=12, num_heads=12, d_model=768,
+        d_ff=3072, max_len=512, causal=False, num_classes=num_classes, **kw)
 
 
 def layer_norm(x, weight, bias, dtype):
@@ -353,21 +379,26 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg)
                                     for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype)
-        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+        if cfg.num_classes is None:
+            self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+        else:
+            self.classifier = nn.Linear(cfg.d_model, cfg.num_classes)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Transformer":
         """Random weights from ``seed`` with the JAX package's
         initialisers: normal(0.02) for every kernel and embedding, zeros
-        for biases, ones for LayerNorm scales. Drawn on the CPU with an
-        explicit generator, so a seed gives the same weights on every
-        device."""
+        for biases, ones for LayerNorm scales, and flax's lecun-normal
+        Dense default for a classifier. Drawn on the CPU with an explicit
+        generator, so a seed gives the same weights on every device."""
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
             elif ".ln" in name or name.startswith("ln_"):
                 p.fill_(1.0)
+            elif name == "classifier.weight":
+                p.copy_(lecun_normal(p.shape, p.shape[1], gen))
             else:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
         return self
@@ -382,7 +413,7 @@ class Transformer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.tok_emb.weight.device
 
     def _apply(self, fn, *args, **kwargs):
         # every move (.to, .cuda, ...) goes through here: refuse a head dim
@@ -449,6 +480,9 @@ class Transformer(nn.Module):
         x = self.ln_f(x)
         if return_hidden:  # the fused-CE loss applies the head itself
             return x
+        if cfg.num_classes is not None:  # [CLS] pooling
+            return _linear(x[:, 0], self.classifier.weight,
+                           self.classifier.bias, dtype=torch.float32)
         return _linear(x, self.lm_head.weight, dtype=torch.float32)
 
 
@@ -488,5 +522,18 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
             ll = logp.gather(-1, targets[..., None])[..., 0]
             loss = -ll.mean()
         return loss, {"perplexity": torch.exp(loss)}
+
+    return loss_fn
+
+
+def make_cls_loss_fn(model: Transformer):
+    """Sequence classification (GLUE-style): ``loss_fn(module, batch) ->
+    (loss, {"accuracy"})`` over ``batch["tokens"]`` (B, S) and
+    ``batch["label"]`` (B,)."""
+
+    def loss_fn(module, batch):
+        logits = module(batch["tokens"])
+        return (cross_entropy_loss(logits, batch["label"]),
+                {"accuracy": accuracy(logits, batch["label"])})
 
     return loss_fn

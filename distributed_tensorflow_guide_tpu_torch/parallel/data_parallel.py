@@ -9,6 +9,12 @@ over the mesh's ``data`` axis (one flat all-reduce), and every rank
 applies the same update, which keeps the replicas in lockstep without
 ever broadcasting parameters. Without a mesh the world is one rank.
 
+Models with BatchNorm keep their running statistics as module buffers.
+Their steps (``make_train_step_with_stats``, ``make_eval_step_with_stats``)
+run the module in train or eval mode, and the train step averages the
+running statistics over the axis after each update, so that every replica
+holds the same ones: the MultiWorkerMirroredStrategy behaviour.
+
 Metrics leave the step as 0-d device tensors: nothing in the step forces
 a host sync; a hook that reads a value pays for it.
 """
@@ -103,6 +109,44 @@ class DataParallel:
                                    mesh=self.mesh)
 
         return step
+
+    def make_train_step_with_stats(self, loss_fn: LossFn):
+        """``(state, batch) -> (state, {"loss", **metrics})`` for a module
+        with BatchNorm running statistics: :meth:`make_train_step` with the
+        forward in train mode (batch statistics; each BatchNorm moves its
+        running statistics by this rank's batch), and after the update the
+        running statistics averaged over the axis too (one flat
+        all-reduce), so the replicas keep bitwise-equal statistics.
+        """
+        train_step = self.make_train_step(loss_fn)
+
+        def step(state, batch):
+            state.model.train()
+            state, mets = train_step(state, batch)
+            stats = {n: b for n, b in state.model.named_buffers()
+                     if b.is_floating_point()}
+            for n, b in cc.pmean(stats, self.axis, mesh=self.mesh).items():
+                stats[n].copy_(b)
+            return state, mets
+
+        return step
+
+    def make_eval_step_with_stats(self, metric_fn: Callable[
+            [torch.nn.Module, Any], dict]):
+        """``(state, batch) -> metrics`` in eval mode (the running
+        statistics, nothing written back), averaged over the axis; the
+        module's mode is restored afterwards."""
+        plain = self.make_eval_step(metric_fn)
+
+        def eval_step(state, batch):
+            was_training = state.model.training
+            state.model.eval()
+            try:
+                return plain(state, batch)
+            finally:
+                state.model.train(was_training)
+
+        return eval_step
 
     def make_eval_step(self, metric_fn: Callable[[torch.nn.Module, Any],
                                                  dict]):

@@ -1,1 +1,1 @@
-"""The train state, hooks and loop."""
+"""The train state, hooks, loop and held-out evaluation."""

@@ -8,7 +8,15 @@ module's parameters:
   eps=1e-8, weight_decay=0)``. Both keep m and v, correct each by
   ``1 - beta ** t`` and step by ``lr * m_hat / (sqrt(v_hat) + eps)``
   (optax's ``eps_root`` is 0);
-* ``optax.sgd(lr)`` is ``torch.optim.SGD(params, lr)``.
+* ``optax.sgd(lr)`` is ``torch.optim.SGD(params, lr)``, and
+  ``optax.sgd(lr, momentum=0.9)`` is ``torch.optim.SGD(params, lr,
+  momentum=0.9)``: both keep ``v = g + 0.9 v`` and step by ``-lr * v``;
+* ``optax.adamw(lr)`` is ``torch.optim.AdamW(params, lr,
+  weight_decay=1e-4)``: optax decays at 1e-4 by default, torch at 1e-2,
+  so the decay is passed; the decoupled decay is then the same algebra.
+
+BatchNorm's running statistics are module buffers, so a model with them
+needs no other state here (the JAX package's ``TrainStateWithStats``).
 
 Unlike flax's, :meth:`TrainState.apply_gradients` updates the parameters
 in place and returns the same object: one copy of the weights and of the

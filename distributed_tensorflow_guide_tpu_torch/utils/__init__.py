@@ -1,1 +1,1 @@
-"""Utilities: dispatch accounting."""
+"""Utilities: dispatch accounting, matmul and convolution FLOPs."""

@@ -11,7 +11,10 @@ Tolerances: collectives against numpy, float32, 1e-6 absolute and relative
 against the 1-rank step on the union batch and against JAX
 ``DataParallel``, float32, 1e-6 absolute and 1e-5 relative: the mean of
 per-rank means against one mean over the union sums the same products in
-another order. Comm counts and bytes are exact.
+another order. Comm counts and bytes are exact. The ResNet stats step's
+running statistics against the mean of the two ranks' single-rank
+updates, float32, 1e-6 absolute and relative (oneDNN's convolutions may
+sum in another order in another process); across the ranks, bitwise.
 """
 
 import subprocess
@@ -348,6 +351,40 @@ def test_dp_allreduce_bytes_equal_the_closed_form(job, union, tag, n):
         rel=1e-12)
 
 
+def test_stats_step_averages_the_running_statistics_bitwise(job):
+    """The data axis of 2 holds ranks {0, 2} and {1, 3}: after one
+    ``make_train_step_with_stats`` step each rank's running statistics are
+    the mean of the single-rank updates of the two halves of the union
+    batch, and every rank holds the same statistics and parameters, bit
+    for bit."""
+    batch = W.stats_batch()
+    updates = []
+    for i in range(2):
+        model = W.stats_model().train()
+        with torch.no_grad():
+            model(torch.as_tensor(batch["image"][4 * i:4 * (i + 1)]))
+        updates.append({n: b for n, b in model.named_buffers()})
+    names = list(updates[0])
+    assert names and all(n.endswith(("running_mean", "running_var"))
+                         for n in names)
+    init = dict(W.stats_model().named_buffers())
+    for n in names:
+        want = ((updates[0][n] + updates[1][n]) / 2).numpy()
+        assert not np.allclose(want, init[n].numpy()), n  # they moved
+        for r in range(N):
+            np.testing.assert_allclose(job[r][f"stats/{n}"], want, **TOL,
+                                       err_msg=f"rank {r} {n}")
+    for key in (k for k in job[0] if k.startswith("stats/")):
+        for r in range(1, N):
+            assert np.array_equal(job[r][key], job[0][key]), (r, key)
+    # one all-reduce each: the gradients, the statistics, the metrics
+    tr = job[0]["stats_trace"]["pmean[data]"]
+    assert tr["calls"] == 3
+    stat_bytes = sum(b.numel() * 4 for b in init.values())
+    grad_bytes = sum(p.numel() * 4 for p in W.stats_model().parameters())
+    assert tr["bytes"] == grad_bytes + stat_bytes + 2 * 4
+
+
 # ---- process bootstrap, runner and launcher ----------------------------------------
 
 
@@ -372,6 +409,35 @@ def test_a_single_process_initialises_nothing():
     assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="MASTER_ADDR"):
         tdist.initialize(tdist.DistConfig(world_size=2, rank=0))
+
+
+def test_initialize_registers_shutdown_which_destroys_the_group(
+        monkeypatch, tmp_path):
+    """A rank that joins a group gets ``shutdown`` registered at exit,
+    once however often it joins; ``shutdown`` destroys the group and
+    forgets the store. (The group here is a world of one over a file
+    store standing in for the TCP store.)"""
+    registered = []
+    monkeypatch.setattr(tdist.atexit, "register", registered.append)
+    monkeypatch.setattr(tdist.atexit, "unregister", lambda fn: [
+        registered.remove(f) for f in list(registered) if f is fn])
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    monkeypatch.setattr(tdist, "_tcp_store", lambda config, timeout: store)
+    init = torch.distributed.init_process_group
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, *, store, rank, world_size, timeout:
+                        init(backend, store=store, rank=0, world_size=1))
+    config = tdist.DistConfig(master_addr="localhost", master_port=1,
+                              rank=0, world_size=2)
+    try:
+        assert tdist.initialize(config, backend="gloo")
+        assert tdist.reinitialize(config, backend="gloo")
+        assert registered == [tdist.shutdown]
+    finally:
+        tdist.shutdown()
+    assert not torch.distributed.is_initialized()
+    assert tdist._STORE == {"where": None, "store": None, "groups": 0}
+    tdist.shutdown()  # nothing left to do
 
 
 def test_resolve_device_maps_local_rank_onto_the_cards(monkeypatch):

@@ -57,6 +57,27 @@ def dp_tokens() -> np.ndarray:
     return np.random.RandomState(5).randint(0, 64, (4, 16)).astype(np.int64)
 
 
+# the stats step's model: a small ResNet, 16x16 images, f32
+STATS_GEOM = dict(stage_sizes=(1, 1), num_classes=10, num_filters=8,
+                  small_inputs=True)
+STATS_LR = 0.05
+
+
+def stats_batch() -> dict:
+    """The union batch of the stats step: 8 images, 4 a rank."""
+    rng = np.random.RandomState(6)
+    return {"image": rng.randn(8, 16, 16, 3).astype(np.float32),
+            "label": rng.randint(0, 10, 8).astype(np.int32)}
+
+
+def stats_model():
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.models import resnet
+
+    return resnet.ResNet(**STATS_GEOM, dtype=torch.float32).init_weights(0)
+
+
 def _trace(rec) -> dict:
     return {k: {"calls": rec.calls[k], "bytes": rec.bytes[k],
                 "wire": rec.wire[k]} for k in rec.calls}
@@ -119,6 +140,7 @@ def collectives_job() -> dict:
 
     out.update(_sp_comm_traces())
     out.update(_dp_steps())
+    out.update(_stats_step())
 
     # the group formed again, in the same processes
     from distributed_tensorflow_guide_tpu_torch.core import dist as ddist
@@ -232,6 +254,40 @@ def _dp_steps() -> dict:
             out[f"{tag}/grad/{name}"] = g
         for name, p in model.state_dict().items():
             out[f"{tag}/param/{name}"] = p
+    return out
+
+
+def _stats_step() -> dict:
+    """One ``make_train_step_with_stats`` step of the small ResNet over a
+    data axis of 2 (data=2 x model=2), each rank on its half of the union
+    batch: the running statistics and parameters it ends with."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import resnet
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    mesh = build_mesh(MeshSpec(data=2, model=2))
+    i = mesh.axis("data").index
+    share = {k: v[4 * i:4 * (i + 1)] for k, v in stats_batch().items()}
+    model = stats_model()
+    state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                              lr=STATS_LR, momentum=0.9))
+    step = DataParallel(mesh, device="cpu").make_train_step_with_stats(
+        resnet.make_loss_fn(model))
+    with cc.trace_comm() as rec:
+        step(state, share)
+    out = {f"stats/{n}": t for n, t in model.state_dict().items()}
+    out["stats_trace"] = _trace(rec)
     return out
 
 
