@@ -88,7 +88,38 @@ and check them.
     attention) at batch 256, sequence 128, 20 AdamW steps (peak lr 1e-4
     after a linear warm-up over 10 steps, weight decay 1e-4) on one fixed
     batch: the loss must be finite and fall, and its last 5 steps sit
-    below ``BERT_LOSS_LAST5``, well under chance.
+    below ``BERT_LOSS_LAST5``, well under chance;
+15. pipelined GPT-2 124M in one process (``PipelinedLM``, full widths,
+    bf16 compute, f32 parameters, pipe = 1 so ``schedule="auto"`` is
+    GPipe): M = 4 microbatches of 4 sequences at S = 1024, fused CE, Adam,
+    10 steps on one repeated batch: the first loss near ln(50304) and
+    falling; the first step's loss and every gradient within
+    ``GRAD_REL_GAP`` of the unpipelined ``Transformer`` +
+    ``make_lm_loss_fn`` step on the same weights and the union batch; K1,
+    K2 and K3 each 12 x 4 launches a step with no fallback; the logits of
+    ``to_serving_params`` through ``Transformer`` against the stage's own
+    forward on one microbatch; step ms, tokens/s, peak memory;
+16. pipelined GPT-2 124M at 4 ranks time-sharing the card over gloo:
+    (a) pipe = 4, 1F1B, M = 8 microbatches of 2; (b) pipe = 2 x model = 2,
+    interleaved 1F1B (v = 2), M = 4 microbatches of 2, vocab-parallel
+    fused CE; 3 Adam steps each. The single-process step on the same
+    weights and the union batch is computed once, here, before the ranks
+    start; each rank holds its shard of the first step's loss and
+    gradients to it within ``GRAD_REL_GAP``. Exact K1-K3 launches in the
+    first step and over the timed steps (K1 twice a layer and microbatch
+    with 1F1B's recompute, once on the last chunk-stage's layers),
+    ``ppermute[pipe]`` wire bytes summed over each pipe group equal to
+    2 · M · act · (P·v − 1), and after the steps the embedding and head
+    copies bitwise equal across ``pipe``, replicated parameters across
+    ``model``;
+17. BERT-base under ``TensorParallel`` at model = 2, 2 ranks on the card
+    over gloo, phase 14's model, batch and AdamW warm-up, 3 steps: the
+    first step's loss and gradient shards within ``GRAD_REL_GAP`` of the
+    single-process step, replicated parameters bitwise equal on both
+    ranks after the steps.
+
+Phases 16 and 17 time-share one card over gloo, which stages every
+message through host memory: their times say nothing of NCCL.
 
 The kernels are built once here, before any rank starts. Exits non-zero
 on any failure, and when no CUDA card is present. The last line of stdout
@@ -100,11 +131,14 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
+import hashlib
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -142,6 +176,13 @@ from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
     fused_next_token_loss,
 )
 from distributed_tensorflow_guide_tpu_torch.parallel import sequence
+from distributed_tensorflow_guide_tpu_torch.parallel.pipeline import (
+    PipelinedLM,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+    TensorParallel,
+    split_dim,
+)
 from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
     DataParallel,
     to_device,
@@ -1554,6 +1595,341 @@ def check_bert(seed: int, kind: str) -> None:
              f"{BERT_LOSS_LAST5}: it did not learn its batch")
 
 
+# ---- phases 15-17: pipeline and tensor parallelism ---------------------------
+
+# phase 15: bench_gpt2_pp.py's 16,384 tokens a step at the sequence where
+# "auto" takes flash
+PP1_M, PP1_MB, PP_S, PP1_STEPS = 4, 4, 1024, 10
+# phase 16: (name, pipe, model, schedule, virtual chunks, M, microbatch)
+PP_RANK_CASES = (("pipe4-1f1b", 4, 1, "1f1b", 1, 8, 2),
+                 ("pipe2-model2-interleaved-1f1b", 2, 2, "1f1b", 2, 4, 2))
+PP_RANK_STEPS = 3
+# phase 17: phase 14's batch
+TP_N, TP_B, TP_S, TP_STEPS = 2, 256, 128, 3
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha1(t.detach().cpu().contiguous().view(torch.uint8)
+                        .numpy().tobytes()).hexdigest()
+
+
+def _stage_logits(module, tokens, dtype) -> torch.Tensor:
+    """The logits of a stage that holds every layer (pipe = 1), through
+    its own modules: embed, each chunk's blocks, the head."""
+    e, h = module.embed, module.head
+    with torch.no_grad():
+        x = (e.tok_emb(tokens).to(dtype)
+             + e.pos_emb.weight[:tokens.shape[1]].to(dtype))
+        for chunk in module.chunks:
+            for blk in chunk:
+                x = blk(x)
+        return F.linear(h.ln_f(x).float(), h.lm_head.weight)
+
+
+def _reference_step(cfg, seed: int, tokens: np.ndarray, dev, path=None,
+                    cls: bool = False):
+    """The single-process step's loss and gradients on the union batch,
+    the weights of ``init_weights(seed)``; saved to ``path`` (CPU tensors)
+    when given, for the ranks to read."""
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if cls:
+        batch["label"] = batch["tokens"][:, 0] % 2
+        loss_fn = make_cls_loss_fn(model)
+    else:
+        loss_fn = make_lm_loss_fn(model)
+    (loss, _), grads = value_and_grad(loss_fn, model, batch)
+    ref = {"loss": loss.item(), "grads": grads}
+    if path is not None:
+        torch.save({"loss": ref["loss"],
+                    "grads": {n: g.cpu() for n, g in grads.items()}}, path)
+    return ref
+
+
+def _gaps_vs(ref_grads, grads, dev) -> dict:
+    return {n: _rel_gap(grads[n], ref_grads[n].to(dev)) for n in grads}
+
+
+def check_pipeline(seed: int, kind: str) -> None:
+    """Phase 15."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    pp = PipelinedLM(build_mesh(MeshSpec()), cfg, PP1_M, schedule="auto",
+                     device=dev)
+    if pp.schedule != "gpipe" or not pp.fused_ce:
+        fail(f"pipeline: schedule {pp.schedule}, fused CE {pp.fused_ce}; "
+             "expected GPipe and fused CE at pipe=1 on the card")
+    module = pp.init_params(seed)
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (PP1_M * PP1_MB, PP_S)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+
+    # the first step against the unpipelined step on the union batch
+    FA.reset_launch_counts()
+    loss0, grads = pp.loss_and_grads(module, batch)
+    torch.cuda.synchronize()
+    launches = dict(FA.LAUNCHES)
+    grads = pp.to_serving_params(grads)
+    ref = _reference_step(cfg, seed, tokens, dev)
+    gaps = _gaps_vs(ref["grads"], grads, dev)
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(loss0.item() - ref["loss"])
+    del grads, ref
+
+    # serving: the gathered weights through Transformer against the
+    # stage's own forward, one microbatch
+    serving = Transformer(cfg).to(dev)
+    serving.load_state_dict(pp.to_serving_params(module))
+    mb0 = batch["tokens"][:PP1_MB]
+    with torch.no_grad():
+        serve_gap = _rel_gap(serving(mb0), _stage_logits(module, mb0,
+                                                         cfg.dtype))
+    del serving
+    torch.cuda.empty_cache()
+
+    # the main path: 10 Adam steps through make_train_step and TrainLoop
+    opt = pp.init_opt_state(functools.partial(torch.optim.Adam, lr=1e-3),
+                            module)
+    FA.reset_launch_counts()
+    curve, step_ms, peak, _ = timed_run(
+        pp.make_train_step(opt), module, iter(lambda: batch, None),
+        PP1_STEPS)
+    run_launches = {n: FA.LAUNCHES[n] for n in K1_K3}
+    steady = float(np.median(step_ms[2:]))
+    # one more step under the profiler: how busy the card is, and on what
+    prof = profile_split(pp.make_train_step(opt), module, batch)
+    out = {"model": "gpt2_124m", "pipe": 1, "schedule": pp.schedule,
+           "M": PP1_M, "microbatch": PP1_MB, "S": PP_S,
+           "dtype": "bf16 compute, f32 params", "fused_ce": pp.fused_ce,
+           "steps": PP1_STEPS, "loss_curve": curve,
+           "first_step_loss_gap": loss_gap, "worst_grad": worst,
+           "worst_grad_rel_gap": gaps[worst],
+           "median_grad_rel_gap": float(np.median(list(gaps.values()))),
+           "serving_logits_rel_gap": serve_gap,
+           "step_ms_each": step_ms, "step_ms_median_steps_3_10": steady,
+           "tokens_per_s": PP1_M * PP1_MB * PP_S / (steady / 1e3),
+           "max_memory_allocated_bytes": peak,
+           "profiled_step": {k: prof[k] for k in (
+               "device_ms", "wall_ms_profiled", "device_busy_share",
+               "top10_ops_ms_calls")},
+           "phase_s": time.perf_counter() - t0}
+    print(f"pipeline (1 process) on {kind}: " + json.dumps(out), flush=True)
+    want = dict.fromkeys(K1_K3, cfg.num_layers * PP1_M)
+    print("pipeline (1 process) K1-K3 launches: " + json.dumps(
+        {"first_step": {n: launches[n] for n in K1_K3},
+         "per_step_over_the_run": {n: run_launches[n] / PP1_STEPS
+                                   for n in K1_K3},
+         "expected_per_step": want}), flush=True)
+    if ({n: launches[n] for n in K1_K3} != want
+            or run_launches != {n: PP1_STEPS * c for n, c in want.items()}
+            or launches["flash_carry"] or FA.fallback_stats()):
+        fail(f"pipeline: launches {launches} / {run_launches} over "
+             f"{PP1_STEPS} steps, expected {want} a step; fallbacks "
+             f"{FA.fallback_stats()}")
+    if gaps[worst] > GRAD_REL_GAP or loss_gap > 1e-2:
+        fail(f"pipeline: {worst} relative gap {gaps[worst]} (limit "
+             f"{GRAD_REL_GAP}), loss gap {loss_gap}")
+    if serve_gap > GRAD_REL_GAP:
+        fail(f"pipeline: serving logits off by {serve_gap}")
+    if abs(curve[0] - LN_VOCAB) > LOSS0_MARGIN:
+        fail(f"pipeline: first loss {curve[0]} is not within "
+             f"{LOSS0_MARGIN} of ln(50304) = {LN_VOCAB}")
+    check_falls("pipeline", curve, 3)
+
+
+def pp_rank(seed: int, ref_dir: str) -> dict:
+    """One rank of phase 16 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    full = Transformer(cfg).init_weights(seed).state_dict()
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    for name, P, tp, schedule, v, M, mb in PP_RANK_CASES:
+        mesh = build_mesh(MeshSpec(data=1, pipe=P, model=tp))
+        pp = PipelinedLM(mesh, cfg, M, schedule=schedule, virtual_chunks=v,
+                         device=dev)
+        module = pp.shard_params(full)
+        tokens = np.random.RandomState(seed).randint(
+            0, 50257, (M * mb, PP_S)).astype(np.int64)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+        FA.reset_launch_counts()
+        with cc.trace_comm() as rec:
+            loss0, grads = pp.loss_and_grads(module, batch)
+        torch.cuda.synchronize()
+        launches = dict(FA.LAUNCHES)
+        ref = torch.load(f"{ref_dir}/{name}.pt")
+        gaps = _gaps_vs(pp.stage_state_dict(ref["grads"]), grads, dev)
+        worst = max(gaps, key=gaps.get)
+        del grads, ref["grads"]
+        opt = pp.init_opt_state(functools.partial(torch.optim.Adam, lr=1e-3),
+                                module)
+        dist.barrier()
+        FA.reset_launch_counts()
+        curve, step_ms, peak, _ = timed_run(
+            pp.make_train_step(opt), module, iter(lambda: batch, None),
+            PP_RANK_STEPS)
+        out[name] = {
+            "coords": [mesh.axis("pipe").index, mesh.axis("model").index],
+            "layers": sum(len(c) for c in module.chunks),
+            # the last chunk-stage runs its chunk once a microbatch (1F1B
+            # recomputes every other chunk on its backward tick)
+            "last_chunk_layers": (pp.layers_per_chunk
+                                  if pp.stage == P - 1 else 0),
+            "fused_ce": pp.fused_ce, "launches": launches,
+            "run_launches": dict(FA.LAUNCHES),
+            "loss_gap": abs(loss0.item() - ref["loss"]),
+            "worst_grad": worst, "worst_grad_rel_gap": gaps[worst],
+            "wire": rec.wire.get("ppermute[pipe]", 0.0),
+            "want_wire": pp.pipe_wire_bytes_per_step(mb, PP_S),
+            "closed_form": pp.ppermute_bytes_per_step(mb, PP_S),
+            "loss_curve": curve, "step_ms": step_ms,
+            "max_memory_allocated_bytes": peak,
+            "digests": {n: _digest(t) for n, t in module.state_dict().items()
+                        if not n.startswith("chunks.")
+                        or split_dim(n) is None}}
+        del module, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_pipeline_ranks(seed: int, kind: str) -> None:
+    """Phase 16."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="dtg_pp_ref_") as ref_dir:
+        for name, _, _, _, _, M, mb in PP_RANK_CASES:
+            tokens = np.random.RandomState(seed).randint(
+                0, 50257, (M * mb, PP_S)).astype(np.int64)
+            _reference_step(cfg, seed, tokens, dev, f"{ref_dir}/{name}.pt")
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+        res = [r.result for r in run_multiprocess(
+            "chip_smoke:pp_rank", 4, [seed, ref_dir], timeout=900)]
+    for name, P, tp, _, v, M, _ in PP_RANK_CASES:
+        per = [r[name] for r in res]
+        print(f"pipeline {name} on {kind} ({_layout(res)}; gloo on one "
+              "card, not NCCL): " + json.dumps(
+                  {k: [p[k] for p in per] for k in (
+                      "coords", "layers", "fused_ce", "loss_gap",
+                      "worst_grad", "worst_grad_rel_gap", "wire",
+                      "want_wire", "closed_form", "loss_curve", "step_ms",
+                      "max_memory_allocated_bytes")}), flush=True)
+        print(f"pipeline {name} K1-K3 launches a rank, first step and "
+              f"the {PP_RANK_STEPS} timed steps: " + json.dumps(
+                  [{n: [p["launches"][n], p["run_launches"][n]]
+                    for n in K1_K3} for p in per]), flush=True)
+        for p in per:
+            lm = p["layers"] * M
+            want = {"flash_fwd": 2 * lm - p["last_chunk_layers"] * M,
+                    "flash_dq": lm, "flash_dkv": lm, "flash_carry": 0}
+            run_want = {n: PP_RANK_STEPS * c for n, c in want.items()}
+            if p["launches"] != want or p["run_launches"] != run_want:
+                fail(f"pipeline {name} rank {p['coords']}: launches "
+                     f"{p['launches']} in the first step and "
+                     f"{p['run_launches']} in {PP_RANK_STEPS} steps, "
+                     f"expected {want} a step")
+            if p["worst_grad_rel_gap"] > GRAD_REL_GAP or p["loss_gap"] > 1e-2:
+                fail(f"pipeline {name} rank {p['coords']}: "
+                     f"{p['worst_grad']} gap {p['worst_grad_rel_gap']}, "
+                     f"loss gap {p['loss_gap']}")
+            if not all(math.isfinite(x) for x in p["loss_curve"]):
+                fail(f"pipeline {name}: non-finite loss {p['loss_curve']}")
+        act = 2 * PP_S * cfg.d_model * 2  # microbatch 2, bf16
+        want_wire = 2 * M * act * (P * v - 1)
+        for i in range(tp):
+            group = [p for p in per if p["coords"][1] == i]
+            wire = sum(p["wire"] for p in group)
+            if wire != want_wire or group[0]["want_wire"] != want_wire:
+                fail(f"pipeline {name}: pipe group {i} wire {wire}, "
+                     f"expected 2*M*act*(P*v-1) = {want_wire}")
+            if v == 1 and wire != P * group[0]["closed_form"]:
+                fail(f"pipeline {name}: wire {wire} is not P x "
+                     f"ppermute_bytes_per_step {group[0]['closed_form']}")
+        for p in per:
+            s, i = p["coords"]
+            for q in per:
+                for n, dg in p["digests"].items():
+                    same_copy = (not n.startswith("chunks.")
+                                 and q["coords"][1] == i)
+                    same_repl = split_dim(n) is None and q["coords"][0] == s
+                    if (same_copy or same_repl) and q["digests"][n] != dg:
+                        fail(f"pipeline {name}: {n} differs between ranks "
+                             f"{p['coords']} and {q['coords']}")
+    print(f"pipeline ranks phase: {time.perf_counter() - t0:.1f} s "
+          f"(references {ref_s:.1f} s)", flush=True)
+
+
+def tp_rank(seed: int, ref_path: str) -> dict:
+    """One rank of phase 17 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=1, model=TP_N))
+    cfg = bert_base(num_classes=2, dtype=torch.bfloat16)
+    tp = TensorParallel(mesh, device=dev)
+    model = tp.shard(Transformer(cfg).init_weights(seed))
+    tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                 (TP_B, TP_S))
+    batch = to_device({"tokens": tokens, "label": tokens[:, 0] % 2}, dev)
+    loss_fn = make_cls_loss_fn(model)
+    with mesh:
+        (loss0, _), grads = value_and_grad(loss_fn, model, batch)
+    ref = torch.load(ref_path)
+    gaps = _gaps_vs(tp.shard_state_dict(ref["grads"]), grads, dev)
+    worst = max(gaps, key=gaps.get)
+    del grads, ref["grads"]
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    dist.barrier()
+    curve, step_ms, peak, _ = timed_run(
+        tp.make_train_step(loss_fn), TrainState(model, opt),
+        iter(lambda: batch, None), TP_STEPS,
+        [_Warmup(opt, BERT_WARMUP_STEPS)])
+    return {"rank": dist.get_rank(), "device": str(dev),
+            "backend": dist.get_backend(),
+            "loss_gap": abs(loss0.item() - ref["loss"]),
+            "worst_grad": worst, "worst_grad_rel_gap": gaps[worst],
+            "loss_curve": curve, "step_ms": step_ms,
+            "max_memory_allocated_bytes": peak,
+            "digests": {n: _digest(t) for n, t in model.state_dict().items()
+                        if split_dim(n) is None}}
+
+
+def check_bert_tp(seed: int, kind: str) -> None:
+    """Phase 17."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = bert_base(num_classes=2, dtype=torch.bfloat16)
+    tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                 (TP_B, TP_S))
+    with tempfile.TemporaryDirectory(prefix="dtg_tp_ref_") as ref_dir:
+        _reference_step(cfg, seed, tokens, dev, f"{ref_dir}/bert.pt",
+                        cls=True)
+        torch.cuda.empty_cache()
+        res = [r.result for r in run_multiprocess(
+            "chip_smoke:tp_rank", TP_N, [seed, f"{ref_dir}/bert.pt"],
+            timeout=900)]
+    print(f"bert tensor-parallel on {kind} ({_layout(res)}; gloo on one "
+          "card, not NCCL): " + json.dumps(
+              {k: [r[k] for r in res] for k in (
+                  "loss_gap", "worst_grad", "worst_grad_rel_gap",
+                  "loss_curve", "step_ms", "max_memory_allocated_bytes")}
+              | {"phase_s": time.perf_counter() - t0}), flush=True)
+    for r in res:
+        if r["worst_grad_rel_gap"] > GRAD_REL_GAP or r["loss_gap"] > 1e-2:
+            fail(f"bert tp rank {r['rank']}: {r['worst_grad']} gap "
+                 f"{r['worst_grad_rel_gap']}, loss gap {r['loss_gap']}")
+        if not all(math.isfinite(x) for x in r["loss_curve"]):
+            fail(f"bert tp: non-finite loss {r['loss_curve']}")
+    if res[0]["digests"] != res[1]["digests"]:
+        bad = [n for n in res[0]["digests"]
+               if res[0]["digests"][n] != res[1]["digests"][n]]
+        fail(f"bert tp: replicated parameters differ across model: {bad}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1609,6 +1985,11 @@ def main() -> int:
     check_mnist(args.seed, kind)
     check_wide_deep(args.seed, kind)
     check_bert(args.seed, kind)
+    torch.cuda.empty_cache()
+    check_pipeline(args.seed, kind)
+    torch.cuda.empty_cache()
+    check_pipeline_ranks(args.seed, kind)
+    check_bert_tp(args.seed, kind)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

@@ -21,10 +21,20 @@ Layouts (flax -> torch):
 * conv kernels (kh, kw, in, out) -> conv weights (out, in, kh, kw);
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+Model parallelism: :func:`tp_params_from_flax` gives one ``model`` rank's
+shards of a Transformer (``parallel/tensor.py``);
+:func:`pipeline_params_from_flax` reads the JAX ``PipelinedLM``'s host tree
+(``{"embed", "stages", "head"}``, the block leaves stacked as (P·v rows,
+layers a chunk, ...), row s·v + j holding chunk-stage j·P + s) into the
+flat Transformer state dict, :func:`pipeline_stage_from_flax` gives one
+rank its stage of it, and :func:`pipeline_params_to_flax` is the way
+back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -33,6 +43,12 @@ import torch
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def params_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
@@ -102,6 +118,87 @@ def params_to_flax(state_dict: Mapping, cfg) -> dict:
     else:
         tree["classifier"] = _dense_to(state_dict, "classifier")
     return tree
+
+
+def tp_params_from_flax(tree: Mapping, cfg, tp: int, index: int
+                        ) -> dict[str, torch.Tensor]:
+    """The shards of ``model`` rank ``index`` of ``tp``: the state dict of
+    ``TensorParallel.shard``'s local module (``cfg`` is the full
+    config)."""
+    from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+        shard_state_dict,
+    )
+
+    return shard_state_dict(params_from_flax(tree, cfg), tp, index)
+
+
+def _chunk_order(n_stages: int, virtual_chunks: int, layers_per_chunk: int
+                 ) -> np.ndarray:
+    """The global layer of each flattened stacked row of the JAX
+    ``PipelinedLM``: row r = s·v + j holds chunk-stage k = j·P + s."""
+    order = []
+    for r in range(n_stages * virtual_chunks):
+        s, j = divmod(r, virtual_chunks)
+        k = j * n_stages + s
+        order.extend(range(k * layers_per_chunk, (k + 1) * layers_per_chunk))
+    return np.asarray(order)
+
+
+def pipeline_params_from_flax(tree: Mapping, cfg, n_stages: int,
+                              virtual_chunks: int = 1
+                              ) -> dict[str, torch.Tensor]:
+    """The JAX ``PipelinedLM``'s host tree (numpy leaves) -> the flat
+    ``Transformer`` state dict (its ``to_serving_params`` and then
+    :func:`params_from_flax`)."""
+    L = cfg.num_layers
+    inv = np.argsort(_chunk_order(n_stages, virtual_chunks,
+                                  L // (n_stages * virtual_chunks)))
+    flat = {"tok_emb": tree["embed"]["tok_emb"],
+            "pos_emb": tree["embed"]["pos_emb"],
+            "ln_f": tree["head"]["ln_f"], "lm_head": tree["head"]["lm_head"]}
+    stages = _tree_map(
+        lambda x: np.asarray(x).reshape(L, *np.shape(x)[2:])[inv],
+        tree["stages"])
+    for i in range(L):
+        flat[f"block_{i}"] = _tree_map(lambda x, i=i: x[i], stages)
+    return params_from_flax(flat, cfg)
+
+
+def pipeline_stage_from_flax(tree: Mapping, cfg, pp
+                             ) -> dict[str, torch.Tensor]:
+    """The state dict of the ``PipelineStage`` that rank ``pp`` (a
+    ``parallel.pipeline.PipelinedLM`` over the same layout as the tree's)
+    holds: its stage's layers, TP-sharded by its ``model`` index, and its
+    shards of the embedding and head."""
+    return pp.stage_state_dict(pipeline_params_from_flax(
+        tree, cfg, pp.n_stages, pp.virtual_chunks))
+
+
+def pipeline_params_to_flax(state_dict: Mapping, cfg, n_stages: int,
+                            virtual_chunks: int = 1) -> dict:
+    """The inverse of :func:`pipeline_params_from_flax`: a flat
+    ``Transformer`` state dict (``PipelinedLM.to_serving_params``) -> the
+    JAX ``PipelinedLM``'s host tree for a (``n_stages``,
+    ``virtual_chunks``) layout."""
+    L = cfg.num_layers
+    rows = n_stages * virtual_chunks
+    order = _chunk_order(n_stages, virtual_chunks, L // rows)
+    flat = params_to_flax(state_dict, dataclasses.replace(
+        cfg, num_classes=None))
+    blocks = [flat[f"block_{g}"] for g in order]
+
+    def stack(*leaves):
+        a = np.stack(leaves)
+        return a.reshape(rows, L // rows, *a.shape[1:])
+
+    def zip_map(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: zip_map([n[k] for n in nodes]) for k in nodes[0]}
+        return stack(*nodes)
+
+    return {"embed": {"tok_emb": flat["tok_emb"], "pos_emb": flat["pos_emb"]},
+            "stages": zip_map(blocks),
+            "head": {"ln_f": flat["ln_f"], "lm_head": flat["lm_head"]}}
 
 
 # ---- the non-LM models: the module names map one to one -------------------

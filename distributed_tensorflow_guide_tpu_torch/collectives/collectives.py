@@ -13,8 +13,11 @@ counts ``n`` times.
 
 Differentiable: ``ppermute`` (its gradient runs the inverse permutation)
 and ``all_to_all`` (its gradient runs the inverse exchange), which ring
-attention's blockwise path and Ulysses differentiate through. The
-reductions and gathers return values without a gradient.
+attention's blockwise path and Ulysses differentiate through, and
+Megatron's conjugate pair of tensor parallelism, ``tp_allreduce`` (``g``:
+a psum forward, the identity backward) and ``tp_identity`` (``f``: the
+identity forward, a psum backward). The other reductions and the gathers
+return values without a gradient.
 
 One card, several ranks: NCCL refuses two ranks on one device, so such a
 world runs over gloo, which all-reduces CUDA tensors but has no CUDA
@@ -23,9 +26,6 @@ other than the all-reductions copy the message through pinned host memory
 and back (logged once); nothing else leaves the card. Over NCCL the same
 call is a device-to-device transfer: which one runs is a property of the
 group the caller built, not a fallback.
-
-The tensor-parallel conjugate pair (``tp_allreduce``, ``tp_identity``)
-comes with tensor parallelism (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -350,3 +350,61 @@ def all_to_all(x: torch.Tensor, axis: str, *, split_axis: int,
     if torch.is_grad_enabled() and x.requires_grad:
         return _AllToAll.apply(x, ax, split_axis, concat_axis)
     return _all_to_all(x.detach(), ax, split_axis, concat_axis)
+
+
+# ---- Megatron's tensor-parallel conjugate pair (f / g) ----------------------
+#
+# Inside a tensor-parallel block every rank of the ``model`` axis holds the
+# same (replicated) residual stream and a shard of the weights. ``f`` at a
+# sub-layer's input is the identity forward and sums the shards' partial
+# cotangents backward; ``g`` after the row-parallel product sums the
+# shards' partial outputs forward and passes the cotangent through
+# unchanged. With the pair around each sub-layer the sharded weights get
+# their own gradients and every replicated tensor (LayerNorm, embeddings,
+# the residual stream) gets the full one, on every rank.
+
+
+class _TPAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return _all_reduce(x, ax, dist.ReduceOp.SUM, mean=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPIdentity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the wire traffic of f happens here, in the backward
+        _record("psum_bwd", ctx.ax, g, _reduce_wire(ctx.ax.size))
+        return _all_reduce(g.contiguous(), ctx.ax, dist.ReduceOp.SUM,
+                           mean=False), None
+
+
+def tp_allreduce(x: torch.Tensor, axis: str, *,
+                 mesh: Mesh | None = None) -> torch.Tensor:
+    """Megatron's ``g``: psum over ``axis`` forward, identity backward."""
+    ax = resolve_axis(axis, mesh)
+    _record("psum", ax, x, _reduce_wire(ax.size))
+    if ax.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TPAllReduce.apply(x, ax)
+    return _all_reduce(x, ax, dist.ReduceOp.SUM, mean=False)
+
+
+def tp_identity(x: torch.Tensor, axis: str, *,
+                mesh: Mesh | None = None) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, psum over ``axis`` backward
+    (recorded as ``psum_bwd`` when the backward runs)."""
+    ax = resolve_axis(axis, mesh)
+    if ax.size > 1 and torch.is_grad_enabled() and x.requires_grad:
+        return _TPIdentity.apply(x, ax)
+    return x

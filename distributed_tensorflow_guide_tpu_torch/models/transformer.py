@@ -19,6 +19,16 @@ With ``cfg.num_classes`` set the model is a sequence classifier (BERT,
 f32 ``classifier`` with a bias, and there is no LM head and no decode
 view.
 
+Manual tensor parallelism (``cfg.tp_axis``, ``TransformerConfig.tp_local``,
+``parallel/tensor.py``): each rank of the ``model`` axis builds the module
+with its local head and feed-forward counts (the head dim stays the global
+one, ``override_head_dim``) and Megatron's ``f``/``g`` pair
+(``collectives.tp_identity`` / ``tp_allreduce``) brackets each sub-layer.
+The token embedding and the LM head are then this rank's vocabulary
+shard (``vocab_size`` of the local config is V / tp): the embedding looks
+up the tokens its shard owns and sums the shards (``vocab_parallel_embed``),
+and the LM logits are the shard's columns.
+
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
 chunk's rows into it **in place**, so a step function holds one copy of
@@ -41,6 +51,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from distributed_tensorflow_guide_tpu_torch.collectives import (
+    collectives as cc,
+)
+from distributed_tensorflow_guide_tpu_torch.core.mesh import resolve_axis
 from distributed_tensorflow_guide_tpu_torch.models.initializers import (
     lecun_normal,
 )
@@ -62,7 +76,6 @@ _DEFERRED = {
     "lora_rank": "item 7 (multi-LoRA serving)",
     "moe_experts": "item 8 (MoE)",
     "weight_dtype": "item 9 (quantised weights)",
-    "tp_axis": "item 14 (tensor parallelism)",
 }
 
 
@@ -90,11 +103,15 @@ class TransformerConfig:
     # does not take) or "auto": flash for causal sequences of 1024 tokens
     # or more
     attn_impl: str = "auto"
+    # manual tensor parallelism: the mesh axis of the f/g pair; the config
+    # then holds this rank's local head / ff counts (``tp_local``), with
+    # the global head dim pinned by ``override_head_dim``
+    tp_axis: str | None = None
+    override_head_dim: int | None = None
     # not served yet: setting any of these raises (see _DEFERRED)
     lora_rank: int | None = None
     moe_experts: int | None = None
     weight_dtype: str | None = None
-    tp_axis: str | None = None
 
     def __post_init__(self):
         for knob, item in _DEFERRED.items():
@@ -147,8 +164,22 @@ class TransformerConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.override_head_dim is not None:
+            return self.override_head_dim
         assert self.d_model % self.num_heads == 0
         return self.d_model // self.num_heads
+
+    def tp_local(self, tp: int, axis: str = "model") -> "TransformerConfig":
+        """This config as one shard of ``tp``-way manual tensor
+        parallelism sees it: local head and ff counts, the global head dim
+        pinned, the f/g pair on ``axis``."""
+        if self.num_heads % tp or self.d_ff % tp:
+            raise ValueError(
+                f"num_heads={self.num_heads} and d_ff={self.d_ff} must both "
+                f"divide by tp={tp}")
+        return dataclasses.replace(
+            self, num_heads=self.num_heads // tp, d_ff=self.d_ff // tp,
+            override_head_dim=self.head_dim, tp_axis=axis)
 
     @property
     def cache_dtype(self) -> torch.dtype:
@@ -226,6 +257,8 @@ class MultiHeadAttention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
+        if cfg.tp_axis:  # Megatron f: identity forward, psum backward
+            x = cc.tp_identity(x, cfg.tp_axis)
         qkv = _linear(x, self.qkv.weight, dtype=cfg.dtype)
         qkv = qkv.view(B, S, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, hd)
@@ -238,8 +271,11 @@ class MultiHeadAttention(nn.Module):
             out = FA.flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = self._dense_attend(q, k, v)
-        return _linear(out.reshape(B, S, h * hd), self.proj.weight,
-                       dtype=cfg.dtype)
+        out = _linear(out.reshape(B, S, h * hd), self.proj.weight,
+                      dtype=cfg.dtype)
+        if cfg.tp_axis:  # Megatron g after the row-parallel proj
+            out = cc.tp_allreduce(out, cfg.tp_axis)
+        return out
 
     def _dense_attend(self, q, k, v):
         """Training view: scores at cfg.dtype, causal mask with the
@@ -331,10 +367,15 @@ class MLP(nn.Module):
         self.down = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x):
-        dt = self.cfg.dtype
-        y = _linear(x, self.up.weight, self.up.bias, dtype=dt)
+        cfg = self.cfg
+        if cfg.tp_axis:  # Megatron f
+            x = cc.tp_identity(x, cfg.tp_axis)
+        y = _linear(x, self.up.weight, self.up.bias, dtype=cfg.dtype)
         y = F.gelu(y, approximate="tanh")
-        return _linear(y, self.down.weight, dtype=dt)
+        y = _linear(y, self.down.weight, dtype=cfg.dtype)
+        if cfg.tp_axis:  # Megatron g after the row-parallel down
+            y = cc.tp_allreduce(y, cfg.tp_axis)
+        return y
 
 
 class Block(nn.Module):
@@ -459,7 +500,11 @@ class Transformer(nn.Module):
         if cfg.decode and index is None:
             raise ValueError("cfg.decode=True requires the position index")
         dt = cfg.dtype
-        x = self.tok_emb(tokens).to(dt)
+        if cfg.tp_axis:
+            x = vocab_parallel_embed(tokens, self.tok_emb.weight,
+                                     cfg.tp_axis, dt)
+        else:
+            x = self.tok_emb(tokens).to(dt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         if cfg.decode:
             # the engine passes one position per request (B,); the
@@ -486,6 +531,42 @@ class Transformer(nn.Module):
         return _linear(x, self.lm_head.weight, dtype=torch.float32)
 
 
+def vocab_parallel_embed(tokens, weight, axis: str, dtype):
+    """Megatron's parallel embedding: ``weight`` is this rank's (V / tp,
+    D) slice of the token table along ``axis``; each rank looks up the
+    tokens that fall in its slice (zeros elsewhere), casts to ``dtype``
+    and ``tp_allreduce`` sums the shards, so each shard's rows get exactly
+    their own cotangents."""
+    v_local = weight.shape[0]
+    local = tokens.long() - resolve_axis(axis).index * v_local
+    ok = (local >= 0) & (local < v_local)
+    e = (weight[local.clamp(0, v_local - 1)]
+         * ok[..., None].to(weight.dtype)).to(dtype)
+    return cc.tp_allreduce(e, axis)
+
+
+def vocab_parallel_next_token_loss(x, weight, tokens, axis: str):
+    """Megatron's vocab-parallel next-token cross-entropy over full
+    logits of this rank's vocabulary shard: ``x`` (B, S, D) post-LN,
+    ``weight`` (V / tp, D) the shard of the LM head, ``tokens`` (B, S)
+    global ids. The max, the sum of exponentials and the target logit
+    are assembled over ``axis`` (the max without a gradient, exact for a
+    log-sum-exp); ``x`` passes ``tp_identity`` so that its gradient sums
+    every shard's part. The loss is the mean over B * (S - 1) targets."""
+    v_local = weight.shape[0]
+    x = cc.tp_identity(x, axis)
+    z = _linear(x[:, :-1], weight, dtype=torch.float32)  # (B, S-1, V/tp)
+    targets = tokens[:, 1:].long()
+    m = cc.pmax(z.detach().amax(dim=-1), axis)
+    sumexp = cc.tp_allreduce(torch.exp(z - m[..., None]).sum(dim=-1), axis)
+    lse = torch.log(sumexp) + m
+    local = targets - resolve_axis(axis).index * v_local
+    ok = (local >= 0) & (local < v_local)
+    z_t = z.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    z_t = cc.tp_allreduce(torch.where(ok, z_t, torch.zeros_like(z_t)), axis)
+    return (lse - z_t).mean()
+
+
 def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
                     ce_chunk: int | None = None):
     """Next-token LM loss: ``loss_fn(module, batch) -> (loss, metrics)``.
@@ -500,6 +581,11 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
     cross-entropy: the trunk stops at the final LayerNorm
     (``return_hidden``) and no (B, S, V) tensor is ever live. Otherwise
     the logits come out in f32 and go through ``log_softmax``.
+
+    A tensor-parallel ``model`` (``cfg.tp_axis``) holds a vocabulary shard
+    of the LM head: the fused loss then runs vocab-parallel
+    (``axis=cfg.tp_axis``) and the full-logits one becomes
+    :func:`vocab_parallel_next_token_loss`.
     """
     from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
         fused_next_token_loss,
@@ -508,13 +594,18 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
 
     use_fused = resolve_fused_ce(fused_ce, vocab_size=model.cfg.vocab_size,
                                  platform=model.device.type)
+    axis = model.cfg.tp_axis
 
     def loss_fn(module, batch):
         tokens = batch["tokens"]
         if use_fused:
             hidden = module(tokens, return_hidden=True)
             loss = fused_next_token_loss(hidden, module.lm_head.weight.t(),
-                                         tokens, chunk=ce_chunk)
+                                         tokens, chunk=ce_chunk, axis=axis)
+        elif axis:
+            hidden = module(tokens, return_hidden=True)
+            loss = vocab_parallel_next_token_loss(
+                hidden, module.lm_head.weight, tokens, axis)
         else:
             logits = module(tokens)  # (B, S, V) float32
             logp = torch.log_softmax(logits[:, :-1], dim=-1)

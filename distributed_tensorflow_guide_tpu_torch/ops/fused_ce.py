@@ -11,8 +11,12 @@ largest loss intermediate in the forward or the backward is one
   gradient matmuls.
 * The matmuls take operands in the ACTIVATION dtype and accumulate in f32
   (``_dot_f32``): bf16 activations give bf16 operands and f32 results.
-* Only the single-device form is ported: vocab parallelism (``axis``)
-  comes with tensor parallelism (ROADMAP Queue 1 item 14).
+* One implementation serves tp = 1 and vocab parallelism: with ``axis``
+  each rank runs the same chunk loop over its ``V / tp`` shard of the
+  kernel with global target ids (offset ``axis_index * V / tp``); the
+  forward assembles ``lse`` and the target logit with a pmax and two psums
+  (Megatron's scalar-field triple), and the backward psums ``dx``, while
+  ``dW`` stays on its shard.
 
 This is plain PyTorch, as the JAX package's version is plain jnp: the
 chunk matmuls go to the library's GEMMs.
@@ -21,6 +25,11 @@ chunk matmuls go to the library's GEMMs.
 from __future__ import annotations
 
 import torch
+
+from distributed_tensorflow_guide_tpu_torch.collectives import (
+    collectives as cc,
+)
+from distributed_tensorflow_guide_tpu_torch.core.mesh import resolve_axis
 
 DEFAULT_CE_CHUNK = 8192  # the JAX package's tested default
 
@@ -70,12 +79,15 @@ def _dot_f32(a, b, ct):
 
 class _FusedNLL(torch.autograd.Function):
     """SUM of the NLL over the N rows of ``x`` (N, D) against ``kernel``
-    (D, V) and ``targets`` (N,)."""
+    (D, V_local) and ``targets`` (N,); ``ax`` the vocab-parallel axis or
+    None."""
 
     @staticmethod
-    def forward(ctx, x, kernel, targets, chunk):
+    def forward(ctx, x, kernel, targets, chunk, ax):
         n = x.shape[0]
         ct = x.dtype
+        offset = ax.index * kernel.shape[1] if ax is not None else 0
+        targets = targets - offset  # ids local to this shard
         m = torch.full((n,), -torch.inf, device=x.device)
         s = torch.zeros((n,), device=x.device)
         zt = torch.zeros((n,), device=x.device)
@@ -90,9 +102,16 @@ class _FusedNLL(torch.autograd.Function):
             ok = (t >= 0) & (t < hi - lo)
             zt = zt + torch.where(ok, z[rows, t.clamp(0, hi - lo - 1)],
                                   torch.zeros_like(zt))
+        if ax is not None:
+            # max for stability, sum of exponentials, the target logit
+            # (exactly one shard owns it)
+            mg = cc.pmax(m, ax)
+            s = cc.psum(s * torch.exp(m - mg), ax)
+            zt = cc.psum(zt, ax)
+            m = mg
         lse = torch.log(s) + m
         ctx.save_for_backward(x, kernel, targets, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.ax = chunk, ax
         return (lse - zt).sum()
 
     @staticmethod
@@ -116,23 +135,24 @@ class _FusedNLL(torch.autograd.Function):
             del p
             dx += _dot_f32(dz, w_c.t(), ct)
             dw[:, lo:hi] = _dot_f32(x.t(), dz, ct)
-        return dx.to(x.dtype), dw.to(kernel.dtype), None, None
+        if ctx.ax is not None:
+            # dx sums every shard's part; dW is the shard's own gradient
+            dx = cc.psum(dx, ctx.ax)
+        return dx.to(x.dtype), dw.to(kernel.dtype), None, None, None
 
 
 def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
                         axis: str | None = None, reduction: str = "mean"):
     """Chunked cross-entropy ``-log softmax(x @ kernel)[targets]``.
 
-    x: ``(..., D)`` activations (post-LN); kernel: ``(D, V)``; targets:
-    ``(...)`` int ids, the leading shape of ``x``. Returns the mean
-    (default) or sum NLL as a 0-d f32 tensor; no ``(N, V)`` tensor is live
-    in the forward or the backward. ``chunk=None`` takes
-    ``DEFAULT_CE_CHUNK`` clipped to V.
+    x: ``(..., D)`` activations (post-LN); kernel: ``(D, V_local)``, the
+    full vocabulary, or with ``axis`` this rank's shard of it along that
+    axis of the active mesh (``with mesh:``); targets: ``(...)`` GLOBAL
+    int ids, the leading shape of ``x``. Returns the mean
+    (default) or sum NLL as a 0-d f32 tensor, the same on every rank of
+    ``axis``; no ``(N, V)`` tensor is live in the forward or the backward.
+    ``chunk=None`` takes ``DEFAULT_CE_CHUNK`` clipped to V_local.
     """
-    if axis is not None:
-        raise NotImplementedError(
-            "vocab-parallel fused CE (axis=...) is not ported yet: ROADMAP "
-            "Queue 1 item 14 (tensor parallelism)")
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got "
                          f"{reduction!r}")
@@ -148,7 +168,8 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
     t1 = targets.reshape(-1).long()
     v = kernel.shape[1]
     chunk = max(1, min(int(chunk or DEFAULT_CE_CHUNK), v))
-    total = _FusedNLL.apply(x2, kernel, t1, chunk)
+    ax = None if axis is None else resolve_axis(axis)
+    total = _FusedNLL.apply(x2, kernel, t1, chunk, ax)
     if reduction == "sum":
         return total
     return total / x2.shape[0]

@@ -705,3 +705,39 @@ def test_carry_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):  # a carry on the CPU
         FA.flash_carry_step(q, q, q, m.cpu(), l, acc, scale=0.125,
                             diag=True)
+
+
+@pytest.mark.gpu
+def test_two_rank_1f1b_step_runs_the_flash_kernels_and_matches_one_process():
+    """A pipe = 2 1F1B step on the card (both ranks on ``cuda:0`` over
+    gloo) launches K1 twice a layer and microbatch on the first stage (the
+    recompute) and once on the last, which runs its chunk only on the
+    backward tick, and K2, K3 once, with no fallback; its loss and
+    gathered gradients agree with the single-process step on the same
+    weights and batch (bf16: relative norm of each gradient's difference
+    within 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.runtime.multiprocess import (
+        run_multiprocess,
+    )
+    from tests import torch_mp_workers as W
+
+    res = [r.result for r in run_multiprocess(
+        "tests.torch_mp_workers:pipeline_gpu_rank", 2, timeout=600)]
+    cfg = TF.TransformerConfig(**W.PP_GPU_GEOM, dtype=torch.bfloat16)
+    model = TF.Transformer(cfg).init_weights(0).to("cuda")
+    (loss, _), grads = value_and_grad(
+        TF.make_lm_loss_fn(model), model,
+        {"tokens": torch.as_tensor(W.pp_gpu_tokens(), device="cuda")})
+    for r in res:
+        n = r["layers"] * W.PP_GPU_M
+        fwd = n if r["last_stage"] else 2 * n
+        assert r["launches"] == {"flash_fwd": fwd, "flash_dq": n,
+                                 "flash_dkv": n, "flash_carry": 0}
+        assert r["fallbacks"] == 0
+        assert abs(r["loss"] - loss.item()) < 1e-2
+    for name, g in grads.items():
+        got = torch.as_tensor(res[0][f"grad/{name}"], device="cuda")
+        gap = (got - g.float()).norm() / g.float().norm().clamp_min(1e-30)
+        assert gap.item() < 2e-2, (name, gap.item())

@@ -345,6 +345,310 @@ def sequence_job() -> dict:
     return out
 
 
+# ---- the 4-rank job of tests/test_torch_pipeline.py -------------------------
+
+# tests/test_pipeline.py's CFG (f32) and the cases held to the JAX
+# PipelinedLM: (name, data, pipe, model, schedule, v, fused_ce)
+PP_GEOM = dict(vocab_size=64, num_layers=4, num_heads=2, d_model=32,
+               d_ff=64, max_len=16, causal=True)
+PP_M, PP_MB, PP_LR, PP_CE_CHUNK = 4, 2, 0.1, 16
+PP_SHORT_S = 8  # a batch of sequences shorter than max_len
+PP_CASES = (
+    ("pipe4-gpipe", 1, 4, 1, "gpipe", 1, False),
+    ("pipe4-1f1b", 1, 4, 1, "1f1b", 1, False),
+    ("pipe2-data2-1f1b", 2, 2, 1, "1f1b", 1, False),
+    ("pipe2-v2-gpipe", 2, 2, 1, "gpipe", 2, False),
+    ("pipe2-v2-1f1b", 2, 2, 1, "1f1b", 2, False),
+    ("pipe2-model2-1f1b-fused", 1, 2, 2, "1f1b", 1, True),
+    ("pipe2-model2-gpipe-naive", 1, 2, 2, "gpipe", 1, False),
+)
+# the fused case again with the naive vocab-parallel CE: the fused-CE ==
+# naive-CE gradient identity
+PP_NAIVE_TWIN = ("pipe2-model2-1f1b-naive", 1, 2, 2, "1f1b", 1, False)
+
+
+def pp_tokens(n_data: int) -> np.ndarray:
+    """The union batch of a case: M * mb rows a data shard."""
+    return np.random.RandomState(0).randint(
+        0, PP_GEOM["vocab_size"],
+        (PP_M * PP_MB * n_data, PP_GEOM["max_len"])).astype(np.int64)
+
+
+def flatten(tree, prefix="") -> dict:
+    """A nested dict of arrays -> {"a/b/c": array}, for an .npz."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def unflatten(flat) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, last = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+def pipeline_job(weights_dir: str) -> dict:
+    """Every case of ``PP_CASES`` (and ``PP_NAIVE_TWIN``) on 4 ranks:
+    the port's PipelinedLM from the JAX host tree the test wrote for the
+    case's layout (``weights_dir/<name>.npz``), one eval step and one SGD
+    step on the rank's share of ``pp_tokens``, then one more forward and
+    backward on its first ``PP_SHORT_S`` positions. Returns, per case,
+    the losses, the ``ppermute[pipe]`` wire bytes of both, the parameters
+    after the step (this rank's, and the full state dict that
+    ``to_serving_params`` gathers, on rank 0), and the serving model's
+    logits and loss."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch import bridge
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.parallel.pipeline import (
+        PipelinedLM,
+    )
+
+    rank = dist.get_rank()
+    cfg = transformer.TransformerConfig(**PP_GEOM, dtype=torch.float32)
+    out: dict = {"rank": rank}
+    for name, n_data, P, tp, schedule, v, fused in PP_CASES + (
+            PP_NAIVE_TWIN,):
+        mesh = build_mesh(MeshSpec(data=n_data, pipe=P, model=tp))
+        pp = PipelinedLM(mesh, cfg, PP_M, schedule=schedule,
+                         virtual_chunks=v, fused_ce=fused,
+                         ce_chunk=PP_CE_CHUNK, device="cpu")
+        file = name if name != PP_NAIVE_TWIN[0] else PP_CASES[5][0]
+        with np.load(f"{weights_dir}/{file}.npz") as z:
+            tree = unflatten(dict(z))
+        module = pp.load_stage(bridge.pipeline_stage_from_flax(tree, cfg,
+                                                               pp))
+        tokens = pp_tokens(n_data)
+        i, per = mesh.axis("data").index, PP_M * PP_MB
+        share = {"tokens": tokens[i * per:(i + 1) * per]}
+        ev = pp.make_eval_step()
+        out[f"{name}/eval_loss"] = ev(module, share)["loss"]
+        opt = pp.init_opt_state(
+            lambda ps: torch.optim.SGD(ps, lr=PP_LR), module)
+        step = pp.make_train_step(opt)
+        with cc.trace_comm() as rec:
+            _, mets = step(module, share)
+        out[f"{name}/loss"] = mets["loss"]
+        out[f"{name}/wire"] = rec.wire.get("ppermute[pipe]", 0.0)
+        out[f"{name}/want_wire"] = pp.pipe_wire_bytes_per_step(
+            PP_MB, PP_GEOM["max_len"])
+        out[f"{name}/coords"] = [mesh.axis(a).index
+                                 for a in ("data", "pipe", "model")]
+        for n, t in module.state_dict().items():
+            out[f"{name}/local/{n}"] = t
+        serving = pp.to_serving_params(module)
+        out[f"{name}/eval_loss_after"] = ev(module, share)["loss"]
+        if rank == 0:
+            for n, t in serving.items():
+                out[f"{name}/serving/{n}"] = t
+            model = transformer.Transformer(cfg)
+            model.load_state_dict(serving)
+            with torch.no_grad():
+                out[f"{name}/serving_logits"] = model(
+                    torch.as_tensor(tokens[:2]))
+                out[f"{name}/serving_loss"] = transformer.make_lm_loss_fn(
+                    model, fused_ce=False)(
+                    model, {"tokens": torch.as_tensor(tokens)})[0]
+        with cc.trace_comm() as rec:
+            pp.loss_and_grads(module,
+                              {"tokens": share["tokens"][:, :PP_SHORT_S]})
+        out[f"{name}/short_wire"] = rec.wire.get("ppermute[pipe]", 0.0)
+        out[f"{name}/short_want_wire"] = pp.pipe_wire_bytes_per_step(
+            PP_MB, PP_SHORT_S)
+    return out
+
+
+# ---- the 4-rank job of tests/test_torch_tensor_parallel.py ------------------
+
+# tests/test_tensor_parallel.py's BERT-like CFG and its LM-head variant,
+# f32; the LM twice more at S=128 (flash against dense)
+TP_BERT = dict(vocab_size=128, num_layers=2, num_heads=4, d_model=64,
+               d_ff=128, max_len=32, causal=False, num_classes=2)
+TP_LM = dict(vocab_size=128, num_layers=1, num_heads=4, d_model=32, d_ff=64,
+             max_len=16, causal=True)
+TP_LM_LONG = dict(TP_LM, num_layers=2, max_len=128)
+TP_LR, TP_CE_CHUNK = 0.1, 16
+
+
+def tp_batch(geom: dict, n: int, seed: int = 0) -> dict:
+    """The union batch of a TP case: ``n`` rows (labels for BERT)."""
+    rng = np.random.RandomState(seed)
+    b = {"tokens": rng.randint(0, geom["vocab_size"],
+                               (n, geom["max_len"])).astype(np.int64)}
+    if geom.get("num_classes"):
+        b["label"] = rng.randint(0, 2, n).astype(np.int64)
+    return b
+
+
+def tp_ce_inputs() -> tuple:
+    """x (N, D), the head kernel (D, V) and targets (N,) of the
+    vocab-parallel fused CE case."""
+    rng = np.random.RandomState(7)
+    return (rng.randn(24, 16).astype(np.float32),
+            (0.5 * rng.randn(16, 64)).astype(np.float32),
+            rng.randint(0, 64, 24).astype(np.int64))
+
+
+def tensor_parallel_job() -> dict:
+    """On a (data=2, model=2) mesh: the f/g pair, the sharded model's
+    logits and gradients, the vocab-parallel fused CE, and one
+    ``TensorParallel`` SGD step of each case of ``tp_cases``."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
+        fused_cross_entropy,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
+        value_and_grad,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+        TensorParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    rank = dist.get_rank()
+    mesh = build_mesh(MeshSpec(data=2, model=2))
+    d, i = mesh.axis("data").index, mesh.axis("model").index
+    out: dict = {"rank": rank, "coords": [d, i]}
+
+    # the f/g pair
+    x = torch.from_numpy(rank_input(rank, (4, 6)))
+    w = torch.from_numpy(rank_input(rank, (4, 6), seed=100))
+    with mesh, cc.trace_comm() as rec:
+        for name, fn in (("g", cc.tp_allreduce), ("f", cc.tp_identity)):
+            xg = x.clone().requires_grad_()
+            y = fn(xg, "model")
+            (y * w).sum().backward()
+            out[f"{name}/value"], out[f"{name}/grad"] = y.detach(), xg.grad
+    out["fg_trace"] = _trace(rec)
+
+    # the vocab-parallel fused CE against its shard of the kernel
+    cx, ck, ct = (torch.from_numpy(a) for a in tp_ce_inputs())
+    cx.requires_grad_()
+    kshard = ck.chunk(2, dim=1)[i].clone().requires_grad_()
+    with mesh:
+        loss = fused_cross_entropy(cx, kshard, ct, chunk=TP_CE_CHUNK,
+                                   axis="model")
+        loss.backward()
+    out["ce/loss"], out["ce/dx"], out["ce/dw"] = loss, cx.grad, kshard.grad
+
+    tp = TensorParallel(mesh, device="cpu")
+    for case, geom, extra, n in tp_cases():
+        cfg = transformer.TransformerConfig(**geom, dtype=torch.float32,
+                                            **extra)
+        full = transformer.Transformer(cfg).init_weights(0)
+        local = tp.shard(full)
+        batch = tp_batch(geom, n)
+        per = n // 2
+        share = {k: torch.as_tensor(v[d * per:(d + 1) * per])
+                 for k, v in batch.items()}
+        if cfg.num_classes:
+            loss_fn = transformer.make_cls_loss_fn(local)
+        else:
+            loss_fn = transformer.make_lm_loss_fn(
+                local, fused_ce=case.endswith("fused"),
+                ce_chunk=TP_CE_CHUNK)
+        with mesh:
+            (l0, _), grads = value_and_grad(loss_fn, local, share)
+            out[f"{case}/logits"] = local(share["tokens"]).detach()
+        out[f"{case}/loss0"] = l0
+        for n_, g in grads.items():
+            out[f"{case}/grad/{n_}"] = g
+        state = TrainState(local, torch.optim.SGD(local.parameters(),
+                                                  lr=TP_LR))
+        _, mets = tp.make_train_step(loss_fn)(state, share)
+        out[f"{case}/loss"] = mets["loss"]
+        for n_, t in tp.gather(local.state_dict()).items():
+            out[f"{case}/param/{n_}"] = t
+    return out
+
+
+def tp_cases():
+    """(name, geometry, config extras, union rows) of the TP step cases."""
+    return (("bert", TP_BERT, {}, 16),
+            ("lm", TP_LM, {}, 8),
+            ("lm-fused", TP_LM, {}, 8),
+            ("lm-long-flash", TP_LM_LONG, {"attn_impl": "flash"}, 8),
+            ("lm-long-dense", TP_LM_LONG, {"attn_impl": "dense"}, 8))
+
+
+# ---- the 2-rank card job of tests/test_torch_kernels_gpu.py -----------------
+
+# small widths at a head dim the kernels take (64), bf16; one layer a stage
+PP_GPU_GEOM = dict(vocab_size=512, num_layers=2, num_heads=2, d_model=128,
+                   d_ff=256, max_len=256, causal=True, attn_impl="flash")
+PP_GPU_M, PP_GPU_MB = 4, 2
+
+
+def pp_gpu_tokens() -> np.ndarray:
+    return np.random.RandomState(3).randint(
+        0, 512, (PP_GPU_M * PP_GPU_MB, 256)).astype(np.int64)
+
+
+def pipeline_gpu_rank() -> dict:
+    """One 1F1B step at pipe = 2 on the card (ranks share ``cuda:0`` over
+    gloo): the loss, the K1-K3 launches and fallbacks of this rank, and
+    the gathered gradients (``to_serving_params``) on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.ops import (
+        flash_attention as FA,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.pipeline import (
+        PipelinedLM,
+    )
+
+    cfg = transformer.TransformerConfig(**PP_GPU_GEOM, dtype=torch.bfloat16)
+    pp = PipelinedLM(build_mesh(MeshSpec(data=1, pipe=2)), cfg, PP_GPU_M,
+                     schedule="1f1b")
+    module = pp.init_params(0)
+    FA.reset_launch_counts()
+    loss, grads = pp.loss_and_grads(module, {"tokens": pp_gpu_tokens()})
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "loss": loss.item(),
+           "launches": dict(FA.LAUNCHES),
+           "fallbacks": len(FA.fallback_stats()),
+           "layers": sum(len(c) for c in module.chunks),
+           "last_stage": pp.stage == pp.n_stages - 1}
+    full = pp.to_serving_params(grads)
+    if out["rank"] == 0:
+        out.update({f"grad/{n}": g.float() for n, g in full.items()})
+    return out
+
+
 # ---- the launcher test's script ----------------------------------------------
 
 
