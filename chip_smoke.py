@@ -116,10 +116,36 @@ and check them.
     over gloo, phase 14's model, batch and AdamW warm-up, 3 steps: the
     first step's loss and gradient shards within ``GRAD_REL_GAP`` of the
     single-process step, replicated parameters bitwise equal on both
-    ranks after the steps.
+    ranks after the steps;
+18. GPT-2 124M under ``FSDP`` at 2 ranks (full widths, bf16 compute, f32
+    parameters, 4 sequences a rank at S = 1024: phase 7's global batch,
+    flash, fused CE, Adam, 3 steps): the first step's loss and gradient
+    shards within ``GRAD_REL_GAP`` of the single-process step on the same
+    weights and the union batch; each rank's parameter and Adam moment
+    bytes equal to its shards'; one all-gather and one reduce-scatter a
+    sharded leaf and step, one pmean a replicated leaf and metric, wire
+    bytes equal to ``fsdp_comm_terms``; K1-K3 12 launches a step each;
+19. phase 10's 2-rank run (GPT-2 at depth 2) with ``overlap=True``
+    against ``overlap=False``, 3 Adam steps each: the first step's
+    gradients and the parameters after the steps bitwise equal, one
+    all-reduce a 4 MiB bucket, the same total bytes;
+20. GPT-2 124M under ``TensorParallel(rules=MEGATRON_SP_RULES)`` at
+    model = 2, 2 ranks, 2 sequences at S = 1024, flash, vocab-parallel
+    fused CE, 3 Adam steps, against the ``DEFAULT_RULES`` run on the same
+    weights: the first step's loss and gradient shards within
+    ``GRAD_REL_GAP``; no psum left in the blocks; the gather/scatter
+    pairs' wire bytes equal to the all-reduces they replace; K1-K3 12
+    launches a step each at 6 heads; both runs' peak memory;
+21. the async-PS family on the MNIST CNN at 4 ranks
+    (``examples/async_ps_family.py``'s batch and rates): LocalSGD (K=4),
+    GossipSGD and AccumulatedAdaptive (K=4), 12 calls each, then
+    ``AsyncPSEmulator`` in hogwild, downpour and adag modes, 48 events
+    each with the gradients on the card: every loss falls, LocalSGD's
+    pmeans run once a call of K local steps, Gossip's replicas disagree
+    and agree on their consensus.
 
-Phases 16 and 17 time-share one card over gloo, which stages every
-message through host memory: their times say nothing of NCCL.
+Phases 16-21 time-share one card over gloo, which stages every message
+through host memory: their times say nothing of NCCL.
 
 The kernels are built once here, before any rank starts. Exits non-zero
 on any failure, and when no CUDA card is present. The last line of stdout
@@ -132,6 +158,7 @@ import argparse
 import copy
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import math
@@ -174,12 +201,28 @@ from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
     fused_next_token_loss,
+    resolve_fused_ce,
 )
+from distributed_tensorflow_guide_tpu_torch.parallel import overlap as ov
 from distributed_tensorflow_guide_tpu_torch.parallel import sequence
+from distributed_tensorflow_guide_tpu_torch.parallel.async_ps import (
+    AccumulatedAdaptive,
+    GossipSGD,
+    LocalSGD,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.fsdp import (
+    FSDP,
+    fsdp_comm_terms,
+)
 from distributed_tensorflow_guide_tpu_torch.parallel.pipeline import (
     PipelinedLM,
 )
+from distributed_tensorflow_guide_tpu_torch.parallel.ps_emulator import (
+    AsyncPSEmulator,
+)
 from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+    DEFAULT_RULES,
+    MEGATRON_SP_RULES,
     TensorParallel,
     split_dim,
 )
@@ -865,6 +908,10 @@ def timed_run(step, state, data, steps: int, hooks=()):
         return out
 
     losses = _Losses()
+    # a finished TrainLoop and its StopAtStepHook refer to each other: an
+    # earlier run's state lives until the cycle is collected, and would
+    # count in this run's peak
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     loop = TrainLoop(timed_step, state, data,
@@ -1768,9 +1815,9 @@ def pp_rank(seed: int, ref_dir: str) -> dict:
                                 module)
         dist.barrier()
         FA.reset_launch_counts()
-        curve, step_ms, peak, _ = timed_run(
+        curve, step_ms, peak = timed_run(
             pp.make_train_step(opt), module, iter(lambda: batch, None),
-            PP_RANK_STEPS)
+            PP_RANK_STEPS)[:3]
         out[name] = {
             "coords": [mesh.axis("pipe").index, mesh.axis("model").index],
             "layers": sum(len(c) for c in module.chunks),
@@ -1930,6 +1977,457 @@ def check_bert_tp(seed: int, kind: str) -> None:
         fail(f"bert tp: replicated parameters differ across model: {bad}")
 
 
+# ---- phases 18-21: the data-parallel family ---------------------------------
+
+# phase 18: phase 7's global batch of 8 sequences over 2 ranks
+FSDP_N, FSDP_B, FSDP_STEPS = 2, 4, 3
+# phase 19: phase 10's run, overlap on against off
+OV_STEPS = 3
+# phase 20: model = 2, 2 sequences at S = 1024
+SPTP_N, SPTP_B, SPTP_STEPS = 2, 2, 3
+# phase 21: examples/async_ps_family.py's settings: a global batch of 256,
+# K = 4, SGD 0.05 with momentum 0.9 (Adam 1e-3 for ADAG); the emulator's
+# workers take 64 each
+PS_N, PS_B, PS_K, PS_CALLS, PS_EVENTS = 4, 64, 4, 12, 48
+PS_LR, PS_ADAG_LR = 0.05, 1e-3
+
+
+def _shard_bytes(full: dict, specs: dict, world: int) -> int:
+    """A rank's bytes of the FSDP shards of ``full`` (f32)."""
+    return sum(4 * t.numel() // (world if "data" in specs[n] else 1)
+               for n, t in full.items())
+
+
+def fsdp_rank(seed: int, ref_path: str) -> dict:
+    """One rank of phase 18 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=FSDP_N))
+    i = mesh.axis("data").index
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    fs = FSDP(mesh, device=dev)
+    full = Transformer(cfg).init_weights(seed)  # on the host
+    model = fs.shard(full)
+    full_sd = {n: p.detach() for n, p in full.named_parameters()}
+    del full
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (FSDP_N * FSDP_B, PP_S)).astype(np.int64)
+    share = {"tokens": torch.as_tensor(tokens[i * FSDP_B:(i + 1) * FSDP_B],
+                                       device=dev)}
+    loss_fn = make_lm_loss_fn(model)
+    (loss0, _), grads = fs.value_and_grad(loss_fn, model, share)
+    loss0 = cc.pmean(loss0, "data", mesh=mesh).item()
+    ref = torch.load(ref_path)
+    gaps = _gaps_vs(fs.shard_state_dict(ref["grads"]), grads, dev)
+    worst = max(gaps, key=gaps.get)
+    del grads, ref["grads"]
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    dist.barrier()
+    FA.reset_launch_counts()
+    with cc.trace_comm() as rec:
+        curve, step_ms, peak, _ = timed_run(
+            fs.make_train_step(loss_fn), TrainState(model, opt),
+            iter(lambda: share, None), FSDP_STEPS)
+    launches = dict(FA.LAUNCHES)
+    sharded = [n for n, sp in fs.specs.items() if "data" in sp]
+    sharded_bytes = sum(4 * full_sd[n].numel() for n in sharded)
+    return {"rank": dist.get_rank(), "device": str(dev),
+            "backend": dist.get_backend(), "prefetch": fs.prefetch,
+            "loss_gap": abs(loss0 - ref["loss"]), "worst_grad": worst,
+            "worst_grad_rel_gap": gaps[worst],
+            "loss_curve": curve, "step_ms": step_ms,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "n_sharded": len(sharded),
+            "n_replicated": len(fs.specs) - len(sharded),
+            "sharded_bytes": sharded_bytes,
+            "replicated_bytes": sum(4 * t.numel() for t in full_sd.values())
+            - sharded_bytes,
+            "shard_bytes": _shard_bytes(full_sd, fs.specs, FSDP_N),
+            "state_bytes": fs.state_bytes(model, opt),
+            "comm": {k: [rec.calls[k], rec.wire[k]] for k in rec.calls}}
+
+
+def check_fsdp(seed: int, kind: str) -> None:
+    """Phase 18."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (FSDP_N * FSDP_B, PP_S)).astype(np.int64)
+    with tempfile.TemporaryDirectory(prefix="dtg_fsdp_ref_") as ref_dir:
+        _reference_step(cfg, seed, tokens, dev, f"{ref_dir}/gpt2.pt")
+        torch.cuda.empty_cache()
+        res = [r.result for r in run_multiprocess(
+            "chip_smoke:fsdp_rank", FSDP_N, [seed, f"{ref_dir}/gpt2.pt"],
+            timeout=900)]
+    print(f"fsdp on {kind} ({_layout(res)}; gloo on one card, not NCCL): "
+          + json.dumps({k: [r[k] for r in res] for k in (
+              "prefetch", "loss_gap", "worst_grad", "worst_grad_rel_gap",
+              "loss_curve", "step_ms", "max_memory_allocated_bytes",
+              "state_bytes", "shard_bytes", "n_sharded", "n_replicated",
+              "launches", "comm")} | {"phase_s": time.perf_counter() - t0}),
+          flush=True)
+    want = {"flash_fwd": FSDP_STEPS * cfg.num_layers,
+            "flash_dq": FSDP_STEPS * cfg.num_layers,
+            "flash_dkv": FSDP_STEPS * cfg.num_layers, "flash_carry": 0}
+    frac = (FSDP_N - 1) / FSDP_N
+    for r in res:
+        if r["worst_grad_rel_gap"] > GRAD_REL_GAP or r["loss_gap"] > 1e-2:
+            fail(f"fsdp rank {r['rank']}: {r['worst_grad']} gap "
+                 f"{r['worst_grad_rel_gap']}, loss gap {r['loss_gap']}")
+        if r["launches"] != want:
+            fail(f"fsdp rank {r['rank']}: launches {r['launches']} over "
+                 f"{FSDP_STEPS} steps, expected {want}")
+        if r["state_bytes"] != {"params": r["shard_bytes"],
+                                "optimizer": 2 * r["shard_bytes"]}:
+            fail(f"fsdp rank {r['rank']}: state bytes {r['state_bytes']}, "
+                 f"expected the shards' {r['shard_bytes']} (and Adam's two "
+                 "moments of them)")
+        # the port's copy of fsdp_comm_terms, and the two metrics' pmeans
+        terms = fsdp_comm_terms(r["sharded_bytes"], FSDP_N,
+                                r["replicated_bytes"])
+        want_comm = {
+            "all_gather[data]": [FSDP_STEPS * r["n_sharded"],
+                                 FSDP_STEPS * terms["param_all_gather"]],
+            "reduce_scatter[data]": [
+                FSDP_STEPS * r["n_sharded"],
+                FSDP_STEPS * terms["grad_reduce_scatter"]],
+            "pmean[data]": [
+                FSDP_STEPS * (r["n_replicated"] + 2),
+                FSDP_STEPS * (terms["replicated_grad_allreduce"]
+                              + 2 * 2 * 4 * frac)]}
+        if r["comm"] != want_comm:
+            fail(f"fsdp rank {r['rank']}: comm {r['comm']}, expected "
+                 f"{want_comm}")
+    if len({tuple(r["loss_curve"]) for r in res}) != 1:
+        fail("fsdp: the ranks report different losses")
+    check_falls("fsdp", res[0]["loss_curve"], 1)
+    print(f"fsdp phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def dp_overlap_rank(seed: int) -> dict:
+    """One rank of phase 19 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=DP_N))
+    i = mesh.axis("data").index
+    cfg = dataclasses.replace(gpt2_124m(dtype=torch.bfloat16),
+                              num_layers=DP_LAYERS)
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (DP_B, DP_S)).astype(np.int64)
+    per = DP_B // DP_N
+    share = {"tokens": torch.as_tensor(tokens[i * per:(i + 1) * per],
+                                       device=dev)}
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    for overlap in (False, True):
+        model = Transformer(cfg).init_weights(seed).to(dev)
+        dp = DataParallel(mesh, overlap=overlap)
+        loss_fn = make_lm_loss_fn(model)
+        # the first step's averaged gradients, each way
+        if overlap:
+            pending = []
+            _, grads = value_and_grad(ov.bucketed_loss_fn(
+                loss_fn, "data", pending=pending, mesh=mesh), model, share)
+            ov.wait_buckets(pending)
+        else:
+            _, grads = value_and_grad(loss_fn, model, share)
+            grads = cc.pmean(grads, "data", mesh=mesh)
+        grad_digests = {n: _digest(g) for n, g in grads.items()}
+        del grads
+        state = TrainState(model, torch.optim.Adam(model.parameters(),
+                                                   lr=1e-3))
+        dist.barrier()
+        FA.reset_launch_counts()
+        with cc.trace_comm() as rec:
+            curve, step_ms, peak = timed_run(
+                dp.make_train_step(loss_fn), state,
+                iter(lambda: share, None), OV_STEPS)[:3]
+        out["on" if overlap else "off"] = {
+            "overlap": dp.overlap, "loss_curve": curve, "step_ms": step_ms,
+            "max_memory_allocated_bytes": peak,
+            "launches": dict(FA.LAUNCHES),
+            "pmean_calls": rec.calls["pmean[data]"],
+            "pmean_wire": rec.wire["pmean[data]"],
+            "buckets": len(ov.bucket_assignment(
+                list(model.parameters()), ov.DEFAULT_BUCKET_BYTES)),
+            "grad_bytes": sum(p.numel() * 4 for p in model.parameters()),
+            "grad_digests": grad_digests,
+            "param_digests": {n: _digest(p) for n, p in
+                              model.state_dict().items()}}
+        del state, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_dp_overlap(seed: int, kind: str) -> None:
+    """Phase 19."""
+    t0 = time.perf_counter()
+    res = [r.result for r in run_multiprocess(
+        "chip_smoke:dp_overlap_rank", DP_N, [seed], timeout=900)]
+    print(f"bucketed dp on {kind} ({_layout(res)}; gloo on one card, not "
+          "NCCL): " + json.dumps({f"{k}_{w}": [r[w][k] for r in res]
+                                  for w in ("off", "on") for k in (
+                                      "loss_curve", "step_ms", "pmean_calls",
+                                      "pmean_wire", "buckets",
+                                      "max_memory_allocated_bytes")}
+                                 | {"phase_s": time.perf_counter() - t0}),
+          flush=True)
+    layers = OV_STEPS * DP_LAYERS
+    want = {"flash_fwd": layers, "flash_dq": layers, "flash_dkv": layers,
+            "flash_carry": 0}
+    frac = 2 * (DP_N - 1) / DP_N
+    for r in res:
+        off, on = r["off"], r["on"]
+        if off["overlap"] or not on["overlap"]:
+            fail(f"bucketed dp: overlap resolved {off['overlap']} / "
+                 f"{on['overlap']}")
+        if on["grad_digests"] != off["grad_digests"]:
+            bad = [n for n in on["grad_digests"]
+                   if on["grad_digests"][n] != off["grad_digests"][n]]
+            fail(f"bucketed dp rank {r['rank']}: gradients differ from the "
+                 f"monolithic pmean's: {bad}")
+        if on["param_digests"] != off["param_digests"]:
+            fail(f"bucketed dp rank {r['rank']}: parameters differ after "
+                 f"{OV_STEPS} steps")
+        for run in (off, on):
+            if run["launches"] != want:
+                fail(f"bucketed dp: launches {run['launches']}, expected "
+                     f"{want}")
+        metric_wire = 2 * 4 * frac  # loss and perplexity
+        if (on["pmean_calls"] != OV_STEPS * (on["buckets"] + 1)
+                or off["pmean_calls"] != OV_STEPS * 2
+                or on["pmean_wire"] != off["pmean_wire"]
+                or on["pmean_wire"] != OV_STEPS * (
+                    on["grad_bytes"] * frac + metric_wire)):
+            fail(f"bucketed dp rank {r['rank']}: all-reduces "
+                 f"{on['pmean_calls']} ({on['buckets']} buckets) / "
+                 f"{off['pmean_calls']}, wire {on['pmean_wire']} / "
+                 f"{off['pmean_wire']}")
+    print(f"bucketed dp phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def sp_tp_rank(seed: int) -> dict:
+    """One rank of phase 20 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=1, model=SPTP_N))
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    full = Transformer(cfg).init_weights(seed)
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (SPTP_B, PP_S)).astype(np.int64)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    firsts = {}
+    for name, rules in (("default", DEFAULT_RULES),
+                        ("sp", MEGATRON_SP_RULES)):
+        tp = TensorParallel(mesh, rules=rules, device=dev)
+        model = tp.shard(full)
+        loss_fn = make_lm_loss_fn(model)
+        with cc.trace_comm() as rec:
+            (loss0, _), grads = tp.value_and_grad(loss_fn, model, batch)
+        # on the host, out of the other run's peak memory
+        firsts[name] = (loss0.item(), {n: g.cpu() for n, g in grads.items()})
+        del grads
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        dist.barrier()
+        FA.reset_launch_counts()
+        curve, step_ms, peak = timed_run(
+            tp.make_train_step(loss_fn), TrainState(model, opt),
+            iter(lambda: batch, None), SPTP_STEPS)[:3]
+        out[name] = {"loss_curve": curve, "step_ms": step_ms,
+                     "max_memory_allocated_bytes": peak,
+                     "launches": dict(FA.LAUNCHES),
+                     "heads": model.cfg.num_heads,
+                     "fused_ce": resolve_fused_ce(
+                         "auto", vocab_size=model.cfg.vocab_size,
+                         platform=dev.type),
+                     "comm": {k: [rec.calls[k], rec.wire[k]]
+                              for k in rec.calls}}
+        del model, opt
+        torch.cuda.empty_cache()
+    (l_d, g_d), (l_s, g_s) = firsts["default"], firsts["sp"]
+    gaps = _gaps_vs(g_d, g_s, "cpu")
+    worst = max(gaps, key=gaps.get)
+    out.update({"loss_gap": abs(l_s - l_d), "worst_grad": worst,
+                "worst_grad_rel_gap": gaps[worst],
+                "replicated_bytes": sum(
+                    4 * t.numel() for n, t in full.state_dict().items()
+                    if split_dim(n) is None)})
+    return out
+
+
+def check_sp_tp(seed: int, kind: str) -> None:
+    """Phase 20."""
+    t0 = time.perf_counter()
+    res = [r.result for r in run_multiprocess(
+        "chip_smoke:sp_tp_rank", SPTP_N, [seed], timeout=900)]
+    print(f"megatron sp on {kind} ({_layout(res)}; gloo on one card, not "
+          "NCCL): " + json.dumps(
+              {k: [r[k] for r in res] for k in (
+                  "loss_gap", "worst_grad", "worst_grad_rel_gap")}
+              | {f"{k}_{w}": [r[w][k] for r in res]
+                 for w in ("default", "sp") for k in (
+                     "loss_curve", "step_ms", "max_memory_allocated_bytes",
+                     "launches", "comm")}
+              | {"phase_s": time.perf_counter() - t0}), flush=True)
+    cfg = gpt2_124m()
+    want = dict.fromkeys(K1_K3, SPTP_STEPS * cfg.num_layers) | {
+        "flash_carry": 0}
+    frac = (SPTP_N - 1) / SPTP_N
+    for r in res:
+        if r["worst_grad_rel_gap"] > GRAD_REL_GAP or r["loss_gap"] > 1e-2:
+            fail(f"megatron sp rank {r['rank']}: {r['worst_grad']} gap "
+                 f"{r['worst_grad_rel_gap']}, loss gap {r['loss_gap']}")
+        d, s = r["default"], r["sp"]
+        for name, run in (("default", d), ("sp", s)):
+            if (run["launches"] != want
+                    or run["heads"] != cfg.num_heads // SPTP_N):
+                fail(f"megatron sp ({name}): launches {run['launches']} at "
+                     f"{run['heads']} heads, expected {want} at "
+                     f"{cfg.num_heads // SPTP_N}")
+            if not all(math.isfinite(x) for x in run["loss_curve"]):
+                fail(f"megatron sp ({name}): non-finite loss")
+        dc, sc = d["comm"], s["comm"]
+        # no psum in the blocks: the loss's two and the replicated
+        # gradients' one are all that stay
+        if "psum_bwd[model]" in sc or sc["psum[model]"][0] != 3:
+            fail(f"megatron sp: psums left {sc}")
+        if not (d["fused_ce"] and s["fused_ce"]):
+            fail("megatron sp: the vocab-parallel fused CE is not on")
+        # the blocks' and the embedding's pairs against the all-reduces
+        # they replace (bf16 (B, S, D) activations both ways). The head
+        # differs by design: the default rules' fused CE sums an f32 dx
+        # over the S - 1 predicting positions, SP gathers the bf16 hidden
+        # states of all S and reduce-scatters their gradient
+        act = SPTP_B * PP_S * cfg.d_model * 2
+        head_pair = 2 * act * frac
+        default_head = 2 * frac * 4 * SPTP_B * (PP_S - 1) * cfg.d_model
+        loss_sums = sc["psum[model]"][1] - 2 * r["replicated_bytes"] * frac
+        pairs = sum(sc[k][1] for k in (
+            "all_gather[model]", "reduce_scatter[model]",
+            "all_gather_bwd[model]", "reduce_scatter_bwd[model]"))
+        replaced = (dc["psum[model]"][1] + dc["psum_bwd[model]"][1]
+                    - loss_sums - default_head)
+        if pairs - head_pair != replaced:
+            fail(f"megatron sp: gather/scatter wire {pairs - head_pair} "
+                 f"in the blocks and the embedding, the default rules' "
+                 f"all-reduces {replaced}")
+    print(f"megatron sp phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _ps_superbatch(it, k: int, i: int) -> dict:
+    """K global batches stacked, this rank's rows of each."""
+    bs = [next(it) for _ in range(k)]
+    return {key: np.stack([b[key][i * PS_B:(i + 1) * PS_B] for b in bs])
+            for key in bs[0]}
+
+
+def ps_rank(seed: int) -> dict:
+    """One rank of phase 21 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=PS_N))
+    i = mesh.axis("data").index
+    out = {"rank": dist.get_rank(), "device": str(dev),
+           "backend": dist.get_backend()}
+    for name in ("local_sgd", "gossip", "accumulated_adaptive"):
+        model = mnist_cnn.MNISTCNN().to(dev).init_weights(seed)
+        loss_fn = mnist_cnn.make_loss_fn(model)
+        data = iter(synthetic.synthetic_mnist(PS_N * PS_B, seed=seed))
+        if name == "accumulated_adaptive":
+            strat = AccumulatedAdaptive(mesh, PS_K, device=dev)
+            opt = torch.optim.Adam(model.parameters(), lr=PS_ADAG_LR)
+        else:
+            strat = (LocalSGD(mesh, PS_K, device=dev) if name == "local_sgd"
+                     else GossipSGD(mesh, device=dev))
+            opt = torch.optim.SGD(model.parameters(), lr=PS_LR,
+                                  momentum=0.9)
+        k = 1 if name == "gossip" else PS_K
+        batches = [_ps_superbatch(data, k, i) for _ in range(PS_CALLS)]
+        if name == "gossip":
+            batches = [{key: v[0] for key, v in b.items()} for b in batches]
+        state = TrainState(model, opt)
+        dist.barrier()
+        with cc.trace_comm() as rec:
+            curve, step_ms, peak = timed_run(
+                strat.make_train_step(loss_fn), state, iter(batches),
+                PS_CALLS)[:3]
+        res = {"loss_curve": curve, "step_ms": step_ms,
+               "local_steps": state.step,
+               "comm": {key: [rec.calls[key], rec.bytes[key]]
+                        for key in rec.calls},
+               "digest": _digest(torch.cat([p.detach().reshape(-1) for p in
+                                            model.parameters()]))}
+        if name == "gossip":
+            res["consensus_digest"] = _digest(torch.cat(
+                [t.reshape(-1) for t in strat.consensus(state).values()]))
+        out[name] = res
+    return out
+
+
+def check_async_ps(seed: int, kind: str) -> None:
+    """Phase 21."""
+    t0 = time.perf_counter()
+    res = [r.result for r in run_multiprocess(
+        "chip_smoke:ps_rank", PS_N, [seed], timeout=900)]
+    for name in ("local_sgd", "gossip", "accumulated_adaptive"):
+        per = [r[name] for r in res]
+        print(f"{name} on {kind} ({_layout(res)}; gloo on one card, not "
+              "NCCL): " + json.dumps({k: [p[k] for p in per] for k in (
+                  "loss_curve", "step_ms", "local_steps", "comm")}),
+              flush=True)
+        for p in per:
+            check_falls(name, p["loss_curve"], 3)
+        if name != "gossip" and len({p["digest"] for p in per}) != 1:
+            fail(f"{name}: the replicas differ after the sync")
+    dev = resolve_device(None)
+    for p in [r["local_sgd"] for r in res]:
+        # one pmean of the parameters, one of the momentum buffers and
+        # the loss's, a call of K local steps
+        if (p["comm"]["pmean[data]"][0] != 3 * PS_CALLS
+                or p["local_steps"] != PS_K * PS_CALLS):
+            fail(f"local_sgd: {p['comm']} over {PS_CALLS} calls, "
+                 f"{p['local_steps']} local steps")
+    gossip = [r["gossip"] for r in res]
+    if len({p["digest"] for p in gossip}) != PS_N:
+        fail("gossip: the replicas agree before the consensus")
+    if len({p["consensus_digest"] for p in gossip}) != 1:
+        fail("gossip: the replicas disagree on the consensus")
+    for p in gossip:
+        if p["comm"]["ppermute[data]"][0] != 2 * PS_CALLS:
+            fail(f"gossip: {p['comm']}")
+    # the emulator: the PS on the host, the gradients on the card
+    emulated = {}
+    for mode in ("hogwild", "downpour", "adag"):
+        model = mnist_cnn.MNISTCNN().to(dev).init_weights(seed)
+        em = AsyncPSEmulator(
+            mnist_cnn.make_loss_fn(model), model, n_workers=PS_N, mode=mode,
+            lr=PS_ADAG_LR if mode == "adag" else PS_LR, fetch_period=PS_K,
+            seed=seed)
+        start = time.perf_counter()
+        losses = em.run(iter(synthetic.synthetic_mnist(PS_B, seed=seed)),
+                        PS_EVENTS)
+        emulated[mode] = {"losses_first_last": [losses[0], losses[-1]],
+                          "pushes": em.pushes,
+                          "events_per_s": PS_EVENTS / (
+                              time.perf_counter() - start)}
+        check_falls(f"emulator ({mode})", losses, 8)
+        if mode != "hogwild" and em.pushes != sum(e // PS_K
+                                                  for e in em.events):
+            fail(f"emulator ({mode}): {em.pushes} pushes for events "
+                 f"{em.events}")
+    print(f"async-ps emulator on {kind} (gradients on the card): "
+          + json.dumps(emulated | {"phase_s": time.perf_counter() - t0}),
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1990,6 +2488,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_pipeline_ranks(args.seed, kind)
     check_bert_tp(args.seed, kind)
+    torch.cuda.empty_cache()
+    check_fsdp(args.seed, kind)
+    check_dp_overlap(args.seed, kind)
+    check_sp_tp(args.seed, kind)
+    check_async_ps(args.seed, kind)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

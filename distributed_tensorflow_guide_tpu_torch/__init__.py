@@ -10,7 +10,9 @@ version beside it for the CPU.
 
 Package layout (slices 1-3: the GPT-2 serving path, the training step,
 the process mesh and sequence parallelism; slice 7: the non-LM judged
-configs):
+configs; slice 8: tensor and pipeline parallelism; slice 9: FSDP, the
+bucketed all-reduce, Megatron sequence parallelism, the async-PS
+family):
     core/        device resolution, the process group's bootstrap
                  (dist), the process mesh, precision
     collectives/ psum / pmean / ppermute / all_to_all ... over a mesh axis,
@@ -24,8 +26,12 @@ configs):
                  a classification head: BERT), the LM and classification
                  losses, the one-shot generator and samplers; ResNet with
                  flax's BatchNorm, the MNIST CNN, Wide&Deep
-    parallel/    data parallelism over a mesh axis, gradient accumulation,
-                 sequence parallelism (ring attention, Ulysses)
+    parallel/    data parallelism over a mesh axis (bucketed all-reduce:
+                 overlap), FSDP, tensor parallelism (Megatron SP),
+                 pipeline parallelism, sequence parallelism (ring
+                 attention, Ulysses), LocalSGD / GossipSGD /
+                 AccumulatedAdaptive and the async-PS emulator, gradient
+                 accumulation
     train/       TrainState, hooks, TrainLoop, held-out evaluation
     serve/       paged pool, scheduler, prefix index, engine, CLI
     obs/         flight recorder (copied)

@@ -30,6 +30,15 @@ layers a chunk, ...), row s·v + j holding chunk-stage j·P + s) into the
 flat Transformer state dict, :func:`pipeline_stage_from_flax` gives one
 rank its stage of it, and :func:`pipeline_params_to_flax` is the way
 back.
+
+Data-parallel families: :func:`fsdp_params_from_flax` gives one ``data``
+rank its FSDP shards (through the full state dict and ``shard_spec_for``)
+and :func:`fsdp_params_to_flax` merges every rank's back;
+:func:`gossip_replicas_from_flax` splits the JAX ``GossipSGD``'s
+per-replica tree (leaves (world, ...)) into one state dict a rank, and
+:func:`gossip_replicas_to_flax` stacks them again. Each takes the
+model's own converter pair (``params_from_flax`` with its config,
+``mnist_cnn_from_flax``, ...).
 """
 
 from __future__ import annotations
@@ -130,6 +139,59 @@ def tp_params_from_flax(tree: Mapping, cfg, tp: int, index: int
     )
 
     return shard_state_dict(params_from_flax(tree, cfg), tp, index)
+
+
+def fsdp_params_from_flax(tree: Mapping, from_flax, world: int,
+                          index: int, min_shard_size: int = 2 ** 14
+                          ) -> dict[str, torch.Tensor]:
+    """The FSDP shards of ``data`` rank ``index`` of ``world``:
+    ``from_flax(tree)`` (the full state dict) cut by ``shard_spec_for``,
+    as ``FSDP.shard`` cuts it."""
+    from distributed_tensorflow_guide_tpu_torch.parallel import fsdp
+
+    full = from_flax(tree)
+    specs = fsdp.param_specs(full, world, min_shard_size)
+    return fsdp.shard_state_dict(full, specs, world, index)
+
+
+def fsdp_params_to_flax(parts: list[Mapping], to_flax, specs: Mapping
+                        ) -> dict:
+    """Every ``data`` rank's FSDP shards (in rank order, the layout
+    ``specs``, ``FSDP.specs``) -> the full flax tree."""
+    from distributed_tensorflow_guide_tpu_torch.parallel import fsdp
+
+    return to_flax(fsdp.merge_shards(parts, specs))
+
+
+def gossip_replicas_from_flax(tree: Mapping, from_flax
+                              ) -> list[dict[str, torch.Tensor]]:
+    """The JAX ``GossipSGD`` parameters (every leaf (world, ...), one row
+    a replica) -> one state dict a rank."""
+    world = len(next(iter(_leaves(tree))))
+    return [from_flax(_tree_map(lambda a, r=r: np.asarray(a)[r], tree))
+            for r in range(world)]
+
+
+def gossip_replicas_to_flax(replicas: list[Mapping], to_flax) -> dict:
+    """One state dict a rank -> the JAX ``GossipSGD``'s tree, the
+    replicas stacked on a leading axis."""
+    trees = [to_flax(sd) for sd in replicas]
+
+    def stack(path):
+        nodes = [_at(t, path) for t in trees]
+        if isinstance(nodes[0], Mapping):
+            return {k: stack(path + (k,)) for k in nodes[0]}
+        return np.stack(nodes)
+
+    return stack(())
+
+
+def _leaves(tree):
+    if isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _chunk_order(n_stages: int, virtual_chunks: int, layers_per_chunk: int

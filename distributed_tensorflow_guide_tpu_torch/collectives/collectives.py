@@ -26,6 +26,12 @@ other than the all-reductions copy the message through pinned host memory
 and back (logged once); nothing else leaves the card. Over NCCL the same
 call is a device-to-device transfer: which one runs is a property of the
 group the caller built, not a fallback.
+
+Megatron sequence parallelism adds a second conjugate pair,
+``sp_all_gather`` (all-gather forward, reduce-scatter of the sum backward)
+and ``sp_reduce_scatter`` (reduce-scatter of the sum forward, all-gather
+backward): the same bytes on the wire as ``tp_identity`` and
+``tp_allreduce``, with the stream between them cut along a dimension.
 """
 
 from __future__ import annotations
@@ -59,9 +65,10 @@ class CommTrace:
     """Executed collective calls, payload bytes and wire bytes, keyed
     ``"op[axis]"``. Payload is what this rank hands the op; wire is what it
     sends: 2·P·(n−1)/n for an all-reduce (ring reduce-scatter + all-gather,
-    ``benchmarks/common.py`` ``dp_allreduce_bytes``) and for
-    ``reduce_scatter``, which runs as one; P·(n−1)/n for an all-to-all,
-    P·(n−1) for an all-gather, P per destination for a permutation."""
+    ``benchmarks/common.py`` ``dp_allreduce_bytes``); P·(n−1)/n for a
+    reduce-scatter (one pass of the ring, ``lax.psum_scatter``'s) and for
+    an all-to-all; P·(n−1) for an all-gather; P per destination for a
+    permutation."""
 
     calls: dict[str, int] = dataclasses.field(
         default_factory=lambda: defaultdict(int))
@@ -197,43 +204,74 @@ def pmax(x, axis: str, *, mesh: Mesh | None = None):
     return _all_reduce(x, ax, dist.ReduceOp.MAX, mean=False)
 
 
+def _all_gather(x: torch.Tensor, ax: AxisGroup, *, tiled: bool,
+                gather_axis: int) -> torch.Tensor:
+    """One ``all_gather_into_tensor`` of ``x`` over ``ax`` (records
+    nothing): every rank's ``x`` stacked on a new dim ``gather_axis``, or
+    concatenated along it with ``tiled``."""
+    n = ax.size
+    # stacked: every rank sends x with a leading dim of 1, so that the
+    # concatenation along dim 0 is the stack (gloo takes only that form)
+    send = (x.detach().movedim(gather_axis, 0) if tiled
+            else x.detach().unsqueeze(0)).contiguous()
+    if n == 1:
+        return send.movedim(0, gather_axis).contiguous()
+    staged = _staged(ax, send)
+    if staged:
+        send = _to_host(send)
+    out = torch.empty((n * send.shape[0], *send.shape[1:]),
+                      dtype=send.dtype, device=send.device)
+    dist.all_gather_into_tensor(out, send, group=ax.group)
+    if staged:
+        out = out.to(x.device)
+    # (n * d, ...) or (n, ...), moved to gather_axis
+    return out.movedim(0, gather_axis).contiguous()
+
+
 def all_gather(x: torch.Tensor, axis: str, *, tiled: bool = False,
                gather_axis: int = 0, mesh: Mesh | None = None):
     """Every rank's ``x`` along ``axis``: stacked on a new dim
-    ``gather_axis``, or concatenated along it with ``tiled=True``."""
+    ``gather_axis``, or concatenated along it with ``tiled=True``. One
+    ``all_gather_into_tensor``."""
     ax = resolve_axis(axis, mesh)
     _record("all_gather", ax, x, float(ax.size - 1))
-    x = x.detach()
-    if ax.size == 1:
-        parts = [x]
-    else:
-        send = x.contiguous()
-        staged = _staged(ax, send)
-        if staged:
-            send = _to_host(send)
-        parts = [torch.empty_like(send) for _ in range(ax.size)]
-        dist.all_gather(parts, send, group=ax.group)
-        if staged:
-            parts = [p.to(x.device) for p in parts]
-    if tiled:
-        return torch.cat(parts, dim=gather_axis)
-    return torch.stack(parts, dim=gather_axis)
+    return _all_gather(x, ax, tiled=tiled, gather_axis=gather_axis)
 
 
-def reduce_scatter(x: torch.Tensor, axis: str, *, scatter_axis: int = 0,
-                   mesh: Mesh | None = None):
-    """The sum over ``axis``, of which this rank keeps its
-    ``1/n`` slice along ``scatter_axis`` (``lax.psum_scatter``, tiled).
-    Runs as an all-reduce and a slice, so it puts an all-reduce's bytes on
-    the wire and records them."""
-    ax = resolve_axis(axis, mesh)
+def _reduce_scatter(x: torch.Tensor, ax: AxisGroup,
+                    scatter_axis: int) -> torch.Tensor:
+    """The sum over ``ax`` of which this rank keeps its slice: one
+    ``reduce_scatter_tensor`` over ``x`` with ``scatter_axis`` moved
+    first."""
     n = ax.size
     if x.shape[scatter_axis] % n:
         raise ValueError(f"dim {scatter_axis} of {tuple(x.shape)} does not "
                          f"divide by the axis size {n}")
-    _record("reduce_scatter", ax, x, _reduce_wire(n))
-    total = _all_reduce(x, ax, dist.ReduceOp.SUM, mean=False)
-    return total.chunk(n, dim=scatter_axis)[ax.index].contiguous()
+    if n == 1:
+        return x.detach().clone()
+    send = x.detach().movedim(scatter_axis, 0).contiguous()
+    staged = _staged(ax, send)
+    if staged:
+        send = _to_host(send)
+    out = torch.empty((send.shape[0] // n, *send.shape[1:]),
+                      dtype=send.dtype, device=send.device)
+    dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM,
+                               group=ax.group)
+    if staged:
+        out = out.to(x.device)
+    return out.movedim(0, scatter_axis).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, axis: str, *, scatter_axis: int = 0,
+                   mesh: Mesh | None = None):
+    """The sum over ``axis``, of which this rank keeps its ``1/n`` slice
+    along ``scatter_axis`` (``lax.psum_scatter``, tiled): one
+    ``reduce_scatter_tensor``, one pass of the ring, P·(n−1)/n on the
+    wire."""
+    ax = resolve_axis(axis, mesh)
+    out = _reduce_scatter(x, ax, scatter_axis)
+    _record("reduce_scatter", ax, x, (ax.size - 1) / ax.size)
+    return out
 
 
 # ---- permutation and all-to-all ---------------------------------------------
@@ -408,3 +446,72 @@ def tp_identity(x: torch.Tensor, axis: str, *,
     if ax.size > 1 and torch.is_grad_enabled() and x.requires_grad:
         return _TPIdentity.apply(x, ax)
     return x
+
+
+# ---- Megatron sequence parallelism's pair -----------------------------------
+#
+# Under sequence parallelism the residual stream between the sub-layers is
+# cut along the sequence over ``model``. The column-parallel product needs
+# the whole sequence: ``sp_all_gather`` gathers it forward and, backward,
+# sums the shards' partial cotangents and hands each rank its slice (a
+# reduce-scatter: ``f``'s psum cut in half). After the row-parallel
+# product ``sp_reduce_scatter`` sums the partial outputs and keeps this
+# rank's slice forward (``g``'s psum cut in half) and gathers the
+# cotangent backward. Each pair moves what one all-reduce of the full
+# activation moves: P·(n−1)/n forward and as much backward.
+
+
+class _SPAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _all_gather(x, ax, tiled=True, gather_axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.ax.size
+        _record("reduce_scatter_bwd", ctx.ax, g, (n - 1) / n)
+        return _reduce_scatter(g, ctx.ax, ctx.dim), None, None
+
+
+class _SPReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _reduce_scatter(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        _record("all_gather_bwd", ctx.ax, g, float(ctx.ax.size - 1))
+        return _all_gather(g, ctx.ax, tiled=True,
+                           gather_axis=ctx.dim), None, None
+
+
+def sp_all_gather(x: torch.Tensor, axis: str, *, dim: int = 1,
+                  mesh: Mesh | None = None) -> torch.Tensor:
+    """Sequence parallelism's gather: this rank's slice of ``x`` along
+    ``dim`` -> the whole of it forward; the sum of the cotangents, cut
+    back to this rank's slice, backward (recorded as
+    ``reduce_scatter_bwd``)."""
+    ax = resolve_axis(axis, mesh)
+    _record("all_gather", ax, x, float(ax.size - 1))
+    if ax.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SPAllGather.apply(x, ax, dim)
+    return _all_gather(x, ax, tiled=True, gather_axis=dim)
+
+
+def sp_reduce_scatter(x: torch.Tensor, axis: str, *, dim: int = 1,
+                      mesh: Mesh | None = None) -> torch.Tensor:
+    """Sequence parallelism's scatter: the sum of every rank's ``x``, of
+    which this rank keeps its slice along ``dim``, forward; the gathered
+    cotangent backward (recorded as ``all_gather_bwd``)."""
+    ax = resolve_axis(axis, mesh)
+    n = ax.size
+    _record("reduce_scatter", ax, x, (n - 1) / n)
+    if n == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SPReduceScatter.apply(x, ax, dim)
+    return _reduce_scatter(x, ax, dim)

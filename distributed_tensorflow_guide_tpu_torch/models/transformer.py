@@ -29,6 +29,17 @@ shard (``vocab_size`` of the local config is V / tp): the embedding looks
 up the tokens its shard owns and sums the shards (``vocab_parallel_embed``),
 and the LM logits are the shard's columns.
 
+Megatron sequence parallelism (``cfg.tp_sequence``, the JAX package's
+``MEGATRON_SP_RULES``): between the sub-layers the residual stream is
+this rank's slice of the sequence, (B, S / tp, D), and so are LayerNorm,
+the residual adds and the positions added. ``collectives.sp_all_gather``
+takes the place of ``f`` (all-gather along S forward, reduce-scatter
+backward) and ``sp_reduce_scatter`` that of ``g``; the embedding's sum is
+a reduce-scatter, and the final LayerNorm's output is all-gathered before
+the head. Attention runs on the whole sequence at the local heads. The
+LayerNorms' and ``pos_emb``'s gradients then hold only this slice's part:
+``parallel/tensor.py`` sums them over ``model``.
+
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
 chunk's rows into it **in place**, so a step function holds one copy of
@@ -108,6 +119,8 @@ class TransformerConfig:
     # the global head dim pinned by ``override_head_dim``
     tp_axis: str | None = None
     override_head_dim: int | None = None
+    # Megatron sequence parallelism between the sub-layers (with tp_axis)
+    tp_sequence: bool = False
     # not served yet: setting any of these raises (see _DEFERRED)
     lora_rank: int | None = None
     moe_experts: int | None = None
@@ -136,6 +149,11 @@ class TransformerConfig:
         if (self.paged_num_blocks is None) != (self.paged_block_size is None):
             raise ValueError(
                 "paged_num_blocks and paged_block_size must be set together")
+        if self.tp_sequence and (self.tp_axis is None or self.decode
+                                 or self.num_classes is not None):
+            raise ValueError(
+                "tp_sequence needs tp_axis, and takes neither the decode "
+                "views nor a classification head")
         if self.num_classes is not None and self.decode:
             raise ValueError(
                 "a classification config (num_classes) has no serving "
@@ -244,6 +262,28 @@ def _linear(x, weight, bias=None, dtype=None):
     return F.linear(x.to(dtype), weight.to(dtype), b)
 
 
+def _tp_enter(x, cfg: TransformerConfig):
+    """A sub-layer's input under tensor parallelism: Megatron's ``f``
+    (identity forward, psum backward), or under sequence parallelism the
+    all-gather along S (reduce-scatter backward)."""
+    if not cfg.tp_axis:
+        return x
+    if cfg.tp_sequence:
+        return cc.sp_all_gather(x, cfg.tp_axis, dim=1)
+    return cc.tp_identity(x, cfg.tp_axis)
+
+
+def _tp_leave(y, cfg: TransformerConfig):
+    """A sub-layer's row-parallel output: Megatron's ``g`` (psum forward,
+    identity backward), or under sequence parallelism the reduce-scatter
+    along S (all-gather backward)."""
+    if not cfg.tp_axis:
+        return y
+    if cfg.tp_sequence:
+        return cc.sp_reduce_scatter(y, cfg.tp_axis, dim=1)
+    return cc.tp_allreduce(y, cfg.tp_axis)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -255,10 +295,9 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, index=None, *, cache=None, block_tables=None):
         cfg = self.cfg
+        x = _tp_enter(x, cfg)
         B, S, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
-        if cfg.tp_axis:  # Megatron f: identity forward, psum backward
-            x = cc.tp_identity(x, cfg.tp_axis)
         qkv = _linear(x, self.qkv.weight, dtype=cfg.dtype)
         qkv = qkv.view(B, S, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, hd)
@@ -273,9 +312,7 @@ class MultiHeadAttention(nn.Module):
             out = self._dense_attend(q, k, v)
         out = _linear(out.reshape(B, S, h * hd), self.proj.weight,
                       dtype=cfg.dtype)
-        if cfg.tp_axis:  # Megatron g after the row-parallel proj
-            out = cc.tp_allreduce(out, cfg.tp_axis)
-        return out
+        return _tp_leave(out, cfg)  # after the row-parallel proj
 
     def _dense_attend(self, q, k, v):
         """Training view: scores at cfg.dtype, causal mask with the
@@ -368,14 +405,11 @@ class MLP(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        if cfg.tp_axis:  # Megatron f
-            x = cc.tp_identity(x, cfg.tp_axis)
-        y = _linear(x, self.up.weight, self.up.bias, dtype=cfg.dtype)
+        y = _linear(_tp_enter(x, cfg), self.up.weight, self.up.bias,
+                    dtype=cfg.dtype)
         y = F.gelu(y, approximate="tanh")
         y = _linear(y, self.down.weight, dtype=cfg.dtype)
-        if cfg.tp_axis:  # Megatron g after the row-parallel down
-            y = cc.tp_allreduce(y, cfg.tp_axis)
-        return y
+        return _tp_leave(y, cfg)  # after the row-parallel down
 
 
 class Block(nn.Module):
@@ -502,10 +536,14 @@ class Transformer(nn.Module):
         dt = cfg.dtype
         if cfg.tp_axis:
             x = vocab_parallel_embed(tokens, self.tok_emb.weight,
-                                     cfg.tp_axis, dt)
+                                     cfg.tp_axis, dt,
+                                     sequence_parallel=cfg.tp_sequence)
         else:
             x = self.tok_emb(tokens).to(dt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
+        if cfg.tp_sequence:  # this rank's slice of the sequence
+            ax = resolve_axis(cfg.tp_axis)
+            positions = positions.chunk(ax.size)[ax.index]
         if cfg.decode:
             # the engine passes one position per request (B,); the
             # one-shot generator a single int
@@ -523,6 +561,8 @@ class Transformer(nn.Module):
                 x = blk(x, index, cache=None if cache is None else cache[i],
                         block_tables=block_tables)
         x = self.ln_f(x)
+        if cfg.tp_sequence:  # the whole sequence into the head
+            x = cc.sp_all_gather(x, cfg.tp_axis, dim=1)
         if return_hidden:  # the fused-CE loss applies the head itself
             return x
         if cfg.num_classes is not None:  # [CLS] pooling
@@ -531,30 +571,38 @@ class Transformer(nn.Module):
         return _linear(x, self.lm_head.weight, dtype=torch.float32)
 
 
-def vocab_parallel_embed(tokens, weight, axis: str, dtype):
+def vocab_parallel_embed(tokens, weight, axis: str, dtype, *,
+                         sequence_parallel: bool = False):
     """Megatron's parallel embedding: ``weight`` is this rank's (V / tp,
     D) slice of the token table along ``axis``; each rank looks up the
     tokens that fall in its slice (zeros elsewhere), casts to ``dtype``
     and ``tp_allreduce`` sums the shards, so each shard's rows get exactly
-    their own cotangents."""
+    their own cotangents. With ``sequence_parallel`` the sum is a
+    reduce-scatter along S: this rank keeps its slice of the sequence."""
     v_local = weight.shape[0]
     local = tokens.long() - resolve_axis(axis).index * v_local
     ok = (local >= 0) & (local < v_local)
     e = (weight[local.clamp(0, v_local - 1)]
          * ok[..., None].to(weight.dtype)).to(dtype)
+    if sequence_parallel:
+        return cc.sp_reduce_scatter(e, axis, dim=1)
     return cc.tp_allreduce(e, axis)
 
 
-def vocab_parallel_next_token_loss(x, weight, tokens, axis: str):
+def vocab_parallel_next_token_loss(x, weight, tokens, axis: str, *,
+                                   sum_dx: bool = True):
     """Megatron's vocab-parallel next-token cross-entropy over full
     logits of this rank's vocabulary shard: ``x`` (B, S, D) post-LN,
     ``weight`` (V / tp, D) the shard of the LM head, ``tokens`` (B, S)
     global ids. The max, the sum of exponentials and the target logit
     are assembled over ``axis`` (the max without a gradient, exact for a
     log-sum-exp); ``x`` passes ``tp_identity`` so that its gradient sums
-    every shard's part. The loss is the mean over B * (S - 1) targets."""
+    every shard's part, unless ``sum_dx`` is False (sequence parallelism:
+    ``x``'s own gather sums it). The loss is the mean over B * (S - 1)
+    targets."""
     v_local = weight.shape[0]
-    x = cc.tp_identity(x, axis)
+    if sum_dx:
+        x = cc.tp_identity(x, axis)
     z = _linear(x[:, :-1], weight, dtype=torch.float32)  # (B, S-1, V/tp)
     targets = tokens[:, 1:].long()
     m = cc.pmax(z.detach().amax(dim=-1), axis)
@@ -585,7 +633,9 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
     A tensor-parallel ``model`` (``cfg.tp_axis``) holds a vocabulary shard
     of the LM head: the fused loss then runs vocab-parallel
     (``axis=cfg.tp_axis``) and the full-logits one becomes
-    :func:`vocab_parallel_next_token_loss`.
+    :func:`vocab_parallel_next_token_loss`. Under sequence parallelism
+    (``cfg.tp_sequence``) the hidden states' gather sums their gradient,
+    so the loss leaves it to it.
     """
     from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
         fused_next_token_loss,
@@ -595,17 +645,19 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
     use_fused = resolve_fused_ce(fused_ce, vocab_size=model.cfg.vocab_size,
                                  platform=model.device.type)
     axis = model.cfg.tp_axis
+    sum_dx = not model.cfg.tp_sequence
 
     def loss_fn(module, batch):
         tokens = batch["tokens"]
         if use_fused:
             hidden = module(tokens, return_hidden=True)
             loss = fused_next_token_loss(hidden, module.lm_head.weight.t(),
-                                         tokens, chunk=ce_chunk, axis=axis)
+                                         tokens, chunk=ce_chunk, axis=axis,
+                                         sum_dx=sum_dx)
         elif axis:
             hidden = module(tokens, return_hidden=True)
             loss = vocab_parallel_next_token_loss(
-                hidden, module.lm_head.weight, tokens, axis)
+                hidden, module.lm_head.weight, tokens, axis, sum_dx=sum_dx)
         else:
             logits = module(tokens)  # (B, S, V) float32
             logp = torch.log_softmax(logits[:, :-1], dim=-1)

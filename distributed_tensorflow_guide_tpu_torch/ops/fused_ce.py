@@ -16,7 +16,9 @@ largest loss intermediate in the forward or the backward is one
   kernel with global target ids (offset ``axis_index * V / tp``); the
   forward assembles ``lse`` and the target logit with a pmax and two psums
   (Megatron's scalar-field triple), and the backward psums ``dx``, while
-  ``dW`` stays on its shard.
+  ``dW`` stays on its shard. Under Megatron sequence parallelism the
+  input's own backward (a reduce-scatter) sums ``dx``: ``sum_dx=False``
+  leaves it to it.
 
 This is plain PyTorch, as the JAX package's version is plain jnp: the
 chunk matmuls go to the library's GEMMs.
@@ -80,10 +82,10 @@ def _dot_f32(a, b, ct):
 class _FusedNLL(torch.autograd.Function):
     """SUM of the NLL over the N rows of ``x`` (N, D) against ``kernel``
     (D, V_local) and ``targets`` (N,); ``ax`` the vocab-parallel axis or
-    None."""
+    None; ``sum_dx``: psum ``dx`` over ``ax`` in the backward."""
 
     @staticmethod
-    def forward(ctx, x, kernel, targets, chunk, ax):
+    def forward(ctx, x, kernel, targets, chunk, ax, sum_dx):
         n = x.shape[0]
         ct = x.dtype
         offset = ax.index * kernel.shape[1] if ax is not None else 0
@@ -111,7 +113,7 @@ class _FusedNLL(torch.autograd.Function):
             m = mg
         lse = torch.log(s) + m
         ctx.save_for_backward(x, kernel, targets, lse)
-        ctx.chunk, ctx.ax = chunk, ax
+        ctx.chunk, ctx.ax, ctx.sum_dx = chunk, ax, sum_dx
         return (lse - zt).sum()
 
     @staticmethod
@@ -135,14 +137,15 @@ class _FusedNLL(torch.autograd.Function):
             del p
             dx += _dot_f32(dz, w_c.t(), ct)
             dw[:, lo:hi] = _dot_f32(x.t(), dz, ct)
-        if ctx.ax is not None:
+        if ctx.ax is not None and ctx.sum_dx:
             # dx sums every shard's part; dW is the shard's own gradient
             dx = cc.psum(dx, ctx.ax)
-        return dx.to(x.dtype), dw.to(kernel.dtype), None, None, None
+        return dx.to(x.dtype), dw.to(kernel.dtype), None, None, None, None
 
 
 def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
-                        axis: str | None = None, reduction: str = "mean"):
+                        axis: str | None = None, reduction: str = "mean",
+                        sum_dx: bool = True):
     """Chunked cross-entropy ``-log softmax(x @ kernel)[targets]``.
 
     x: ``(..., D)`` activations (post-LN); kernel: ``(D, V_local)``, the
@@ -152,6 +155,8 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
     (default) or sum NLL as a 0-d f32 tensor, the same on every rank of
     ``axis``; no ``(N, V)`` tensor is live in the forward or the backward.
     ``chunk=None`` takes ``DEFAULT_CE_CHUNK`` clipped to V_local.
+    ``sum_dx=False`` (with ``axis``) leaves ``x``'s gradient as this
+    shard's part, for an ``x`` whose own backward sums it.
     """
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got "
@@ -169,7 +174,7 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
     v = kernel.shape[1]
     chunk = max(1, min(int(chunk or DEFAULT_CE_CHUNK), v))
     ax = None if axis is None else resolve_axis(axis)
-    total = _FusedNLL.apply(x2, kernel, t1, chunk, ax)
+    total = _FusedNLL.apply(x2, kernel, t1, chunk, ax, sum_dx)
     if reduction == "sum":
         return total
     return total / x2.shape[0]
@@ -177,9 +182,9 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
 
 def fused_next_token_loss(x, kernel, tokens, *, chunk: int | None = None,
                           axis: str | None = None,
-                          reduction: str = "mean"):
+                          reduction: str = "mean", sum_dx: bool = True):
     """Next-token LM loss from pre-head hidden states: positions ``:-1``
     predict tokens ``1:``."""
     return fused_cross_entropy(
         x[:, :-1], kernel, tokens[:, 1:], chunk=chunk, axis=axis,
-        reduction=reduction)
+        reduction=reduction, sum_dx=sum_dx)

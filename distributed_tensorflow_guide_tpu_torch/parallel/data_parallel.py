@@ -15,6 +15,12 @@ run the module in train or eval mode, and the train step averages the
 running statistics over the axis after each update, so that every replica
 holds the same ones: the MultiWorkerMirroredStrategy behaviour.
 
+``overlap=True`` moves the gradient all-reduce into the backward, one
+async all-reduce per byte-budgeted bucket of parameters
+(``parallel/overlap.py``); the step waits on them before the update and
+skips its monolithic ``pmean``. The gradients are the same bits at two
+ranks. ``"auto"`` is on where the ``data`` group runs over NCCL.
+
 Metrics leave the step as 0-d device tensors: nothing in the step forces
 a host sync; a hook that reads a value pays for it.
 """
@@ -33,6 +39,7 @@ from distributed_tensorflow_guide_tpu_torch.core.mesh import (
     Mesh,
     single_device_mesh,
 )
+from distributed_tensorflow_guide_tpu_torch.parallel import overlap as ov
 from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     LossFn,
     accumulate_grads,
@@ -55,13 +62,23 @@ class DataParallel:
     versions of the kernels. The state's module must already live on that
     device, with the same parameters on every rank; each rank's batch is
     its own share of the global batch and is moved there.
+
+    ``overlap`` ("auto" | True | False, default off): the bucketed
+    backward all-reduce, ``bucket_bytes`` a bucket
+    (``overlap.DEFAULT_BUCKET_BYTES`` when None). ``compress`` takes only
+    None / "off" ("int8" raises ``NotImplementedError``).
     """
 
     def __init__(self, mesh: Mesh | None = None, axis: str = "data", *,
-                 device=None):
+                 overlap="off", bucket_bytes: int | None = None,
+                 compress=None, device=None):
         self.mesh = mesh if mesh is not None else single_device_mesh()
         self.axis = axis
-        self.mesh.axis(axis)  # an axis the mesh has
+        ax = self.mesh.axis(axis)  # an axis the mesh has
+        self.overlap = ov.resolve_overlap(overlap,
+                                          backend=ov.axis_backend(ax))
+        self.bucket_bytes = bucket_bytes
+        ov.resolve_compress(compress)  # only None / "off" is ported
         self.device = resolve_device(device)
 
     def _check(self, state):
@@ -79,15 +96,33 @@ class DataParallel:
         rank's batch into that many equal microbatches and averages their
         gradients first: the full batch's numerics, with activation memory
         divided by ``accum_steps``, and still one all-reduce per step. The
-        batch length must divide by it.
+        batch length must divide by it. It cannot be combined with
+        ``overlap``, which would all-reduce every microbatch.
         """
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if self.overlap and accum_steps > 1:
+            raise ValueError(
+                "overlap=True is incompatible with accum_steps > 1: the "
+                "bucketed backward reduces each microbatch's gradients, "
+                "which multiplies the all-reduce traffic by "
+                f"accum_steps={accum_steps}")
 
         def step(state, batch):
             self._check(state)
             batch = to_device(batch, self.device)
-            if accum_steps == 1:
+            if self.overlap:  # the backward reduces them, bucket by bucket
+                pending = []  # this step's buckets
+                bucketed = ov.bucketed_loss_fn(
+                    loss_fn, self.axis, self.bucket_bytes, pending=pending,
+                    mesh=self.mesh)
+                try:
+                    (loss, mets), grads = value_and_grad(
+                        bucketed, state.model, batch)
+                    ov.wait_buckets(pending)
+                finally:
+                    ov.drop_buckets(pending)  # the hooks of a step that raised
+            elif accum_steps == 1:
                 (loss, mets), grads = value_and_grad(loss_fn, state.model,
                                                      batch)
             else:
@@ -103,12 +138,20 @@ class DataParallel:
                     loss_fn, state.model, micro, accum_steps)
                 loss = losses.mean()
                 mets = {k: v.mean() for k, v in metas.items()}
-            grads = cc.pmean(grads, self.axis, mesh=self.mesh)
+            if not self.overlap:
+                grads = cc.pmean(self.complete_grads(grads), self.axis,
+                                 mesh=self.mesh)
             state = state.apply_gradients(grads)
             return state, cc.pmean({"loss": loss, **mets}, self.axis,
                                    mesh=self.mesh)
 
         return step
+
+    def complete_grads(self, grads: dict) -> dict:
+        """This rank's gradients, made whole before the average over the
+        axis: here they already are (``TensorParallel`` sums its
+        sequence-parallel ones)."""
+        return grads
 
     def make_train_step_with_stats(self, loss_fn: LossFn):
         """``(state, batch) -> (state, {"loss", **metrics})`` for a module

@@ -22,8 +22,18 @@ layout and the collectives are stated here:
   has its full gradient on every ``model`` rank (through ``f``), so no
   other reduction is added.
 
-Megatron's sequence parallelism (the JAX package's ``MEGATRON_SP_RULES``)
-is not ported yet.
+Megatron sequence parallelism (``rules=MEGATRON_SP_RULES``, Korthikanti
+et al. 2022): between the TP sub-layers the residual stream, and with it
+LayerNorm, the residual adds and the positions, is cut along the sequence
+over ``model`` (``TransformerConfig.tp_sequence``). An all-gather along S
+(reduce-scatter backward) replaces ``f`` before ``qkv`` and ``up``, a
+reduce-scatter (all-gather backward) replaces ``g`` after ``proj`` and
+``down``: the same bytes on the wire as the all-reduces they replace,
+with the stream's activation memory divided by tp. Attention still sees
+the whole sequence (the JAX rules' ``seq_inner``). The LayerNorms and
+``pos_emb`` see only their slice's rows, so their gradients are partial:
+the step sums them over ``model`` (one ``psum``), where GSPMD inserts
+that sum in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +53,28 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
 )
 from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
     DataParallel,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
+    value_and_grad,
+)
+
+# logical axis name -> mesh axis, the JAX package's rules; only these two
+# are taken. Under both, heads, mlp and vocab go to "model" and batch to
+# "data"; MEGATRON_SP_RULES also maps the residual stream's "seq" there.
+DEFAULT_RULES = (
+    ("batch", "data"),
+    ("seq", None),
+    ("seq_inner", None),
+    ("embed", None),
+    ("qkv", None),
+    ("mlp", "model"),
+    ("heads", "model"),
+    ("kv", None),
+    ("vocab", "model"),
+)
+MEGATRON_SP_RULES = tuple(
+    ("seq", "model") if name == "seq" else (name, axis)
+    for name, axis in DEFAULT_RULES
 )
 
 # the dim each sharded parameter is cut along, by the end of its name
@@ -103,15 +135,18 @@ def shard_state_dict(sd: Mapping[str, torch.Tensor], tp: int,
     return {n: shard_tensor(n, t, tp, index) for n, t in sd.items()}
 
 
-def local_config(cfg: TransformerConfig, tp: int) -> TransformerConfig:
+def local_config(cfg: TransformerConfig, tp: int, *,
+                 sequence_parallel: bool = False) -> TransformerConfig:
     """The config of one rank's module: ``cfg.tp_local`` (local heads and
     ff, global head dim, the f/g pair on ``model``) with the vocabulary
-    shard's ``vocab_size`` V / tp."""
+    shard's ``vocab_size`` V / tp, and ``tp_sequence`` under sequence
+    parallelism."""
     if cfg.vocab_size % tp:
         raise ValueError(f"vocab_size {cfg.vocab_size} must divide by tp "
                          f"{tp} (vocab-parallel embedding and head)")
     return dataclasses.replace(cfg.tp_local(tp, "model"),
-                               vocab_size=cfg.vocab_size // tp)
+                               vocab_size=cfg.vocab_size // tp,
+                               tp_sequence=sequence_parallel)
 
 
 def gather_state_dict(local: Mapping[str, torch.Tensor], mesh: Mesh
@@ -129,14 +164,22 @@ class TensorParallel(DataParallel):
     """Tensor-parallel train and eval steps over ``mesh``'s ``model``
     axis, data-parallel over its ``data`` axis.
 
+    ``rules``: :data:`DEFAULT_RULES` or :data:`MEGATRON_SP_RULES` (the
+    sequence-parallel stream; the sequence must divide by tp).
     ``device=None`` is this rank's CUDA card (raises without one);
     ``device="cpu"`` runs the plain versions of the kernels. Build the
     rank's module with :meth:`shard`; each rank's batch is the share of
     its ``data`` index, the same on every rank of a ``model`` group.
     """
 
-    def __init__(self, mesh: Mesh, *, device=None):
+    def __init__(self, mesh: Mesh, rules=DEFAULT_RULES, *, device=None):
+        rules = tuple(tuple(r) for r in rules)
+        if rules not in (DEFAULT_RULES, MEGATRON_SP_RULES):
+            raise ValueError("rules must be DEFAULT_RULES or "
+                             "MEGATRON_SP_RULES")
         super().__init__(mesh, "data", device=device)
+        self.rules = rules
+        self.sequence_parallel = rules == MEGATRON_SP_RULES
         ax = mesh.axis("model")
         self.tp, self.index = ax.size, ax.index
 
@@ -149,7 +192,8 @@ class TensorParallel(DataParallel):
     def shard(self, model: Transformer) -> Transformer:
         """This rank's module: the ``tp_local`` Transformer holding its
         shards of ``model``'s parameters, on the step's device."""
-        cfg = local_config(model.cfg, self.tp)
+        cfg = local_config(model.cfg, self.tp,
+                           sequence_parallel=self.sequence_parallel)
         with torch.device("meta"):
             local = Transformer(cfg)
         local.load_state_dict(self.shard_state_dict(
@@ -161,6 +205,23 @@ class TensorParallel(DataParallel):
                ) -> dict[str, torch.Tensor]:
         """The full state dict (or gradients) from every rank's shards."""
         return gather_state_dict(local, self.mesh)
+
+    def complete_grads(self, grads: dict) -> dict:
+        """Under sequence parallelism the replicated parameters'
+        gradients (the LayerNorms', ``pos_emb``'s) hold only this slice of
+        the sequence's part: one ``psum`` over ``model`` makes them
+        whole. Call inside ``with mesh:``."""
+        if self.sequence_parallel and self.tp > 1:
+            grads.update(cc.psum({n: g for n, g in grads.items()
+                                  if split_dim(n) is None}, "model"))
+        return grads
+
+    def value_and_grad(self, loss_fn, module, batch):
+        """((loss, metrics), gradients) of this rank's batch, whole on the
+        ``model`` group and not yet averaged over ``data``."""
+        with self.mesh:
+            out, grads = value_and_grad(loss_fn, module, batch)
+            return out, self.complete_grads(grads)
 
     def _in_mesh(self, step):
         def run(*args):

@@ -171,8 +171,9 @@ def test_collective_matches_numpy(job, op):
 
 def test_trace_counts_executed_calls_and_wire_bytes(job):
     """One record per executed call: payload is what the rank hands the
-    op, wire what it sends (ring all-reduce 2P(n-1)/n, all-gather P(n-1),
-    all-to-all P(n-1)/n, a permutation P per destination). The two
+    op, wire what it sends (ring all-reduce 2P(n-1)/n, reduce-scatter and
+    all-to-all P(n-1)/n, all-gather P(n-1), a permutation P per
+    destination). The two
     differentiable ops record their backward calls as well."""
     p = 4 * 6 * 4  # one (4, 6) f32 input
     tr = job[0]["trace_collectives"]
@@ -181,7 +182,8 @@ def test_trace_counts_executed_calls_and_wire_bytes(job):
         "pmean[data]": (1, p, 1.5 * p),
         "pmax[data]": (1, p, 1.5 * p),
         "all_gather[data]": (2, 2 * p, 3.0 * 2 * p),
-        "reduce_scatter[data]": (1, p, 1.5 * p),
+        # one pass of the ring: P(n-1)/n
+        "reduce_scatter[data]": (1, p, p * (N - 1) / N),
         # ring_shift, the partial perm, ring_shift forward and backward
         "ppermute[data]": (4, 4 * p, 4.0 * p),
         # all_to_all, then forward and backward of the differentiated one

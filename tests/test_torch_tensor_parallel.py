@@ -17,7 +17,13 @@ a (data=2, model=2) mesh) runs every case; the tests compare here:
   of the conftest's 8 fake devices, from bridged weights;
 * replicated parameters get the same gradient on both ``model`` ranks;
 * the flash path under TP (the kernels' plain versions on the CPU)
-  against dense attention.
+  against dense attention;
+* Megatron sequence parallelism (``rules=MEGATRON_SP_RULES``): the LM's
+  loss and gradients against the default rules' on the same weights, one
+  SGD step against the JAX ``TensorParallel(rules=MEGATRON_SP_RULES)``
+  step, the replicated parameters' gradients summed over ``model``, and
+  the gather/scatter pairs' wire bytes against the all-reduces they
+  replace.
 
 Tolerances, float32: the f/g pair and the CE case 1e-6 absolute and
 relative (sums of two values); the sharded model against the unsharded
@@ -25,7 +31,9 @@ one and the flash path against dense 1e-6 absolute, 1e-5 relative (the
 shards' partial products summed in another order); against JAX the
 tests/test_pipeline.py tolerances, loss ``rtol=1e-5``, parameters after
 one SGD 0.1 step ``rtol=1e-4, atol=1e-6``. Replicated gradients across
-``model`` are bitwise equal.
+``model`` are bitwise equal. Sequence-parallel against default-rules
+gradients: the sharded-model tolerance (the same partial products, summed
+over other slices of the sequence). Wire bytes are exact.
 """
 
 import jax
@@ -39,6 +47,9 @@ from jax.sharding import Mesh
 
 from distributed_tensorflow_guide_tpu.models import transformer as jtf
 from distributed_tensorflow_guide_tpu.parallel.tensor import (
+    MEGATRON_SP_RULES as J_SP_RULES,
+)
+from distributed_tensorflow_guide_tpu.parallel.tensor import (
     TensorParallel as JTensorParallel,
 )
 from distributed_tensorflow_guide_tpu_torch import bridge
@@ -50,6 +61,9 @@ from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     value_and_grad,
 )
 from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+    DEFAULT_RULES,
+    MEGATRON_SP_RULES,
+    TensorParallel,
     local_config,
     shard_state_dict,
     split_dim,
@@ -73,6 +87,7 @@ def job():
     try:
         jax_steps = {name: _jax_tp_step(name) for name in
                      ("bert", "lm")}
+        jax_steps["sp-lm"] = _jax_tp_step("lm", J_SP_RULES)
     finally:
         ranks = [r.result for r in runner.join()]
     return ranks, jax_steps
@@ -87,14 +102,16 @@ def _full(name):
     return ttf.Transformer(_tcfg(name)).init_weights(0)
 
 
-def _jax_tp_step(name):
+def _jax_tp_step(name, rules=None):
     """The JAX TensorParallel SGD step on the port's initial weights
-    (bridged): (loss, the state dict after the step)."""
+    (bridged), under ``rules`` (its default when None): (loss, the state
+    dict after the step)."""
     geom, _, n = CASES[name]
     cfg = jtf.TransformerConfig(**geom, dtype=jnp.float32)
     mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
                 ("data", "model"))
-    tp = JTensorParallel(mesh)
+    tp = JTensorParallel(mesh) if rules is None else JTensorParallel(
+        mesh, rules=rules)
     model = jtf.Transformer(cfg)
     _, shardings = tp.init_params(model, jax.random.PRNGKey(0),
                                   jnp.zeros((1, cfg.max_len), jnp.int32))
@@ -256,3 +273,124 @@ def test_local_config_and_its_validation():
     with pytest.raises(ValueError, match="vocab_size"):
         local_config(ttf.TransformerConfig(vocab_size=127, num_heads=4,
                                            d_model=32, d_ff=64), 2)
+
+
+# ---- Megatron sequence parallelism -------------------------------------------
+
+
+def test_sp_rules_are_the_jax_rules_and_the_only_ones_taken():
+    assert MEGATRON_SP_RULES == tuple(J_SP_RULES)
+    assert DEFAULT_RULES == tuple(
+        ("seq", None) if name == "seq" else (name, axis)
+        for name, axis in J_SP_RULES)
+    with pytest.raises(ValueError, match="rules"):
+        TensorParallel(None, rules=(("batch", "data"),), device="cpu")
+    with pytest.raises(ValueError, match="tp_sequence"):
+        ttf.TransformerConfig(tp_sequence=True)
+
+
+@pytest.mark.parametrize("case", ["lm", "lm-fused", "lm-long-flash"])
+def test_sp_loss_and_gradients_equal_the_default_rules(job, case):
+    """Under MEGATRON_SP_RULES each rank's loss and gradient shards are
+    the default rules' (same weights, same rows)."""
+    ranks, _ = job
+    for r in ranks:
+        np.testing.assert_allclose(r[f"sp-{case}/loss0"],
+                                   r[f"{case}/loss0"], **SHARD_TOL)
+        got, want = _sub(r, f"sp-{case}/grad/"), _sub(r, f"{case}/grad/")
+        assert got.keys() == want.keys()
+        for k, g in want.items():
+            np.testing.assert_allclose(got[k], g, **SHARD_TOL,
+                                       err_msg=f"rank {r['rank']} {k}")
+
+
+@pytest.mark.parametrize("case", ["lm", "lm-fused"])
+def test_sp_step_matches_the_jax_sp_step(job, case):
+    """One SGD step under the SP rules (the gathered parameters, every
+    rank) equals the JAX TensorParallel(rules=MEGATRON_SP_RULES) step."""
+    ranks, jax_steps = job
+    want_loss, want = jax_steps["sp-lm"]
+    for r in ranks:
+        np.testing.assert_allclose(float(r[f"sp-{case}/loss"]), want_loss,
+                                   **LOSS_TOL)
+        got = _sub(r, f"sp-{case}/param/")
+        assert got.keys() == want.keys()
+        for k, t in want.items():
+            np.testing.assert_allclose(got[k], t.numpy(), **PARAM_TOL,
+                                       err_msg=f"rank {r['rank']} {k}")
+
+
+def test_sp_layernorm_and_position_gradients_are_summed_over_model(job):
+    """A LayerNorm or ``pos_emb`` sees only its slice of the sequence: its
+    gradient on each rank is a part, the two parts sum to the full
+    gradient, and the step's psum gives both ranks that sum bitwise."""
+    ranks, _ = job
+    for pair in _pairs(ranks).values():
+        raw = [_sub(r, "sp-lm/rawgrad/") for r in pair]
+        synced = [_sub(r, "sp-lm/grad/") for r in pair]
+        shared = [k for k in raw[0] if split_dim(k) is None]
+        assert "pos_emb.weight" in shared and "ln_f.weight" in shared
+        for k in shared:
+            np.testing.assert_array_equal(synced[0][k], synced[1][k],
+                                          err_msg=k)
+            np.testing.assert_allclose(raw[0][k] + raw[1][k], synced[0][k],
+                                       **TIGHT, err_msg=k)
+            assert not np.allclose(raw[0][k], synced[0][k]), k
+        for k in raw[0]:  # the sharded ones need no sum
+            if split_dim(k) is not None:
+                np.testing.assert_array_equal(raw[0][k], synced[0][k])
+
+
+@pytest.mark.parametrize("case", ["lm", "lm-fused"])
+def test_sp_gather_scatter_bytes_equal_the_allreduces_they_replace(job,
+                                                                   case):
+    """No psum is left in the blocks under SP: each all-reduce of the
+    default rules (``g`` forward, ``f`` backward, the embedding's sum,
+    the head input's gradient) became an all-gather and a reduce-scatter
+    with the same bytes on the wire. The psums that stay are the loss's
+    two forward sums and the replicated gradients' one sum. One
+    difference is exact and expected: the fused CE's backward sums dx over
+    the S - 1 positions that predict a token, while the head's gather
+    under SP moves all S (one position a sequence more)."""
+    ranks, _ = job
+    cfg = _tcfg(case)
+    layers = cfg.num_layers
+    rows = CASES[case][2] // 2  # a data rank's sequences
+    one_position = rows * cfg.d_model * 4 if case.endswith("fused") else 0
+    grad_sync = 4 * sum(  # f32, one psum at 2 ranks: 2P(n-1)/n = P
+        t.numel() for n_, t in _full(case).state_dict().items()
+        if split_dim(n_) is None)
+    for r in ranks:
+        d, s = (r[f"sp-{case}/trace/{x}"] for x in ("default", "sp"))
+        assert "psum_bwd[model]" not in s
+        assert s["psum[model]"]["calls"] == 3
+        # g a sub-layer, the embedding, the loss's two (and fused CE's dx)
+        assert d["psum[model]"]["calls"] == (
+            2 * layers + 3 + case.endswith("fused"))
+        # gathers: a sub-layer's input and the head's; scatters: a
+        # sub-layer's output and the embedding's
+        for k in ("all_gather[model]", "reduce_scatter[model]",
+                  "all_gather_bwd[model]", "reduce_scatter_bwd[model]"):
+            assert s[k]["calls"] == 2 * layers + 1, k
+        pairs = sum(s[k]["wire"] for k in (
+            "all_gather[model]", "reduce_scatter[model]",
+            "all_gather_bwd[model]", "reduce_scatter_bwd[model]"))
+        loss_sums = s["psum[model]"]["wire"] - grad_sync
+        assert pairs == (d["psum[model]"]["wire"]
+                         + d["psum_bwd[model]"]["wire"] - loss_sums
+                         + one_position)
+
+
+def test_sp_step_with_accumulated_microbatches_sums_the_replicated_gradients(
+        job):
+    """accum_steps=2 under the SP rules averages two microbatches'
+    gradients and still sums the replicated parameters' parts over
+    ``model``: one SGD step lands where the whole batch's does."""
+    ranks, _ = job
+    for r in ranks:
+        want = _sub(r, "sp-lm/param/")
+        got = _sub(r, "sp-lm-accum2/param/")
+        assert got.keys() == want.keys()
+        for k, t in want.items():
+            np.testing.assert_allclose(got[k], t, **SHARD_TOL,
+                                       err_msg=f"rank {r['rank']} {k}")

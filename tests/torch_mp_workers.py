@@ -587,7 +587,77 @@ def tensor_parallel_job() -> dict:
         out[f"{case}/loss"] = mets["loss"]
         for n_, t in tp.gather(local.state_dict()).items():
             out[f"{case}/param/{n_}"] = t
+    out.update(_sequence_parallel_cases(mesh, share_of=lambda b, n: {
+        k: torch.as_tensor(v[d * n // 2:(d + 1) * n // 2])
+        for k, v in b.items()}))
     return out
+
+
+def _sequence_parallel_cases(mesh, share_of) -> dict:
+    """The LM cases of ``tp_sp_cases`` under ``MEGATRON_SP_RULES``: the
+    first step's loss and gradients (before and after the replicated
+    parameters' psum over ``model``), one SGD step's gathered parameters,
+    and each rules' comm trace of one forward and backward."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
+        value_and_grad,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+        MEGATRON_SP_RULES,
+        TensorParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    out: dict = {}
+    tps = {"default": TensorParallel(mesh, device="cpu"),
+           "sp": TensorParallel(mesh, rules=MEGATRON_SP_RULES,
+                                device="cpu")}
+    sp = tps["sp"]
+    for case, geom, extra, n in tp_sp_cases():
+        cfg = transformer.TransformerConfig(**geom, dtype=torch.float32,
+                                            **extra)
+        full = transformer.Transformer(cfg).init_weights(0)
+        share = share_of(tp_batch(geom, n), n)
+        local = sp.shard(full)
+        loss_fn = transformer.make_lm_loss_fn(
+            local, fused_ce=case.endswith("fused"), ce_chunk=TP_CE_CHUNK)
+        with mesh:
+            _, raw = value_and_grad(loss_fn, local, share)
+        (l0, _), grads = sp.value_and_grad(loss_fn, local, share)
+        out[f"sp-{case}/loss0"] = l0
+        for n_, g in grads.items():
+            out[f"sp-{case}/grad/{n_}"] = g
+            out[f"sp-{case}/rawgrad/{n_}"] = raw[n_]
+        for rules, tp in tps.items():
+            m = tp.shard(full)
+            with cc.trace_comm() as rec:
+                tp.value_and_grad(transformer.make_lm_loss_fn(
+                    m, fused_ce=case.endswith("fused"),
+                    ce_chunk=TP_CE_CHUNK), m, share)
+            out[f"sp-{case}/trace/{rules}"] = _trace(rec)
+        for accum in (1, 2) if case == "lm" else (1,):
+            m = local if accum == 1 else sp.shard(full)
+            state = TrainState(m, torch.optim.SGD(m.parameters(), lr=TP_LR))
+            _, mets = sp.make_train_step(loss_fn, accum_steps=accum)(state,
+                                                                     share)
+            tag = f"sp-{case}" + ("" if accum == 1 else "-accum2")
+            out[f"{tag}/loss"] = mets["loss"]
+            for n_, t in sp.gather(m.state_dict()).items():
+                out[f"{tag}/param/{n_}"] = t
+    return out
+
+
+def tp_sp_cases():
+    """(name, geometry, config extras, union rows) of the sequence-parallel
+    cases: the LM with both losses, and at S=128 through flash."""
+    return (("lm", TP_LM, {}, 8),
+            ("lm-fused", TP_LM, {}, 8),
+            ("lm-long-flash", TP_LM_LONG, {"attn_impl": "flash"}, 8))
 
 
 def tp_cases():
@@ -597,6 +667,398 @@ def tp_cases():
             ("lm-fused", TP_LM, {}, 8),
             ("lm-long-flash", TP_LM_LONG, {"attn_impl": "flash"}, 8),
             ("lm-long-dense", TP_LM_LONG, {"attn_impl": "dense"}, 8))
+
+
+# ---- the 2-rank jobs of tests/test_torch_fsdp.py and test_torch_overlap.py --
+
+# FSDP: tests/test_fsdp.py's MNIST CNN run, SGD 0.1 momentum 0.9, leaves of
+# 1024 elements and more sharded, 5 batches of 32 (16 a rank)
+FSDP_LR, FSDP_MIN_SHARD, FSDP_STEPS, FSDP_B = 0.1, 2 ** 10, 5, 32
+# the bucketed DP case: a transformer of 14.4 MB of f32 parameters, so
+# that every bucket budget from 1 to 8 MiB gives another partition
+OV_GEOM = dict(vocab_size=4096, num_layers=2, num_heads=4, d_model=256,
+               d_ff=1024, max_len=32, causal=True)
+OV_LR = 0.1
+OV_BUCKETS = (4 << 10, 64 << 10, 1 << 20, 2 << 20, 4 << 20, 8 << 20,
+              16 << 20, 32 << 20)
+OV_RAISE_BUCKET = 1 << 20  # the raise case's budget: several buckets
+
+
+def ov_tokens() -> np.ndarray:
+    return np.random.RandomState(11).randint(
+        0, OV_GEOM["vocab_size"], (4, OV_GEOM["max_len"])).astype(np.int64)
+
+
+def fsdp_batches() -> list:
+    from distributed_tensorflow_guide_tpu_torch.data.synthetic import (
+        synthetic_mnist,
+    )
+
+    return synthetic_mnist(FSDP_B, seed=7).take(FSDP_STEPS)
+
+
+def _fsdp_runs(mesh) -> dict:
+    """The MNIST CNN over FSDP (both ``prefetch`` values) and over
+    DataParallel, on this rank's half of each batch: every loss, an eval
+    step's metrics, the full parameters after the run, the first step's
+    comm trace and the rank's state bytes."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import mnist_cnn
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.fsdp import FSDP
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    i = mesh.axis("data").index
+    per = FSDP_B // 2
+    out: dict = {}
+    for tag in ("fsdp-off", "fsdp-on", "dp"):
+        model = mnist_cnn.MNISTCNN().init_weights(0)
+        if tag == "dp":
+            strategy = DataParallel(mesh, device="cpu")
+        else:
+            strategy = FSDP(mesh, min_shard_size=FSDP_MIN_SHARD,
+                            prefetch=tag == "fsdp-on", device="cpu")
+            model = strategy.shard(model)
+            out["fsdp/specs"] = {n: list(sp) for n, sp in
+                                 strategy.specs.items()}
+        state = TrainState(model, torch.optim.SGD(
+            model.parameters(), lr=FSDP_LR, momentum=0.9))
+        step = strategy.make_train_step(mnist_cnn.make_loss_fn(model))
+        for t, b in enumerate(fsdp_batches()):
+            share = {k: v[i * per:(i + 1) * per] for k, v in b.items()}
+            with cc.trace_comm() as rec:
+                state, mets = step(state, share)
+            if t == 0:
+                out[f"{tag}/trace"] = _trace(rec)
+            out[f"{tag}/loss{t}"] = mets["loss"]
+        b0 = fsdp_batches()[0]
+        for k, v in strategy.make_eval_step(mnist_cnn.make_metric_fn(
+                model))(state, {k: v[i * per:(i + 1) * per]
+                                for k, v in b0.items()}).items():
+            out[f"{tag}/eval/{k}"] = v
+        full = (strategy.gather_state_dict(model) if tag != "dp"
+                else model.state_dict())
+        for n, p in full.items():
+            out[f"{tag}/param/{n}"] = p
+        if tag != "dp":
+            out[f"{tag}/bytes"] = strategy.state_bytes(model,
+                                                       state.optimizer)
+            out[f"{tag}/local_shapes"] = {
+                n: list(p.shape) for n, p in model.named_parameters()}
+            for n, p in model.named_parameters():
+                out[f"{tag}/shard/{n}"] = p
+    return out
+
+
+def _overlap_runs(mesh) -> dict:
+    """One SGD step of the OV transformer with the monolithic all-reduce
+    and with every bucket budget of ``OV_BUCKETS``: the loss, whether the
+    parameters are bitwise the monolithic step's, the comm trace and the
+    bucket count ``bucket_assignment`` gives; then the ResNet stats step
+    with 1 KiB buckets against the monolithic one."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import resnet
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.parallel import overlap
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    i = mesh.axis("data").index
+    cfg = transformer.TransformerConfig(**OV_GEOM, dtype=torch.float32)
+    share = {"tokens": ov_tokens()[2 * i:2 * (i + 1)]}
+
+    def run(dp):
+        model = transformer.Transformer(cfg).init_weights(0)
+        state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                                  lr=OV_LR))
+        step = dp.make_train_step(transformer.make_lm_loss_fn(model))
+        with cc.trace_comm() as rec:
+            _, mets = step(state, share)
+        return model, mets["loss"].item(), _trace(rec)
+
+    ref, ref_loss, ref_trace = run(DataParallel(mesh, device="cpu"))
+    out: dict = {"ov/ref_loss": ref_loss, "ov/ref_trace": ref_trace,
+                 "ov/param_bytes": sum(p.numel() * 4
+                                       for p in ref.parameters())}
+    for bb in OV_BUCKETS:
+        model, loss, trace = run(DataParallel(mesh, overlap=True,
+                                              bucket_bytes=bb, device="cpu"))
+        out[f"ov/{bb}"] = {
+            "loss": loss, "trace": trace,
+            "buckets": len(overlap.bucket_assignment(
+                list(model.parameters()), bb)),
+            "bitwise": all(torch.equal(a, b) for a, b in zip(
+                model.parameters(), ref.parameters()))}
+
+    out["ov/raised"] = _overlap_after_a_raise(mesh, cfg, share, ref)
+
+    share = {k: v[4 * i:4 * (i + 1)] for k, v in stats_batch().items()}
+    states = []
+    for dp in (DataParallel(mesh, device="cpu"),
+               DataParallel(mesh, overlap=True, bucket_bytes=1 << 10,
+                            device="cpu")):
+        model = stats_model()
+        state = TrainState(model, torch.optim.SGD(
+            model.parameters(), lr=STATS_LR, momentum=0.9))
+        dp.make_train_step_with_stats(resnet.make_loss_fn(model))(state,
+                                                                  share)
+        states.append(model.state_dict())
+    out["ov/stats_bitwise"] = all(torch.equal(states[0][n], states[1][n])
+                                  for n in states[0])
+    return out
+
+
+def _overlap_after_a_raise(mesh, cfg, share, ref) -> dict:
+    """A bucketed step whose backward raises in the first block, after the
+    buckets of the later leaves were issued, then the same step again: the
+    failed step must leave the parameters as they were, and the next one
+    must be bitwise the monolithic step with one all-reduce a bucket."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import transformer
+    from distributed_tensorflow_guide_tpu_torch.parallel import overlap
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    class Boom(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            raise RuntimeError("boom in the backward")
+
+    bb = OV_RAISE_BUCKET
+    model = transformer.Transformer(cfg).init_weights(0)
+    before = [p.detach().clone() for p in model.parameters()]
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=OV_LR))
+    step = DataParallel(mesh, overlap=True, bucket_bytes=bb,
+                        device="cpu").make_train_step(
+        transformer.make_lm_loss_fn(model))
+    hook = model.blocks[0].register_forward_hook(
+        lambda m, args, y: Boom.apply(y))
+    raised = False
+    with cc.trace_comm() as failed:
+        try:
+            step(state, share)
+        except RuntimeError as e:
+            raised = "boom" in str(e)
+    hook.remove()
+    out = {"raised": raised,
+           "hooks_left": sum(len(p._backward_hooks or {})
+                             for p in model.parameters()),
+           "issued": _trace(failed).get("pmean[data]", {}).get("calls", 0),
+           "unchanged": all(torch.equal(a, b) for a, b in zip(
+               model.parameters(), before))}
+    with cc.trace_comm() as rec:
+        step(state, share)
+    out["calls"] = _trace(rec)["pmean[data]"]["calls"]
+    out["buckets"] = len(overlap.bucket_assignment(list(model.parameters()),
+                                                   bb))
+    out["bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        model.parameters(), ref.parameters()))
+    return out
+
+
+def _data2(runs) -> dict:
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+
+    return {"rank": dist.get_rank(), **runs(build_mesh(MeshSpec(data=2)))}
+
+
+def fsdp_job() -> dict:
+    """FSDP against DataParallel on a data axis of 2."""
+    return _data2(_fsdp_runs)
+
+
+def overlap_job() -> dict:
+    """The bucketed all-reduce against the monolithic one on a data axis
+    of 2."""
+    return _data2(_overlap_runs)
+
+
+# ---- the 4-rank job of tests/test_torch_async_ps.py --------------------------
+
+# tests/test_async_ps.py's least-squares problem
+PS_DIM = 6
+
+
+def ps_problem(seed: int = 0, n: int = 128):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, PS_DIM).astype(np.float32)
+    w_true = rng.randn(PS_DIM, 1).astype(np.float32)
+    return x, x @ w_true
+
+
+def ps_w0(seed: int = 0) -> np.ndarray:
+    return (np.random.RandomState(100 + seed).randn(PS_DIM, 1)
+            .astype(np.float32) * 0.1)
+
+
+def ps_superbatch(x, y, k: int, world_batch: int) -> dict:
+    """Leaves (k, world_batch, ...): k sub-batches a sync round."""
+    idx = np.random.RandomState(7).randint(0, len(x), k * world_batch)
+    return {"x": x[idx].reshape(k, world_batch, PS_DIM),
+            "y": y[idx].reshape(k, world_batch, 1)}
+
+
+def ps_model(w0=None):
+    """The least-squares model: one parameter ``w`` (PS_DIM, 1)."""
+    import torch
+
+    m = torch.nn.Module()
+    m.w = torch.nn.Parameter(torch.as_tensor(
+        ps_w0() if w0 is None else w0).clone())
+    return m
+
+
+def ps_loss(module, batch):
+    import torch
+
+    pred = torch.as_tensor(batch["x"]) @ module.w
+    return ((pred - torch.as_tensor(batch["y"])) ** 2).mean(), {}
+
+
+def _rows(batch: dict, ax, *, time_axis: bool = False) -> dict:
+    """This rank's share of a global batch (along dim 1 of a super-batch
+    that leads with its time axis)."""
+    n = next(iter(batch.values())).shape[1 if time_axis else 0] // ax.size
+    sl = slice(ax.index * n, (ax.index + 1) * n)
+    return {k: v[:, sl] if time_axis else v[sl] for k, v in batch.items()}
+
+
+def async_ps_job() -> dict:
+    """LocalSGD, GossipSGD and AccumulatedAdaptive over a data axis of 4,
+    then LocalSGD (K=2) and AccumulatedAdaptive (K=4) with Adam over a
+    data axis of 2 (the two pairs of a data=2 x model=2 mesh)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.async_ps import (
+        AccumulatedAdaptive,
+        GossipSGD,
+        LocalSGD,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    rank = dist.get_rank()
+    mesh = build_mesh(MeshSpec(data=4))
+    ax = mesh.axis("data")
+    x, y = ps_problem()
+    out: dict = {"rank": rank}
+
+    def state(opt, lr, w0=None):
+        m = ps_model(w0)
+        return TrainState(m, opt(m.parameters(), lr=lr))
+
+    # LocalSGD(K=1) against DataParallel, 5 steps of SGD 0.05
+    ls = LocalSGD(mesh, sync_period=1, device="cpu")
+    dp = DataParallel(mesh, device="cpu")
+    s_ls, s_dp = state(torch.optim.SGD, 0.05), state(torch.optim.SGD, 0.05)
+    step_ls = ls.make_train_step(ps_loss)
+    step_dp = dp.make_train_step(ps_loss)
+    for _ in range(5):
+        sb = ps_superbatch(x, y, 1, 64)
+        s_ls, _ = step_ls(s_ls, _rows(sb, ax, time_axis=True))
+        s_dp, _ = step_dp(s_dp, _rows({k: v[0] for k, v in sb.items()}, ax))
+    out["ls1/w"], out["dp/w"] = s_ls.model.w, s_dp.model.w
+
+    # LocalSGD(K=4): learns, counts local steps, one sync a call
+    ls = LocalSGD(mesh, sync_period=4, device="cpu")
+    for opt, tag in ((torch.optim.SGD, "sgd"), (torch.optim.Adam, "adam")):
+        st = state(opt, 0.05)
+        step = ls.make_train_step(ps_loss)
+        losses = []
+        for t in range(10):
+            with cc.trace_comm() as rec:
+                st, m = step(st, _rows(ps_superbatch(x, y, 4, 64), ax,
+                                       time_axis=True))
+            losses.append(m["loss"].item())
+        out[f"ls4-{tag}"] = {"losses": losses, "step": st.step,
+                             "trace": _trace(rec)}
+
+    # GossipSGD at lr 0: the replicas' disagreement contracts
+    gs = GossipSGD(mesh, device="cpu")
+    noise = np.random.RandomState(0).randn(4, PS_DIM, 1).astype(np.float32)
+    st = gs.distribute(state(torch.optim.SGD, 0.0, ps_w0() + noise[rank]))
+    step = gs.make_train_step(ps_loss)
+    out["gossip0/w_before"] = st.model.w.detach().clone()
+    with cc.trace_comm() as rec:
+        st, _ = step(st, _rows({"x": x[:64], "y": y[:64]}, ax))
+    out["gossip0/trace"] = _trace(rec)
+    for _ in range(14):
+        st, _ = step(st, _rows({"x": x[:64], "y": y[:64]}, ax))
+    out["gossip0/w_after"] = st.model.w
+
+    # GossipSGD learns; the consensus is the replicas' mean
+    st = gs.distribute(state(torch.optim.SGD, 0.05))
+    rng = np.random.RandomState(3)
+    losses = []
+    for _ in range(30):
+        idx = rng.permutation(len(x))[:64]
+        st, m = step(st, _rows({"x": x[idx], "y": y[idx]}, ax))
+        losses.append(m["loss"].item())
+    out["gossip/losses"] = losses
+    out["gossip/w"] = st.model.w
+    out["gossip/consensus"] = gs.consensus(st)["w"]
+
+    # AccumulatedAdaptive(K=4), Adam 0.01: one step
+    aa = AccumulatedAdaptive(mesh, accum_steps=4, device="cpu")
+    st = state(torch.optim.Adam, 0.01)
+    with cc.trace_comm() as rec:
+        aa.make_train_step(ps_loss)(st, _rows(ps_superbatch(x, y, 4, 64),
+                                              ax, time_axis=True))
+    out["adag/w"], out["adag/trace"] = st.model.w, _trace(rec)
+
+    # parity at 2 ranks: LocalSGD(K=2) with Adam, 3 calls; AA(K=4), 2
+    mesh2 = build_mesh(MeshSpec(data=2, model=2))
+    ax2 = mesh2.axis("data")
+    out["coords2"] = [ax2.index, mesh2.axis("model").index]
+    for tag, strat, k, calls in (
+            ("ls2", LocalSGD(mesh2, 2, device="cpu"), 2, 3),
+            ("aa2", AccumulatedAdaptive(mesh2, 4, device="cpu"), 4, 2)):
+        st = state(torch.optim.Adam, 0.01)
+        step = strat.make_train_step(ps_loss)
+        losses = []
+        for c in range(calls):
+            sb = ps_superbatch(*ps_problem(seed=c), k, 32)
+            st, m = step(st, _rows(sb, ax2, time_axis=True))
+            losses.append(m["loss"].item())
+        out[f"{tag}/losses"], out[f"{tag}/w"] = losses, st.model.w
+    return out
 
 
 # ---- the 2-rank card job of tests/test_torch_kernels_gpu.py -----------------
