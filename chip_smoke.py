@@ -12,21 +12,35 @@ and check them.
    widths (K5: B=8, H=12, hd=64, S=1024, C in {1, 128, 512}, and the
    one-shot's prompt, B=4, C=512; K6: block size 16, shuffled tables,
    ragged lengths, B=8, C in {1, 128}, and the engine's prefill chunk,
-   B=1, C=128; bf16 and int8 caches) and time kernel, plain version,
+   B=1, C=128; bf16 and int8 caches; K5 also at a speculative verify
+   chunk, B=4, C=5) and time kernel, plain version,
    bound and, for every bf16 K5 case, one
    ``scaled_dot_product_attention`` call over the live slice (a chunk
    with an explicit boolean mask, or ``is_causal`` where it starts the
-   cache) as a yardstick; then time K6's two regimes at chunk widths
-   around the threshold that picks between them;
+   cache) as a yardstick; K5's write index is a device tensor: NaN and
+   then 3e38 written past the live length must change no bit of its
+   output, and one call captured in a CUDA graph and replayed at three
+   indices must give the bits of three eager calls (C = 1, 5, 128, 512,
+   bf16 and int8); then time K6's two regimes at chunk widths around the
+   threshold that picks between them, and ``sample_rows``'s two top-k
+   draws (the device draw the captured steps use, the live-column draw
+   with its host sync);
 4. serve 12 requests through ``ServeEngine`` on ``gpt2_124m`` in bf16
-   (random weights from ``--seed``), greedy and sampled: every greedy
-   token is checked against a teacher-forced training-view forward, the
-   pool must be leak-free, and the K6 launch count must equal the steps
-   times the layers, both regimes among them (printed by regime);
-5. run the one-shot generator (K5) at B=4 with a 512-token prompt, with
-   the same teacher-forced check; K5 must launch once a layer in the
-   chunk regime (the prompt) and once a layer a later token in the split
-   one;
+   (random weights from ``--seed``), greedy and sampled, each with the
+   steps captured as CUDA graphs and with the eager step functions: the
+   streams must be bitwise equal, each graph captured once; every token
+   is checked against a teacher-forced training-view forward, the pool
+   must be leak-free, and each drain's K6 launch count (zeroed just
+   before it, counted per replay) must equal its steps times the layers,
+   both regimes among them (the captured drains' printed by regime);
+   prints each run's decode-step and prefill-chunk ms (medians,
+   host clock around inputs, replay and readback) and tokens/s, the
+   decode graph's device ms a replay and a profile of one replay;
+5. run the one-shot generator (K5) at B=4 with a 512-token prompt,
+   greedy and sampled: the captured loop (first call captures, second
+   timed) bitwise equal to the eager loop, with the same teacher-forced
+   check; K5 must launch once a layer in the chunk regime (the prompt)
+   and once a layer a later token in the split one, per replay;
 6. hold the flash kernels K1 (forward), K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8, H=12, hd=64: S=1024 bf16 causal and not,
    a ragged S=1000, an f32 case, the SP phase's global shape (B=4,
@@ -144,6 +158,26 @@ and check them.
     pmeans run once a call of K local steps, Gossip's replicas disagree
     and agree on their consensus.
 
+22. speculative decoding (run after phase 5, on its model): B=4, a
+    512-token prompt, 64 new tokens, 4 draft layers, lookahead 4, greedy
+    and sampled (temperature 0.8, top-k 20), bf16 and int8 caches, and a
+    copy of the model whose last 8 blocks add nothing (every draft
+    agrees): the stream bitwise the vanilla one-shot's, K5's launches
+    exact by regime, the verify rounds and accepted drafts, the wall ms
+    against vanilla;
+23. the multi-LoRA engine (after phase 22): ``gpt2_124m`` with rank 16
+    and 4 adapters plus the zero row (a 23.6 MB bank), 8 slots, 12
+    sampled requests over ids 0-4 with prompts of 10-32 tokens and a
+    32-token prefill chunk: adapter 0's streams bitwise the base
+    engine's, adapter k's bitwise the one-shot generator's with
+    ``adapter_id=k``; the bank rewritten in place, 12 more requests
+    follow the new bank with no recapture; then phase 4's geometry and
+    prompt lengths (32-700 tokens, 128-token chunks), every stream held
+    to a teacher-forced forward of the LoRA model under its adapter id;
+    K6 counted a drain; decode-step ms with LoRA against without; and
+    first, the LoRA first product's ``bmm`` must give an 8-row batch the
+    one-row bits at qkv, proj and up (inputs that show any reordering).
+
 Phases 16-21 time-share one card over gloo, which stages every message
 through host memory: their times say nothing of NCCL.
 
@@ -185,11 +219,15 @@ from distributed_tensorflow_guide_tpu_torch.core.mesh import (
 )
 from distributed_tensorflow_guide_tpu_torch.data import synthetic
 from distributed_tensorflow_guide_tpu_torch.models import mnist_cnn, resnet
+from distributed_tensorflow_guide_tpu_torch.models import generation as gen_mod
 from distributed_tensorflow_guide_tpu_torch.models import wide_deep
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
+    fold_in,
     make_generate_fn,
+    sample_rows,
 )
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
+    LORA_ROW_SUM_SITES,
     Transformer,
     bert_base,
     gpt2_124m,
@@ -252,6 +290,7 @@ from distributed_tensorflow_guide_tpu_torch.utils.flop_accounting import (
 from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     Request,
     ServeEngine,
+    init_adapter_bank,
 )
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -464,10 +503,11 @@ def _k5_case(results, gen, *, B, C, length, kv, S=1024, H=12, hd=64,
         effective_len=length)
     sets = _cache_copies(make, nbytes)
     q = torch.randn(B, C, H, hd, generator=gen, device=dev).bfloat16()
+    idx = torch.tensor([index], dtype=torch.int32, device=dev)
 
     def kern(i):
         k, v, ks, vs = sets[i % len(sets)]
-        return DA.decode_attention(q, k, v, index, key_scale=ks,
+        return DA.decode_attention(q, k, v, idx, key_scale=ks,
                                    value_scale=vs)
 
     def plain(i):
@@ -513,6 +553,89 @@ def check_k5(results, gen):
                          library=kv == "bf16")
     # the one-shot generator's prompt: B=4, 512 tokens in one chunk
     _k5_case(results, gen, B=4, C=512, length=512, kv="bf16", library=True)
+    # a speculative verify chunk (G = 4): C = 5 at B=4, split regime
+    _k5_case(results, gen, B=4, C=5, length=700, kv="bf16", library=True)
+
+
+def check_k5_device_index(gen) -> None:
+    """K5 reads its write index on the device: (1) rows at or past the
+    live length filled with NaN, then with large finite garbage (bf16
+    3e38; int8 values 127 with NaN or 3e38 scales), give the bits of the
+    same call on a cache that holds zeros there, and agree with the plain
+    version; (2) one call captured in a CUDA graph over a static index
+    tensor, replayed at three indices, gives the bits of three eager
+    calls. GPT-2 widths (H=12, hd=64), S=1024, B=4; C = 1 and 5 (split
+    regime), 128 and 512 (chunk regime: TMA tiles, the crossed tile
+    gathered), bf16 and int8."""
+    dev = torch.device("cuda", 0)
+    B, H, S, hd = 4, 12, 1024, 64
+    checked = 0
+    for kv in ("bf16", "int8"):
+        k = torch.randn(B, H, S, hd, generator=gen, device=dev)
+        v = torch.randn(B, H, S, hd, generator=gen, device=dev)
+        if kv == "int8":
+            k, ks = DA.quantize_kv(k)
+            v, vs = DA.quantize_kv(v)
+            ks, vs = ks[:, :, None].contiguous(), vs[:, :, None].contiguous()
+        else:
+            k, v, ks, vs = k.bfloat16(), v.bfloat16(), None, None
+        for C in (1, 5, 128, 512):
+            q = torch.randn(B, C, H, hd, generator=gen,
+                            device=dev).bfloat16()
+            indices = (0, 317, S - C) if C < 512 else (0, 100, S - C)
+            for index in indices:
+                n = index + C
+                clean = [None if t is None else t.clone()
+                         for t in (k, v, ks, vs)]
+                for t, ax in zip(clean, (2, 2, 3, 3)):
+                    if t is not None:
+                        t.narrow(ax, n, S - n).zero_()
+                want = DA.decode_attention(q, clean[0], clean[1], index,
+                                           key_scale=clean[2],
+                                           value_scale=clean[3])
+                plain = DA.decode_attention_plain(
+                    q, clean[0], clean[1], index, key_scale=clean[2],
+                    value_scale=clean[3])
+                if not torch.allclose(want.float(), plain.float(),
+                                      atol=BF16_ATOL, rtol=BF16_RTOL):
+                    fail(f"K5 {kv} C={C} index {index}: kernel and plain "
+                         f"version disagree")
+                for garbage in (float("nan"), 3e38):
+                    dirty = [None if t is None else t.clone()
+                             for t in clean]
+                    for t, ax in zip(dirty, (2, 2, 3, 3)):
+                        if t is not None:
+                            fill = 127 if t.dtype == torch.int8 else garbage
+                            t.narrow(ax, n, S - n).fill_(fill)
+                    got = DA.decode_attention(
+                        q, dirty[0], dirty[1],
+                        torch.tensor([index], dtype=torch.int32,
+                                     device=dev),
+                        key_scale=dirty[2], value_scale=dirty[3])
+                    if not torch.equal(got, want):
+                        fail(f"K5 {kv} C={C} index {index}: {garbage} past "
+                             f"the length reached the output")
+                checked += 1
+            # one graph, replayed at every index, against eager calls
+            idx = torch.zeros(1, dtype=torch.int32, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            DA.decode_attention(q, k, v, idx, key_scale=ks, value_scale=vs)
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph):
+                out = DA.decode_attention(q, k, v, idx, key_scale=ks,
+                                          value_scale=vs)
+            for index in indices:
+                idx.fill_(index)
+                graph.replay()
+                eager = DA.decode_attention(q, k, v, index, key_scale=ks,
+                                            value_scale=vs)
+                if not torch.equal(out, eager):
+                    fail(f"K5 {kv} C={C}: the graph replayed at index "
+                         f"{index} differs from the eager call")
+    torch.cuda.synchronize()
+    print(f"K5 device index: {checked} cases bitwise invariant to NaN and "
+          f"3e38 past the length; graph replays at 3 indices bitwise the "
+          f"eager calls (bf16, int8; C = 1, 5, 128, 512)", flush=True)
 
 
 def _k6_case(results, gen, perm, *, B, C, kv, lengths_np, H=12, hd=64,
@@ -615,14 +738,18 @@ def check_regime_threshold(gen) -> None:
 # ---- phases 4-5: the engine and the one-shot generator --------------------
 
 
-def teacher_forced_gap(model, prompt, tokens, top_k=None) -> float:
+def teacher_forced_gap(model, prompt, tokens, top_k=None,
+                      adapter=None) -> float:
     """Largest shortfall of an emitted token's logit below the bar at its
-    position, from one training-view forward over prompt + tokens. The bar
-    is the best logit (greedy) or the k-th best (top-k sampling)."""
+    position, from one training-view forward over prompt + tokens (under
+    LoRA adapter id ``adapter`` of a LoRA model's bank). The bar is the
+    best logit (greedy) or the k-th best (top-k sampling)."""
     seq = torch.as_tensor(np.concatenate([prompt, tokens]),
                           device=model.device)[None]
+    ids = (None if adapter is None
+           else torch.tensor([adapter], device=model.device))
     with torch.inference_mode():
-        logits = model(seq)[0]  # (L, V) float32
+        logits = model(seq, adapter=ids)[0]  # (L, V) float32
     P = len(prompt)
     rows = logits[P - 1:P - 1 + len(tokens)]
     got = rows[torch.arange(len(tokens)),
@@ -632,14 +759,31 @@ def teacher_forced_gap(model, prompt, tokens, top_k=None) -> float:
     return float((bar - got).max())
 
 
-def run_engine(cfg, model, prompts, *, temperature, top_k, seed):
+def make_engine(cfg, model, *, temperature, top_k, eager=False,
+                prefill_chunk=128, adapters=None):
+    """Phase 4's engine geometry (8 slots, block 16, 513 blocks). With
+    ``eager`` its steps run without graphs: the eager step functions the
+    captured ones are held to."""
     eng = ServeEngine(cfg, model, slots=8, block_size=16, num_blocks=513,
-                      prefill_chunk=128, temperature=temperature,
-                      top_k=top_k)
-    for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=64,
-                           rng=np.array([seed, rid], np.uint32)))
-    ttft, decode_s = {}, []
+                      prefill_chunk=prefill_chunk, temperature=temperature,
+                      top_k=top_k, adapters=adapters)
+    if eager:
+        eng.fns.decode, eng.fns.prefill = (eng.fns.decode_fn,
+                                           eng.fns.prefill_fn)
+    return eng
+
+
+def drain(eng, prompts, *, seed, max_new=64, rid0=0, adapters=None):
+    """Submit ``prompts`` (request ``rid0 + i`` with key (seed, i) and
+    adapter ``adapters[i]``) and drain the engine. Returns the streams and
+    the run's numbers: decode-step and prefill-chunk ms as medians of the
+    host clock around each step (inputs, replay, token readback)."""
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=max_new,
+                           rng=np.array([seed, i], np.uint32),
+                           adapter=0 if adapters is None else adapters[i]))
+    ttft, tick_s = {}, {"decode": [], "prefill": []}
+    steps0 = dict(eng.steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while eng.sched.has_queued or eng.sched.has_resident:
@@ -647,24 +791,26 @@ def run_engine(cfg, model, prompts, *, temperature, top_k, seed):
         t = time.perf_counter() - t0
         if kind == "idle":
             fail("engine idle with work queued")
-        if kind == "decode":
-            decode_s.append(eng.last_tick_s)
+        tick_s[kind].append(eng.last_tick_s)
         for e in events:
             if e.first:
                 ttft[e.rid] = t
     wall = time.perf_counter() - t0
     eng.sched.pool.check_leaks()
-    eng.close()
-    got = eng.completions()
+    got = {rid - rid0: toks for rid, toks in eng.completions().items()
+           if rid0 <= rid < rid0 + len(prompts)}
     if sorted(got) != list(range(len(prompts))) or any(
-            len(got[r]) != 64 for r in got):
-        fail("engine did not complete every request with 64 tokens")
-    return eng, got, {
+            len(got[r]) != max_new for r in got):
+        fail(f"engine did not complete every request with {max_new} "
+             f"tokens")
+    return got, {
         "tokens_per_s": sum(len(t) for t in got.values()) / wall,
         "mean_ttft_s": float(np.mean(list(ttft.values()))),
-        "decode_step_ms": 1e3 * float(np.mean(decode_s)),
-        "decode_steps": eng.steps["decode"],
-        "prefill_chunks": eng.steps["prefill"], "wall_s": wall}
+        "decode_step_ms": 1e3 * float(np.median(tick_s["decode"])),
+        "prefill_chunk_ms": 1e3 * float(np.median(tick_s["prefill"])),
+        "decode_steps": eng.steps["decode"] - steps0["decode"],
+        "prefill_chunks": eng.steps["prefill"] - steps0["prefill"],
+        "wall_s": wall}
 
 
 def _regime_launches(name: str) -> dict:
@@ -672,77 +818,197 @@ def _regime_launches(name: str) -> dict:
             for regime in ("split", "chunk")}
 
 
+def check_k6_launches(what, stats, layers) -> dict:
+    """K6's launches since the counts were last zeroed, which cover one
+    engine drain: exactly its steps x layers, through both regimes, and
+    no K5. Returns them by regime."""
+    steps = stats["decode_steps"] + stats["prefill_chunks"]
+    launches = DA.LAUNCHES["paged_decode_attention"]
+    if launches != steps * layers:
+        fail(f"{what}: K6 launched {launches} times, expected {steps} "
+             f"steps x {layers} layers")
+    if DA.LAUNCHES["decode_attention"]:
+        fail(f"{what}: the engine launched K5")
+    counted = _regime_launches("paged_decode_attention")
+    if sum(counted.values()) != launches or not all(counted.values()):
+        fail(f"{what}: K6 regime launches {counted} do not add up to "
+             f"{launches} or miss a regime")
+    return counted
+
+
+def check_captures(fns, want: int) -> None:
+    if fns.captures != {"decode": want, "prefill": want}:
+        fail(f"engine graph captures {fns.captures}, expected {want} each")
+
+
+def check_sampler(gen, seed) -> None:
+    """Both top-k draws at the engine's decode step (8 rows, vocab 50304,
+    temperature 0.8, top-k 20): ``sample_rows``'s on the card (the whole
+    row's noise on the device, which a graph can capture) and the
+    live-column draw the CPU takes (bits of the surviving columns on the
+    host, after a sync): the same tokens, and ms a call on the host clock
+    around the call and its sync."""
+    logits = torch.randn(8, 50304, generator=gen, device="cuda") * 3
+    host_keys = fold_in(np.array([seed, 5], np.int64), np.arange(8))
+    keys = torch.as_tensor(host_keys, device="cuda")
+    draws = {"device": lambda: sample_rows(logits, keys, 0.8, 20),
+             "live": lambda: gen_mod._gumbel_max_live(
+                 gen_mod._tempered(logits, 0.8, 20), host_keys, 0)}
+    times, toks = {}, {}
+    for draw in ("device", "live", "device", "live"):
+        ms = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks[draw] = draws[draw]()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[draw] = float(np.median(ms))
+    if not torch.equal(toks["device"], toks["live"]):
+        fail("the device and live top-k draws disagree")
+    print("sampler ms a call (8 x 50304, top-k 20; median of 20, second "
+          "round): " + json.dumps(times), flush=True)
+
+
+def profile_replay(graph, n: int = 5) -> dict:
+    """``n`` replays of a captured step under ``torch.profiler``: its
+    kernels a replay, their summed device time a replay and the five that
+    take the most (CUPTI sees the kernels a graph launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us_calls = by_name.setdefault(e.name[:80], [0.0, 0])
+        us_calls[0] += e.time_range.elapsed_us()
+        us_calls[1] += 1
+    if not by_name:
+        return {"kernels": "not measured"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"kernels_a_replay": sum(c for _, c in by_name.values()) / n,
+            "kernel_ms_a_replay": sum(u for u, _ in by_name.values())
+            / n / 1e3,
+            "top5_kernels_ms_calls": [[k, u / n / 1e3, c / n]
+                                      for k, (u, c) in top]}
+
+
 def check_engine(cfg, model, rng, kind, seed) -> dict:
-    """Phase 4: greedy and sampled engine runs. Returns K6's launches by
-    regime."""
+    """Phase 4: greedy and sampled engine runs, each captured and eager.
+    Each drain's K6 launches are counted alone (zeroed just before it):
+    its steps x layers. Returns K6's launches by regime over the captured
+    drains, the main path (the eager ones are their bitwise reference)."""
     prompts = [rng.randint(0, 50257, rng.randint(32, 701)).astype(np.int32)
                for _ in range(12)]
-    DA.reset_launch_counts()
-    steps = 0
+    by_regime = {"split": 0, "chunk": 0}
     for temperature, top_k in ((0.0, None), (0.8, 20)):
-        _, got, stats = run_engine(cfg, model, prompts,
-                                   temperature=temperature, top_k=top_k,
-                                   seed=seed)
+        mode = "greedy" if top_k is None else "sampled"
+        runs = {}
+        replay_ms = None
+        for eager in (False, True):
+            eng = make_engine(cfg, model, temperature=temperature,
+                              top_k=top_k, eager=eager)
+            DA.reset_launch_counts()
+            runs[eager] = drain(eng, prompts, seed=seed)
+            counted = check_k6_launches(
+                f"engine {mode} {'eager' if eager else 'captured'}",
+                runs[eager][1], cfg.num_layers)
+            check_captures(eng.fns, 0 if eager else 1)
+            if not eager:  # the decode graph's card time, replayed alone
+                for r in by_regime:
+                    by_regime[r] += counted[r]
+                graph = eng.fns.decode.step.graph
+                replay_ms = time_ms(lambda i: graph.replay(), 50)
+                print(f"engine {mode} decode replay under the profiler: "
+                      + json.dumps(profile_replay(graph)), flush=True)
+            eng.close()
+        got, stats = runs[False]
+        stats["decode_replay_device_ms"] = replay_ms
+        if got != runs[True][0]:
+            fail(f"engine {mode}: the captured steps' streams differ from "
+                 f"the eager steps'")
         gap = max(teacher_forced_gap(model, prompts[r], got[r], top_k)
                   for r in got)
-        mode = "greedy" if top_k is None else "sampled"
         print(f"engine {mode} on {kind}: " + json.dumps(
-            {**stats, "max_logit_gap": gap}), flush=True)
+            {"captured": stats, "eager": runs[True][1],
+             "captured_equals_eager": True, "max_logit_gap": gap}),
+            flush=True)
         if gap > LOGIT_MARGIN:
             fail(f"engine {mode}: an emitted token sits {gap} below its "
                  f"bar (margin {LOGIT_MARGIN})")
-        steps += stats["decode_steps"] + stats["prefill_chunks"]
-    launches = DA.LAUNCHES["paged_decode_attention"]
-    if launches != steps * cfg.num_layers:
-        fail(f"K6 launched {launches} times, expected {steps} steps x "
-             f"{cfg.num_layers} layers")
-    if DA.LAUNCHES["decode_attention"]:
-        fail("the engine launched K5")
-    by_regime = _regime_launches("paged_decode_attention")
-    print(f"K6 launches by regime: {json.dumps(by_regime)}", flush=True)
-    if sum(by_regime.values()) != launches or not all(by_regime.values()):
-        fail(f"K6 regime launches {by_regime} do not add up to {launches} "
-             f"or miss a regime")
+    print(f"K6 launches by regime (captured drains): "
+          f"{json.dumps(by_regime)}", flush=True)
     return by_regime
 
 
-def check_one_shot(cfg, model, rng, kind, seed) -> dict:
-    """Phase 5: the one-shot generator at B=4 with a 512-token prompt.
-    Returns K5's launches by regime."""
-    B, P, new_tokens = 4, 512, 64
-    prompt = rng.randint(0, 50257, (B, P)).astype(np.int64)
-    generate = make_generate_fn(cfg, max_new_tokens=new_tokens,
-                                temperature=0.0)
+def timed_generate(fn, model, prompt, key):
+    """One generator call: its output and its wall seconds (host clock,
+    ending in a sync), with the K5 launches it counted by regime."""
     DA.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = generate(model, prompt, np.array([seed, 99], np.uint32))
+    out = fn(model, prompt, key)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = DA.LAUNCHES["decode_attention"]
-    # one prompt chunk, then one call per further token, in every layer
-    if launches != new_tokens * cfg.num_layers:
-        fail(f"K5 launched {launches} times, expected {new_tokens} x "
-             f"{cfg.num_layers}")
     if DA.LAUNCHES["paged_decode_attention"]:
         fail("the one-shot generator launched K6")
-    # the prompt in the chunk regime, each later token in the split one
-    by_regime = _regime_launches("decode_attention")
+    return out, wall, _regime_launches("decode_attention")
+
+
+def check_one_shot(cfg, model, rng, kind, seed) -> dict:
+    """Phase 5: the one-shot generator at B=4 with a 512-token prompt,
+    greedy and sampled: the captured loop (its first call captures; the
+    second is timed) against the eager one, bitwise. Returns K5's
+    launches by regime over the timed captured calls."""
+    B, P, new_tokens = 4, 512, 64
+    prompt = rng.randint(0, 50257, (B, P)).astype(np.int64)
+    # one prompt chunk, then one call per further token, in every layer
     want = {"split": (new_tokens - 1) * cfg.num_layers,
             "chunk": cfg.num_layers}
-    if by_regime != want:
-        fail(f"K5 regime launches {by_regime}, expected {want}")
-    new = out[:, P:].cpu().numpy()
-    gap = max(teacher_forced_gap(model, prompt[b], new[b])
-              for b in range(B))
-    print(f"one-shot on {kind}: " + json.dumps(
-        {"B": B, "prompt": P, "new": new_tokens, "wall_s": wall,
-         "tokens_per_s": B * new_tokens / wall, "max_logit_gap": gap}),
-        flush=True)
-    if gap > LOGIT_MARGIN:
-        fail(f"one-shot: an emitted token sits {gap} below the best logit "
-             f"(margin {LOGIT_MARGIN})")
-    return by_regime
+    total = {"split": 0, "chunk": 0}
+    for temperature, top_k in ((0.0, None), (0.8, 20)):
+        mode = "greedy" if top_k is None else "sampled"
+        generate = make_generate_fn(cfg, max_new_tokens=new_tokens,
+                                    temperature=temperature, top_k=top_k)
+        key = np.array([seed, 99], np.uint32)
+        first, first_s, counted = timed_generate(generate, model, prompt,
+                                                 key)
+        out, wall, counted2 = timed_generate(generate, model, prompt, key)
+        eager, eager_s, counted3 = timed_generate(generate.eager, model,
+                                                  prompt, key)
+        for c in (counted, counted2, counted3):
+            if c != want:
+                fail(f"one-shot {mode}: K5 regime launches {c}, expected "
+                     f"{want}")
+        if generate.captures != 1:
+            fail(f"one-shot {mode}: {generate.captures} captures")
+        if not (torch.equal(out, eager) and torch.equal(first, eager)):
+            fail(f"one-shot {mode}: the captured loop differs from the "
+                 f"eager one")
+        for r in total:
+            total[r] += counted2[r]
+        new = out[:, P:].cpu().numpy()
+        gap = max(teacher_forced_gap(model, prompt[b], new[b], top_k)
+                  for b in range(B))
+        print(f"one-shot {mode} on {kind}: " + json.dumps(
+            {"B": B, "prompt": P, "new": new_tokens,
+             "captured_wall_s": wall, "first_call_s": first_s,
+             "eager_wall_s": eager_s,
+             "captured_tokens_per_s": B * new_tokens / wall,
+             "eager_tokens_per_s": B * new_tokens / eager_s,
+             "captured_equals_eager": True, "max_logit_gap": gap}),
+            flush=True)
+        if gap > LOGIT_MARGIN:
+            fail(f"one-shot {mode}: an emitted token sits {gap} below its "
+                 f"bar (margin {LOGIT_MARGIN})")
+    return total
 
 
 # ---- phase 6: the flash kernels against their plain versions --------------
@@ -2428,6 +2694,238 @@ def check_async_ps(seed: int, kind: str) -> None:
           flush=True)
 
 
+# ---- phases 22-23: speculative decoding and the multi-LoRA engine --------
+
+SPEC_K, SPEC_G = 4, 4  # draft layers, lookahead
+LORA_RANK, LORA_ADAPTERS = 16, 4
+# the LoRA phase's prefill chunk, and its prompts' lengths: a prompt goes
+# through the engine in one chunk of LORA_CHUNK rows and through the
+# one-shot generator in one chunk of its own length, so both must take
+# K5/K6's chunk regime (CHUNK_MIN_ROWS rows and up: below it K5 takes the
+# split regime, another algorithm) for the streams to be bitwise equal;
+# cuBLAS's bf16 GEMMs at GPT-2's widths give each row the bits of a
+# one-row product up to 64 rows (measured on an H100: PERF.md section 6)
+LORA_CHUNK = 32
+
+
+def _identity_past(model, layers: int):
+    """A copy of ``model`` whose blocks from ``layers`` on add nothing
+    (their ``attn.proj`` and ``mlp.down`` weights zero): its first
+    ``layers`` blocks compute its logits, so a draft of that depth agrees
+    with it everywhere."""
+    copy_ = copy.deepcopy(model)
+    with torch.no_grad():
+        for blk in copy_.blocks[layers:]:
+            blk.attn.proj.weight.zero_()
+            blk.mlp.down.weight.zero_()
+    return copy_
+
+
+def check_speculative(cfg, model, seed, kind) -> dict:
+    """Phase 22: speculative decoding at B=4, P=512, 64 new tokens, draft
+    layers 4, lookahead 4, greedy and sampled (temperature 0.8, top-k
+    20), bf16 and int8 caches, on the random model (where the 4-layer
+    draft's tokens rarely agree with the 12-layer model's) and, bf16, on
+    a copy whose last 8 blocks add nothing (every draft agrees): the
+    stream equals the vanilla one-shot's bitwise (both captured; the
+    first call of each captures, the second is timed); K5's launches
+    exact per replay: the two prompts in the chunk regime (12 + 4
+    layers), each round's 5 draft steps (4 layers) and its 5-row verify
+    chunk (12 layers) in the split one. Returns K5's launches by regime
+    over the timed speculative calls."""
+    B, P, N = 4, 512, 64
+    prompt = np.random.RandomState(seed + 22).randint(
+        0, 50257, (B, P)).astype(np.int64)
+    total = {"split": 0, "chunk": 0}
+    agreeing = _identity_past(model, SPEC_K)
+    for kv, net, drafts in ((None, model, "random"), ("int8", model, "random"),
+                            (None, agreeing, "agreeing")):
+        c = dataclasses.replace(cfg, kv_dtype=kv)
+        for temperature, top_k in ((0.0, None), (0.8, 20)):
+            mode = "greedy" if top_k is None else "sampled"
+            key = np.array([seed, 77], np.uint32)
+            kw = dict(max_new_tokens=N, temperature=temperature,
+                      top_k=top_k)
+            vanilla = make_generate_fn(c, **kw)
+            spec = make_generate_fn(c, spec_draft_layers=SPEC_K,
+                                    spec_lookahead=SPEC_G, **kw)
+            timed_generate(vanilla, net, prompt, key)
+            want, van_s, _ = timed_generate(vanilla, net, prompt, key)
+            timed_generate(spec, net, prompt, key)
+            got, spec_s, counted = timed_generate(spec, net, prompt, key)
+            stats = dict(spec.last_stats)
+            if not torch.equal(got, want):
+                fail(f"speculative {mode} ({kv or 'bf16'} cache): the "
+                     f"stream differs from vanilla decoding")
+            rounds = stats["verify_steps"]
+            expect = {"split": rounds * ((SPEC_G + 1) * SPEC_K
+                                         + cfg.num_layers),
+                      "chunk": cfg.num_layers + SPEC_K}
+            if counted != expect:
+                fail(f"speculative {mode}: K5 launches {counted}, expected "
+                     f"{expect}")
+            if spec.captures != 1 or vanilla.captures != 1:
+                fail("speculative: a generator captured more than once")
+            if drafts == "agreeing" and stats["accepted_drafts"] != (
+                    SPEC_G * stats["verify_steps"]):
+                fail(f"speculative {mode}: a draft that agrees with the "
+                     f"model everywhere was rejected ({stats})")
+            for r in total:
+                total[r] += counted[r]
+            print(f"speculative {mode} on {kind}: " + json.dumps(
+                {"cache": kv or "bf16", "drafts": drafts, **stats,
+                 "spec_ms": 1e3 * spec_s,
+                 "vanilla_ms": 1e3 * van_s,
+                 "spec_over_vanilla": spec_s / van_s,
+                 "k5_launches": counted, "equals_vanilla": True}),
+                flush=True)
+    return total
+
+
+def _random_bank(cfg, gen) -> dict:
+    """A bank of N(0, 0.05) deltas (rank 16: a delta of about half the
+    base projection's size), row 0 zero."""
+    bank = {}
+    for name, zeros in init_adapter_bank(cfg, device="cuda").items():
+        t = torch.randn(zeros.shape, generator=gen, device="cuda") * 0.05
+        t[0] = 0.0
+        bank[name] = t.to(zeros.dtype)
+    return bank
+
+
+def check_lora_first_product(cfg, slots: int = 8, trials: int = 4) -> dict:
+    """The premise of ``transformer._lora_delta``'s two routes: a bf16
+    ``bmm`` of x (slots, 1, d_in) by the gathered A (slots, d_in, r) gives
+    each row the bits of that row's product alone (the one-shot's decode
+    step) at the sites it serves, and not at ``LORA_ROW_SUM_SITES``. The
+    inputs are built so that any change of summation order shows: each
+    row's sum has a +2^26 product near its start and a -2^26 one near its
+    end, small integer products between them, which a grouping keeps or
+    absorbs. Fails if a ``bmm`` site's rows move; returns the outputs
+    that differ a site (of trials x slots x r)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    widths = {"qkv": cfg.d_model, "proj": cfg.num_heads * cfg.head_dim,
+              "up": cfg.d_model, "down": cfg.d_ff}
+    differing = {}
+    for name, d in widths.items():
+        differing[name] = 0
+        for _ in range(trials):
+            x, a = (torch.randint(-3, 4, shape, generator=gen,
+                                  device="cuda").float()
+                    for shape in ((slots, 1, d), (slots, d, LORA_RANK)))
+            x[..., 3] = x[..., d - 5] = 2.0 ** 13
+            a[:, 3], a[:, d - 5] = 2.0 ** 13, -(2.0 ** 13)
+            x, a = x.bfloat16(), a.bfloat16()
+            batched = torch.bmm(x, a)
+            differing[name] += sum(
+                int((batched[i] != torch.bmm(x[i:i + 1], a[i:i + 1])[0])
+                    .sum()) for i in range(slots))
+        if name not in LORA_ROW_SUM_SITES and differing[name]:
+            fail(f"LoRA {name} site: a {slots}-row bmm moves "
+                 f"{differing[name]} outputs off the one-row products")
+    print(f"LoRA first product as a bmm, outputs off the one-row bits (of "
+          f"{trials * slots * LORA_RANK} a site; the row_sum sites "
+          f"{sorted(LORA_ROW_SUM_SITES)} do not take it): "
+          + json.dumps(differing), flush=True)
+    return differing
+
+
+def check_lora_engine(cfg, model, seed, kind) -> dict:
+    """Phase 23: the engine at 8 slots serving 12 sampled requests
+    (temperature 0.8, top-k 20) over adapters 0-4 of a rank-16 bank, on
+    GPT-2 124M. With LORA_CHUNK-row prefill chunks and prompts that fit
+    one: adapter 0's streams equal the base engine's bitwise; each
+    adapter k's equal the one-shot generator's with ``adapter_id=k``
+    (B=1, captured) bitwise; at least one adapter stream moves off the
+    base one. Then the bank is rewritten in place and 12 more requests
+    run on the same engine: no recapture, and their streams follow the
+    new bank. Last, phase 4's geometry (128-row chunks) at phase 4's
+    prompt lengths (32-700 tokens, up to 6 chunks), where the engine and
+    the one-shot prefill through other kernels: every stream is held to
+    a teacher-forced forward of the LoRA model under its adapter id,
+    within LOGIT_MARGIN. K6's launches are counted a drain. Returns them
+    by regime over the LoRA engine's drains. First,
+    :func:`check_lora_first_product`."""
+    check_lora_first_product(cfg)
+    lcfg = dataclasses.replace(cfg, lora_rank=LORA_RANK,
+                               lora_adapters=LORA_ADAPTERS)
+    rs = np.random.RandomState(seed + 23)
+    prompts = [rs.randint(0, 50257, rs.randint(DA.CHUNK_MIN_ROWS,
+                                               LORA_CHUNK + 1))
+               .astype(np.int32) for _ in range(12)]
+    ids = [i % (LORA_ADAPTERS + 1) for i in range(12)]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    banks = [_random_bank(lcfg, gen), _random_bank(lcfg, gen)]
+    bank_mb = sum(t.numel() * t.element_size()
+                  for t in banks[0].values()) / 1e6
+    kw = dict(temperature=0.8, top_k=20, prefill_chunk=LORA_CHUNK)
+    base_eng = make_engine(cfg, model, **kw)
+    base, base_stats = drain(base_eng, prompts, seed=seed)
+    base_eng.close()
+    by_regime = {"split": 0, "chunk": 0}
+
+    def counted_drain(eng, prompts, what, **drain_kw):
+        DA.reset_launch_counts()
+        got, stats = drain(eng, prompts, seed=seed, adapters=ids,
+                           **drain_kw)
+        for r, n in check_k6_launches(f"LoRA engine, {what}", stats,
+                                      cfg.num_layers).items():
+            by_regime[r] += n
+        check_captures(eng.fns, 1)
+        return got, stats
+
+    eng = make_engine(lcfg, model, adapters=banks[0], **kw)
+    runs = []
+    for n, bank in enumerate(banks):
+        if n:  # in place: the graphs read the new weights, no recapture
+            eng.load_adapter_bank(bank)
+        got, stats = counted_drain(eng, prompts, f"bank {n}", rid0=100 * n)
+        oracles = {}
+        for i, a in enumerate(ids):
+            if a == 0:
+                if got[i] != base[i]:
+                    fail(f"LoRA engine, bank {n}: request {i} on adapter 0 "
+                         f"differs from the base engine")
+                continue
+            if a not in oracles:
+                oracles[a] = make_generate_fn(
+                    lcfg, max_new_tokens=64, temperature=0.8, top_k=20,
+                    adapters=bank, adapter_id=a)
+            one = oracles[a](model, prompts[i][None].astype(np.int64),
+                             np.array([seed, i], np.uint32))
+            if got[i] != one[0, len(prompts[i]):].tolist():
+                fail(f"LoRA engine, bank {n}: request {i} on adapter {a} "
+                     f"differs from the one-shot with adapter_id={a}")
+        moved = sum(got[i] != base[i] for i, a in enumerate(ids) if a)
+        if not moved:
+            fail(f"LoRA engine, bank {n}: no adapter moved a stream")
+        runs.append({"bank": n, **stats, "adapter_streams_moved": moved})
+    captures = eng.fns.captures
+    eng.close()
+
+    long_prompts = [rs.randint(0, 50257, rs.randint(32, 701))
+                    .astype(np.int32) for _ in range(12)]
+    eng = make_engine(lcfg, model, adapters=banks[1], temperature=0.8,
+                      top_k=20)
+    got, stats = counted_drain(eng, long_prompts, "phase 4's prompts")
+    eng.close()
+    lview = model.with_config(lcfg)
+    lview.set_adapter_bank(banks[1])
+    gap = max(teacher_forced_gap(lview, long_prompts[i], got[i], 20,
+                                 adapter=a) for i, a in enumerate(ids))
+    if gap > LOGIT_MARGIN:
+        fail(f"LoRA engine at phase 4's prompts: an emitted token sits "
+             f"{gap} below its bar (margin {LOGIT_MARGIN})")
+    runs.append({"bank": 1, "prompts": "32-700 tokens, 128-row chunks",
+                 **stats, "max_logit_gap": gap})
+    print(f"multi-LoRA engine on {kind}: " + json.dumps(
+        {"rank": LORA_RANK, "adapters": LORA_ADAPTERS, "bank_mb": bank_mb,
+         "base_decode_step_ms": base_stats["decode_step_ms"],
+         "base_tokens_per_s": base_stats["tokens_per_s"], "runs": runs,
+         "captures": captures}), flush=True)
+    return by_regime
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2460,14 +2958,25 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     results = []
     check_k5(results, gen)
+    check_k5_device_index(gen)
     check_k6(results, gen, rng, args.seed)
     check_regime_threshold(gen)
     cfg = gpt2_124m(dtype=torch.bfloat16)
     model = Transformer(cfg).init_weights(args.seed).to("cuda")
+    check_sampler(gen, args.seed)
     by_regime = {"paged_decode_attention": check_engine(cfg, model, rng,
                                                         kind, args.seed),
                  "decode_attention": check_one_shot(cfg, model, rng, kind,
                                                     args.seed)}
+    # phases 22-23 (speculative decoding, the multi-LoRA engine) run on
+    # this model here, before training; their launches join K5's and K6's
+    for name, counts in (
+            ("decode_attention", check_speculative(cfg, model, args.seed,
+                                                   kind)),
+            ("paged_decode_attention", check_lora_engine(
+                cfg, model, args.seed, kind))):
+        for regime, n in counts.items():
+            by_regime[name][regime] += n
     launches = {f"{name}.{regime}": n for name, counts in by_regime.items()
                 for regime, n in counts.items()}
     del model

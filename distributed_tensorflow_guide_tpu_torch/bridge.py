@@ -22,6 +22,12 @@ Layouts (flax -> torch):
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
+Multi-LoRA banks: :func:`adapters_from_flax` reads the JAX "adapters"
+collection (``block_{i}/attn/{qkv,proj}_{A,B}``,
+``block_{i}/mlp/{up,down}_{A,B}``, the same (n, d_in, r) and (n, r,
+d_out) arrays) into the port's bank (``blocks.{i}.attn.qkv_A`` ...), and
+:func:`adapters_to_flax` is the way back.
+
 Model parallelism: :func:`tp_params_from_flax` gives one ``model`` rank's
 shards of a Transformer (``parallel/tensor.py``);
 :func:`pipeline_params_from_flax` reads the JAX ``PipelinedLM``'s host tree
@@ -126,6 +132,36 @@ def params_to_flax(state_dict: Mapping, cfg) -> dict:
             a("lm_head.weight").T)}
     else:
         tree["classifier"] = _dense_to(state_dict, "classifier")
+    return tree
+
+
+def _adapter_names(cfg):
+    """(flax path, bank name) of every delta bank, site by site and layer
+    by layer."""
+    from distributed_tensorflow_guide_tpu_torch.models.transformer import (
+        LORA_SITES,
+    )
+
+    return [((f"block_{i}", mod, f"{site}_{ab}"),
+             f"blocks.{i}.{mod}.{site}_{ab}")
+            for i in range(cfg.num_layers)
+            for mod, sites in LORA_SITES.items()
+            for site in sites for ab in "AB"]
+
+
+def adapters_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """The JAX "adapters" collection (numpy leaves) -> the port's bank,
+    name -> tensor, for ``ServeEngine(adapters=)``,
+    ``make_generate_fn(adapters=)`` or ``Transformer.set_adapter_bank``."""
+    return {name: _t(_at(tree, path)) for path, name in _adapter_names(cfg)}
+
+
+def adapters_to_flax(bank: Mapping, cfg) -> dict:
+    """The inverse of :func:`adapters_from_flax`: bank -> the JAX
+    "adapters" tree with numpy leaves."""
+    tree: dict = {}
+    for path, name in _adapter_names(cfg):
+        _put(tree, path, _np(torch.as_tensor(bank[name])))
     return tree
 
 

@@ -8,7 +8,9 @@ views:
 * **contiguous decode view** (``cfg.decode``, no paging): a chunk of C
   tokens at position ``index`` writes its k/v into a kernel-layout cache
   ``(B, H, max_len, hd)`` and reads it through the K5 kernel
-  (``ops/decode_attention.decode_attention``);
+  (``ops/decode_attention.decode_attention``). ``index`` may be a device
+  tensor: the write and the kernel take it there, so one captured CUDA
+  graph serves every position;
 * **paged decode view** (``cfg.decode`` and ``paged_num_blocks``): the
   cache is a pool of ``(N, H, block_size, hd)`` blocks shared by every
   request; the chunk's k/v scatter through per-request block tables and
@@ -39,6 +41,16 @@ a reduce-scatter, and the final LayerNorm's output is all-gathered before
 the head. Attention runs on the whole sequence at the local heads. The
 LayerNorms' and ``pos_emb``'s gradients then hold only this slice's part:
 ``parallel/tensor.py`` sums them over ``model``.
+
+Multi-LoRA serving (``cfg.lora_rank``, ``cfg.lora_adapters``): each of
+the four projections (``qkv``, ``proj``, ``up``, ``down``) carries a bank
+of ``lora_adapters + 1`` low-rank pairs, buffers ``<site>_A``
+``(n, d_in, r)`` and ``<site>_B`` ``(n, r, d_out)`` in ``cfg.dtype`` (row
+0 zero: the base model). A call that passes ``adapter`` ((B,) int ids)
+adds ``x @ A[id] @ B[id]`` per request, one gathered pair of products for
+every adapter in the batch. The banks are buffers, not parameters: the
+LoRA path is a serving feature and has no gradient, and new adapter
+weights are written into the same tensors in place.
 
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
@@ -84,7 +96,6 @@ LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 # knobs of the JAX config that this package does not serve yet, and the
 # ROADMAP item (Queue 1) that brings each
 _DEFERRED = {
-    "lora_rank": "item 7 (multi-LoRA serving)",
     "moe_experts": "item 8 (MoE)",
     "weight_dtype": "item 9 (quantised weights)",
 }
@@ -121,12 +132,34 @@ class TransformerConfig:
     override_head_dim: int | None = None
     # Megatron sequence parallelism between the sub-layers (with tp_axis)
     tp_sequence: bool = False
-    # not served yet: setting any of these raises (see _DEFERRED)
+    # multi-LoRA serving: a bank of lora_adapters + 1 rank-lora_rank delta
+    # pairs per projection, row 0 zero (the base model)
     lora_rank: int | None = None
+    lora_adapters: int = 0
+    # not served yet: setting any of these raises (see _DEFERRED)
     moe_experts: int | None = None
     weight_dtype: str | None = None
 
     def __post_init__(self):
+        if self.lora_rank is not None:
+            if self.lora_rank < 1:
+                raise ValueError(
+                    f"lora_rank must be >= 1, got {self.lora_rank}")
+            if self.lora_adapters < 1:
+                raise ValueError(
+                    "lora_rank set requires lora_adapters >= 1 "
+                    f"(got {self.lora_adapters})")
+            if self.weight_dtype is not None:
+                raise ValueError(
+                    "weight_dtype and lora_rank are mutually exclusive "
+                    "(the quantized projections have no f32 kernel for "
+                    "the deltas to ride on)")
+            if self.moe_experts is not None:
+                raise ValueError(
+                    "moe_experts and lora_rank are mutually exclusive "
+                    "(no delta bank wiring on the routed FFN)")
+        elif self.lora_adapters:
+            raise ValueError("lora_adapters requires lora_rank")
         for knob, item in _DEFERRED.items():
             if getattr(self, knob) is not None:
                 raise NotImplementedError(
@@ -171,6 +204,10 @@ class TransformerConfig:
     @property
     def paged(self) -> bool:
         return self.paged_num_blocks is not None
+
+    @property
+    def lora(self) -> bool:
+        return self.lora_rank is not None
 
     def resolve_attn_impl(self, seq_len: int | None = None) -> str:
         """Resolve 'auto' against the sequence length (``max_len`` when
@@ -232,26 +269,52 @@ def bert_base(num_classes: int = 2, **kw) -> TransformerConfig:
         d_ff=3072, max_len=512, causal=False, num_classes=num_classes, **kw)
 
 
-def layer_norm(x, weight, bias, dtype):
+def row_sum(x):
+    """Sum over the last axis with the same bits for a row whatever the
+    number of rows. PyTorch's CUDA reduction picks its threads per row from
+    the row count (128 lanes for 4 rows, 32 for 20), which changes the
+    order of the sum; a decode step (B rows), a speculative verify chunk
+    (B x (G + 1) rows) and an engine step (slots rows) would then give one
+    request other bits. Summed as (rows, D / 32, 32) -> 32-lane sums ->
+    (rows, D / 32) -> row sums, every level has enough outputs that the
+    lanes per output no longer depend on the row count."""
+    d = x.shape[-1]
+    if d % 32 or d == 32:
+        return x.sum(dim=-1)
+    return x.unflatten(-1, (d // 32, 32)).sum(dim=-1).sum(dim=-1)
+
+
+def layer_norm(x, weight, bias, dtype, row_invariant: bool = False):
     """flax LayerNorm: f32 statistics with the fast variance
-    E[x^2] - E[x]^2 (clipped at 0), eps 1e-6, output cast to ``dtype``."""
+    E[x^2] - E[x]^2 (clipped at 0), eps 1e-6, output cast to ``dtype``.
+    ``row_invariant`` takes the means through :func:`row_sum` (the decode
+    views: a request's bits must not depend on its batch-mates; the
+    training view keeps the one-pass mean, two kernels fewer a norm)."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
-                      min=0.0)
+    if row_invariant:
+        d = xf.shape[-1]
+        mean = row_sum(xf)[..., None] / d
+        sq = row_sum(xf * xf)[..., None] / d
+    else:
+        mean = xf.mean(dim=-1, keepdim=True)
+        sq = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(sq - mean * mean, min=0.0)
     mul = torch.rsqrt(var + LN_EPS) * weight
     return ((xf - mean) * mul + bias).to(dtype)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, d: int, dtype: torch.dtype):
+    def __init__(self, d: int, dtype: torch.dtype,
+                 row_invariant: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.row_invariant = row_invariant
         self.weight = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.dtype,
+                          self.row_invariant)
 
 
 def _linear(x, weight, bias=None, dtype=None):
@@ -284,6 +347,52 @@ def _tp_leave(y, cfg: TransformerConfig):
     return cc.tp_allreduce(y, cfg.tp_axis)
 
 
+def _lora_bank(module: nn.Module, cfg: TransformerConfig, name: str,
+               d_in: int, d_out: int) -> None:
+    """Register one projection's delta bank, ``<name>_A`` (n, d_in, r)
+    and ``<name>_B`` (n, r, d_out) with n = ``lora_adapters + 1``, zeros
+    in ``cfg.dtype``: every id starts as the base model until its rows
+    are written. Not part of the state dict (the weight bridge and the
+    optimizers see the base parameters alone)."""
+    n = cfg.lora_adapters + 1
+    module.register_buffer(
+        f"{name}_A", torch.zeros(n, d_in, cfg.lora_rank, dtype=cfg.dtype),
+        persistent=False)
+    module.register_buffer(
+        f"{name}_B", torch.zeros(n, cfg.lora_rank, d_out, dtype=cfg.dtype),
+        persistent=False)
+
+
+# The LoRA sites whose first product a batched GEMM orders by the batch's
+# size on an H100: the down site's 3072-long reduction (GPT-2's d_ff);
+# the 768-long ones (qkv, proj, up) keep a request's bits at any batch
+# size there (chip_smoke.py phase 23 checks both, and holds the engine
+# to the one-shot generator bitwise).
+LORA_ROW_SUM_SITES = frozenset({"down"})
+
+
+def _lora_delta(module: nn.Module, name: str, x, adapter):
+    """``x @ A[id] @ B[id]`` with per-request ids: ``x`` (B, C, d_in),
+    ``adapter`` (B,) int; one gathered pair of ``bmm`` calls serves every
+    adapter resident in the batch. At the sites of ``LORA_ROW_SUM_SITES`` a
+    batched GEMM would give a request's delta other bits in an 8-slot
+    engine step than in a one-request generator step, so there the first
+    product is taken as f32 products summed by :func:`row_sum`, then
+    rounded to the bank's dtype; the second sums only r terms and stays a
+    ``bmm`` everywhere."""
+    a = getattr(module, f"{name}_A").index_select(0, adapter)  # (B, d, r)
+    b = getattr(module, f"{name}_B").index_select(0, adapter)  # (B, r, e)
+    if name in LORA_ROW_SUM_SITES:
+        prod = x.float()[:, :, None, :] * a.transpose(1, 2).float()[:, None]
+        t = row_sum(prod.contiguous()).to(b.dtype)  # (B, C, r)
+    else:
+        t = torch.bmm(x.to(a.dtype), a)  # (B, C, r)
+    return torch.bmm(t, b)
+
+
+LORA_SITES = {"attn": ("qkv", "proj"), "mlp": ("up", "down")}
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -292,13 +401,19 @@ class MultiHeadAttention(nn.Module):
         # rows ordered (3, H, hd) like flax's qkv kernel (D, 3, H, hd)
         self.qkv = nn.Linear(d, 3 * h * hd, bias=False)
         self.proj = nn.Linear(h * hd, d, bias=False)
+        if cfg.lora:
+            _lora_bank(self, cfg, "qkv", d, 3 * h * hd)
+            _lora_bank(self, cfg, "proj", h * hd, d)
 
-    def forward(self, x, index=None, *, cache=None, block_tables=None):
+    def forward(self, x, index=None, *, cache=None, block_tables=None,
+                adapter=None):
         cfg = self.cfg
         x = _tp_enter(x, cfg)
         B, S, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
         qkv = _linear(x, self.qkv.weight, dtype=cfg.dtype)
+        if adapter is not None:
+            qkv = qkv + _lora_delta(self, "qkv", x, adapter)
         qkv = qkv.view(B, S, 3, h, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, S, H, hd)
         if cfg.decode and cfg.paged:
@@ -310,8 +425,10 @@ class MultiHeadAttention(nn.Module):
             out = FA.flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = self._dense_attend(q, k, v)
-        out = _linear(out.reshape(B, S, h * hd), self.proj.weight,
-                      dtype=cfg.dtype)
+        flat = out.reshape(B, S, h * hd)
+        out = _linear(flat, self.proj.weight, dtype=cfg.dtype)
+        if adapter is not None:
+            out = out + _lora_delta(self, "proj", flat, adapter)
         return _tp_leave(out, cfg)  # after the row-parallel proj
 
     def _dense_attend(self, q, k, v):
@@ -335,26 +452,27 @@ class MultiHeadAttention(nn.Module):
 
     def _decode_attend(self, q, k, v, index, cache):
         """Contiguous decode view: write rows [index, index + C) of the
-        kernel-layout cache in place, then K5 reads it."""
+        kernel-layout cache in place (``index_copy_`` at ``index +
+        arange(C)``: the index stays on the device), then K5 reads it."""
         if index is None or cache is None:
             raise ValueError("the decode view needs the write index and "
                              "the cache")
         C = q.shape[1]
-        index = int(index)
+        index = DA.device_index(index, q.device)
+        rows = index.to(torch.int64) + torch.arange(C, device=q.device)
         kT = k.transpose(1, 2)  # (B, H, C, hd)
         vT = v.transpose(1, 2)
-        sl = slice(index, index + C)
         ks = vs = None
         if self.cfg.kv_dtype == "int8":
             k8, v8, k_sc, v_sc = self._quantized(kT, vT)
-            cache["k"][:, :, sl] = k8
-            cache["v"][:, :, sl] = v8
-            cache["ks"][..., sl] = k_sc
-            cache["vs"][..., sl] = v_sc
+            cache["k"].index_copy_(2, rows, k8)
+            cache["v"].index_copy_(2, rows, v8)
+            cache["ks"].index_copy_(3, rows, k_sc)
+            cache["vs"].index_copy_(3, rows, v_sc)
             ks, vs = cache["ks"], cache["vs"]
         else:
-            cache["k"][:, :, sl] = kT
-            cache["v"][:, :, sl] = vT
+            cache["k"].index_copy_(2, rows, kT.to(cache["k"].dtype))
+            cache["v"].index_copy_(2, rows, vT.to(cache["v"].dtype))
         return DA.decode_attention(q, cache["k"], cache["v"], index,
                                    key_scale=ks, value_scale=vs)
 
@@ -402,13 +520,21 @@ class MLP(nn.Module):
         self.cfg = cfg
         self.up = nn.Linear(cfg.d_model, cfg.d_ff, bias=True)
         self.down = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        if cfg.lora:
+            _lora_bank(self, cfg, "up", cfg.d_model, cfg.d_ff)
+            _lora_bank(self, cfg, "down", cfg.d_ff, cfg.d_model)
 
-    def forward(self, x):
+    def forward(self, x, adapter=None):
         cfg = self.cfg
-        y = _linear(_tp_enter(x, cfg), self.up.weight, self.up.bias,
-                    dtype=cfg.dtype)
+        x = _tp_enter(x, cfg)
+        y = _linear(x, self.up.weight, self.up.bias, dtype=cfg.dtype)
+        if adapter is not None:
+            y = y + _lora_delta(self, "up", x, adapter)
         y = F.gelu(y, approximate="tanh")
+        down_in = y
         y = _linear(y, self.down.weight, dtype=cfg.dtype)
+        if adapter is not None:
+            y = y + _lora_delta(self, "down", down_in, adapter)
         return _tp_leave(y, cfg)  # after the row-parallel down
 
 
@@ -417,12 +543,13 @@ class Block(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.ln1 = LayerNorm(cfg.d_model, cfg.dtype)
+        self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
         self.attn = MultiHeadAttention(cfg)
-        self.ln2 = LayerNorm(cfg.d_model, cfg.dtype)
+        self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, index=None, *, cache=None, block_tables=None):
+    def forward(self, x, index=None, *, cache=None, block_tables=None,
+                adapter=None):
         cfg = self.attn.cfg
         h = self.ln1(x)
         if (cfg.remat_mode == "attention" and not cfg.decode
@@ -431,19 +558,22 @@ class Block(nn.Module):
             x = x + checkpoint(self.attn, h, use_reentrant=False)
         else:
             x = x + self.attn(h, index, cache=cache,
-                              block_tables=block_tables)
-        return x + self.mlp(self.ln2(x))
+                              block_tables=block_tables, adapter=adapter)
+        return x + self.mlp(self.ln2(x), adapter)
 
 
 class Transformer(nn.Module):
     """Tokens in, float32 logits out.
 
-    ``forward(tokens, index=None, *, cache=None, block_tables=None)``:
-    ``tokens`` (B, S) int; in decode mode ``index`` is the absolute
-    position of ``tokens[:, 0]`` — an int for the contiguous view, a
-    (B,) tensor (one position per request) for the paged view — and
-    ``cache`` is what :meth:`init_cache` / :meth:`init_pool` returned,
-    updated in place.
+    ``forward(tokens, index=None, *, cache=None, block_tables=None,
+    adapter=None)``: ``tokens`` (B, S) int; in decode mode ``index`` is
+    the absolute position of ``tokens[:, 0]`` — for the contiguous view an
+    int or a 0-d / (1,) integer tensor on the model's device (the
+    captured one-shot loop advances it there), for the paged view a (B,)
+    tensor (one position per request) — and ``cache`` is what
+    :meth:`init_cache` / :meth:`init_pool` returned, updated in place.
+    ``adapter`` ((B,) int, with ``cfg.lora_rank``) picks each request's
+    row of the delta banks; None runs the base model.
     """
 
     def __init__(self, cfg: TransformerConfig):
@@ -453,7 +583,7 @@ class Transformer(nn.Module):
         self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         self.blocks = nn.ModuleList(Block(cfg)
                                     for _ in range(cfg.num_layers))
-        self.ln_f = LayerNorm(cfg.d_model, cfg.dtype)
+        self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
         if cfg.num_classes is None:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
         else:
@@ -480,11 +610,44 @@ class Transformer(nn.Module):
 
     def with_config(self, cfg: TransformerConfig) -> "Transformer":
         """A model under another config (the decode and paged views of a
-        training model) that shares this one's parameter tensors."""
+        training model, or its first ``cfg.num_layers`` blocks: the
+        speculative draft) that shares this one's parameter tensors. A
+        LoRA view starts from zero delta banks of its own
+        (:meth:`set_adapter_bank` fills them)."""
         with torch.device("meta"):
             view = Transformer(cfg)
-        view.load_state_dict(self.state_dict(), assign=True)
+        sd = self.state_dict()
+        if cfg.num_layers < self.cfg.num_layers:
+            sd = {k: t for k, t in sd.items()
+                  if not k.startswith("blocks.")
+                  or int(k.split(".")[1]) < cfg.num_layers}
+        view.load_state_dict(sd, assign=True)
+        for name, buf in view.adapter_bank().items():
+            mod, leaf = name.rsplit(".", 1)
+            setattr(view.get_submodule(mod), leaf,
+                    torch.zeros(buf.shape, dtype=buf.dtype,
+                                device=self.device))
         return view
+
+    def adapter_bank(self) -> dict[str, torch.Tensor]:
+        """The live delta banks, name -> buffer (``blocks.{i}.attn.qkv_A``
+        ...): write new adapter weights into these tensors in place."""
+        return {name: buf for name, buf in self.named_buffers()
+                if name.endswith(("_A", "_B"))}
+
+    def set_adapter_bank(self, bank) -> None:
+        """Give this model its own copy of ``bank`` (name -> tensor or
+        array, named as :meth:`adapter_bank` names them), on its device in
+        ``cfg.dtype``."""
+        for name, buf in self.adapter_bank().items():
+            src = torch.as_tensor(bank[name])
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(f"adapter bank {name}: shape "
+                                 f"{tuple(src.shape)}, the model's is "
+                                 f"{tuple(buf.shape)}")
+            mod, leaf = name.rsplit(".", 1)
+            setattr(self.get_submodule(mod), leaf,
+                    src.to(device=self.device, dtype=buf.dtype).clone())
 
     @property
     def device(self) -> torch.device:
@@ -529,10 +692,12 @@ class Transformer(nn.Module):
         return leaf
 
     def forward(self, tokens, index=None, *, cache=None, block_tables=None,
-                return_hidden: bool = False):
+                adapter=None, return_hidden: bool = False):
         cfg = self.cfg
         if cfg.decode and index is None:
             raise ValueError("cfg.decode=True requires the position index")
+        if adapter is not None and not cfg.lora:
+            raise ValueError("adapter ids given but cfg.lora_rank is None")
         dt = cfg.dtype
         if cfg.tp_axis:
             x = vocab_parallel_embed(tokens, self.tok_emb.weight,
@@ -544,13 +709,14 @@ class Transformer(nn.Module):
         if cfg.tp_sequence:  # this rank's slice of the sequence
             ax = resolve_axis(cfg.tp_axis)
             positions = positions.chunk(ax.size)[ax.index]
-        if cfg.decode:
-            # the engine passes one position per request (B,); the
-            # one-shot generator a single int
-            if isinstance(index, torch.Tensor) and index.ndim:
-                positions = positions[None, :] + index[:, None]
-            else:
-                positions = positions + int(index)
+        if cfg.decode and cfg.paged:
+            # the engine passes one position per request (B,)
+            index = torch.as_tensor(index, device=tokens.device)
+            positions = positions[None, :] + index.reshape(-1, 1)
+        elif cfg.decode:
+            # the one-shot generator: one position, kept on the device
+            index = DA.device_index(index, tokens.device)
+            positions = positions + index.to(torch.int64)
         x = x + self.pos_emb(positions).to(dt)
         remat_blocks = (cfg.remat_mode == "block" and not cfg.decode
                         and torch.is_grad_enabled())
@@ -559,7 +725,7 @@ class Transformer(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x, index, cache=None if cache is None else cache[i],
-                        block_tables=block_tables)
+                        block_tables=block_tables, adapter=adapter)
         x = self.ln_f(x)
         if cfg.tp_sequence:  # the whole sequence into the head
             x = cc.sp_all_gather(x, cfg.tp_axis, dim=1)

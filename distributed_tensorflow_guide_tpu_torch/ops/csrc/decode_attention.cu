@@ -24,11 +24,14 @@
 // number of absolute positions, which the wrapper passes in (its
 // split_keys(): 256, half that for f32 rows wider than 64), so a
 // request's partials never depend on its batch-mates, and the grid's
-// split count comes from host-known sizes (K5's length, K6's table width
-// x block size): no device value is read on the host, and the call can be
-// captured in a CUDA graph. dispatch() refuses a plan whose splits do not
-// cover the span or whose keys do not fit a CTA. A CTA owns one split of
-// one (b, h) and 1 (a decode step) or kRows query rows:
+// split count comes from the cache's capacity (K5's S, K6's table width
+// x block size), never from a live length: the lengths (K6) and the
+// write index (K5) stay in device memory, the host reads none of them,
+// and one captured CUDA graph replays at any position. dispatch() refuses
+// a plan whose splits do not cover the capacity or whose keys do not fit
+// a CTA. A split that starts at or past what its rows can see writes an
+// empty partial and exits. A CTA owns one split of one (b, h) and 1 (a
+// decode step) or kRows query rows:
 //   * each of its 8 warps owns 32 keys of the split (16 for the wide f32
 //     rows) from load to partial: it issues their K/V rows with cp.async
 //     (16 bytes a lane where the row allows) before anything waits, so
@@ -56,27 +59,39 @@
 // registers, S = Q K^T and O += P V run as wgmma (P rounded to bf16 as
 // the A operand), as in flash_fwd_sm90; a producer warpgroup loads Q once
 // and streams 64-key K/V tiles through a 3-stage mbarrier ring: by TMA
-// for K5's bf16 cache (the tensor map's row count is the live length, so
-// TMA zero-fills what lies past it), by cp.async gathers through the
-// block table for K6 and for int8 (one 16-byte copy per row piece). An
-// int8 tile lands raw and the producer converts it to bf16 in shared
-// memory (exact: |v| <= 127). Only tiles that the diagonal or the live
-// length crosses are masked, and the KV loop ends at the last position
-// the CTA's rows can see.
+// for K5's bf16 cache where the whole tile lies below the last position
+// the CTA's rows can see (the tensor map covers all S rows: the live
+// length is a device value), by cp.async gathers, which write zeros for
+// the rows past that position, for the tile that position crosses, for
+// K6 (through the block table) and for int8 (one 16-byte copy per row
+// piece). An int8 tile lands raw and the producer converts it to bf16 in
+// shared memory (exact: |v| <= 127). Only tiles that the diagonal or the
+// live length crosses are masked (every score column past either is
+// -inf), and the KV loop ends at the last position the CTA's rows can
+// see.
+//
+// Every product that could meet an add is written as an explicit fmaf or
+// a rounded __fmul_rn / __fsub_rn, so no template instance (K5 or K6, 1 or
+// kRows rows) contracts it otherwise: a query row's output has the same
+// bits whether it comes alone (a decode step) or as a row of a chunk (a
+// speculative verify chunk, an engine step), through K5 or through K6.
 //
 // In both regimes an int8 cache moves over the wire as int8: the per-row
 // k scale folds into the score columns and the v scale into P's columns
 // after l has summed the raw p, never into a dequantised copy. Rows at or
 // past a request's live length are never read (zero-filled in shared
-// memory instead), so whatever the cache holds there cannot reach the
-// output, not even as 0 * NaN. Any head dim up to 128: columns past hd
+// memory instead), so whatever the cache holds there (in speculative
+// decoding, the k/v of rejected drafts) cannot reach the output, not even
+// as 0 * NaN. Any head dim up to 128: columns past hd
 // are zero in shared memory.
 //
 // Layouts (row-major, contiguous):
 //   q, out   (B, C, H, hd)                      query dtype (f32 or bf16)
 //   K5 k, v  (B, H, S, hd)   scales (B, H, 1, S) f32 when int8
 //   K6 k, v  (N, H, bs, hd)  scales (N, H, 1, bs) f32 when int8
-//   tables   (B, n_blk) int32, lengths (B,) int32 (K6 only)
+//   tables   (B, n_blk) int32, lengths (B,) int32 (K6)
+//   index    (1,) int32 (K5): the chunk's first position; every request's
+//            live length is index + C (clamped to [1, S])
 //   ws       f32 workspace: acc (B, H, C, n_splits, hd), then (m, l)
 //            (B, H, C, n_splits, 2); used when n_splits > 1
 // Query row c of request b sits at position length - C + c; key p is
@@ -246,6 +261,15 @@ __device__ __forceinline__ long long kv_row(int b, int h, int p, int H,
   return ((long long)b * H + h) * seq + p;
 }
 
+// A request's live length, read on the device: K6's per-request length
+// (at least 1), K5's write index + C (within [1, S]).
+template <bool PAGED>
+__device__ __forceinline__ int live_length(const int* lengths, int b, int C,
+                                           int seq) {
+  if (PAGED) return max(lengths[b], 1);
+  return min(max(lengths[0] + C, 1), seq);
+}
+
 // ==== regime 1: split-KV ==================================================
 
 // Bytes of a K or V row in shared memory: the row rounded up to 16-byte
@@ -288,7 +312,7 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
-                    const int* __restrict__ lengths, int length_all,
+                    const int* __restrict__ lengths,
                     TQ* __restrict__ out, float* __restrict__ ws_acc,
                     float* __restrict__ ws_ml, int C, int H, int hd,
                     int seq, int n_blk, int keys, float scale) {
@@ -302,11 +326,23 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
   const int b = blockIdx.z / H, h = blockIdx.z % H;
   const int r0 = blockIdx.y * R;
   const int rows = min(R, C - r0);
-  const int length = PAGED ? max(lengths[b], 1) : length_all;
+  const int length = live_length<PAGED>(lengths, b, C, seq);
   const int q_base = length - C;  // position of chunk row 0
   // the split's keys, up to the last position the CTA's rows can see
   const int kv_lo = split * keys;
   const int kv_end = min(kv_lo + keys, max(0, min(length, q_base + r0 + rows)));
+  const long long row0 = ((long long)b * H + h) * C + r0;  // (B, H, C) row
+  if (n_splits > 1 && kv_end <= kv_lo) {  // past the live keys: empty
+    for (int i = threadIdx.x; i < rows * hd; i += kSplitWarps * 32) {
+      const int r = i / hd, d = i % hd;
+      ws_acc[((row0 + r) * n_splits + split) * hd + d] = 0.f;
+      if (d == 0) {
+        ws_ml[((row0 + r) * n_splits + split) * 2] = kNegInf;
+        ws_ml[((row0 + r) * n_splits + split) * 2 + 1] = 0.f;
+      }
+    }
+    return;
+  }
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row_bytes = hd * elem;
@@ -412,13 +448,14 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
     if (r < rows) {  // uniform across the warp
       float x = kNegInf;
       if (mine && p0 + lane <= q_base + r0 + r) {
-        x = s[r] * scale;
-        if (QUANT) x *= ksc;  // k dequant folds into the score column
+        x = __fmul_rn(s[r], scale);
+        if (QUANT) x = __fmul_rn(x, ksc);  // k dequant: the score column
       }
       m[r] = warp_max(x);
-      const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - m[r]);
+      const float p =
+          x <= kNegInf * 0.5f ? 0.f : expf(__fsub_rn(x, m[r]));
       l[r] = warp_sum(p);
-      p_w[r * 32 + lane] = QUANT ? p * vsc : p;  // v dequant, after l
+      p_w[r * 32 + lane] = QUANT ? __fmul_rn(p, vsc) : p;  // v, after l
     }
   }
   __syncwarp();
@@ -473,7 +510,6 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
     }
   }
   __syncthreads();
-  const long long row0 = ((long long)b * H + h) * C + r0;  // (B, H, C) row
   for (int i = tid; i < rows * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     float M = kNegInf;
@@ -483,8 +519,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TC* __restrict__ k,
 #pragma unroll
     for (int w = 0; w < kSplitWarps; ++w) {
       const float e = expf(m_w[w * R + r] - M);
-      L += e * l_w[w * R + r];
-      a += e * red[(w * R + r) * HDP + d];
+      L = fmaf(e, l_w[w * R + r], L);
+      a = fmaf(e, red[(w * R + r) * HDP + d], a);
     }
     if (n_splits == 1) {
       out[(((long long)b * C + r0 + r) * H + h) * hd + d] =
@@ -516,13 +552,15 @@ decode_combine_kernel(const float* __restrict__ ws_acc,
   float M = kNegInf;
   for (int s = 0; s < n_splits; ++s) M = fmaxf(M, ml[2 * s]);
   float L = 0.f;
-  for (int s = 0; s < n_splits; ++s) L += expf(ml[2 * s] - M) * ml[2 * s + 1];
+  for (int s = 0; s < n_splits; ++s)
+    L = fmaf(expf(ml[2 * s] - M), ml[2 * s + 1], L);
   const float inv = 1.f / (L == 0.f ? 1.f : L);
   TQ* orow = out + (((long long)b * C + c) * H + h) * hd;
   for (int d = lane; d < hd; d += 32) {
     float a = 0.f;
     for (int s = 0; s < n_splits; ++s)
-      a += expf(ml[2 * s] - M) * ws_acc[(row * n_splits + s) * hd + d];
+      a = fmaf(expf(ml[2 * s] - M), ws_acc[(row * n_splits + s) * hd + d],
+               a);
     orow[d] = from_float<TQ>(a * inv);
   }
 }
@@ -611,8 +649,8 @@ __device__ __forceinline__ void chunk_tile(float (&o)[HDP / 2],
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int col = c0 + 8 * (i >> 2) + (i & 1);
-    float x = s[i] * scale;
-    if (QUANT) x *= ks[col];  // k dequant folds into the score column
+    float x = __fmul_rn(s[i], scale);
+    if (QUANT) x = __fmul_rn(x, ks[col]);  // k dequant: the score column
     if (mask && (kv0 + col >= kv_end || kv0 + col > qpos[(i >> 1) & 1]))
       x = -INFINITY;
     s[i] = x;
@@ -633,14 +671,14 @@ __device__ __forceinline__ void chunk_tile(float (&o)[HDP / 2],
   for (int i = 0; i < 32; ++i) {
     float p = exp2f(fmaf(s[i], kLog2e, -mb[(i >> 1) & 1]));
     rs[(i >> 1) & 1] += p;
-    if (QUANT) p *= vs[c0 + 8 * (i >> 2) + (i & 1)];  // v dequant, after l
+    if (QUANT) p = __fmul_rn(p, vs[c0 + 8 * (i >> 2) + (i & 1)]);  // v
     s[i] = p;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
     rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-    l[r] = l[r] * alpha[r] + rs[r];
+    l[r] = fmaf(l[r], alpha[r], rs[r]);
   }
 #pragma unroll
   for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -677,7 +715,7 @@ decode_chunk_sm90(const __grid_constant__ CUtensorMap tm_k,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale,
                   const int* __restrict__ tables,
-                  const int* __restrict__ lengths, int length_all,
+                  const int* __restrict__ lengths,
                   bf16* __restrict__ out, int C, int H, int hd, int seq,
                   int n_blk, float scale) {
   using Lay = ChunkLayout<HDP, QUANT>;
@@ -690,7 +728,7 @@ decode_chunk_sm90(const __grid_constant__ CUtensorMap tm_k,
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int length = PAGED ? max(lengths[b], 1) : length_all;
+  const int length = live_length<PAGED>(lengths, b, C, seq);
   const int q_base = length - C;  // position of chunk row 0
   const int row_last = min(q0 + kTile, C) - 1;
   const int kv_end = max(0, min(length, q_base + row_last + 1));
@@ -758,7 +796,10 @@ decode_chunk_sm90(const __grid_constant__ CUtensorMap tm_k,
       const int valid = min(kTile, kv_end - kv0);
       uint8_t* stage = ring + st * Lay::kStageBytes;
       mbar_wait(&empty[st], ((it / kChunkStages) & 1) ^ 1);
-      if (kTma) {
+      // TMA only for a whole tile of live rows: the map covers all S
+      // rows, so the tile the live length crosses is gathered instead,
+      // with zeros past it (its expecting arrival then is a plain one)
+      if (kTma && valid == kTile) {
         if (pt == 0) {
           mbar_expect_tx(&full[st], 2 * Lay::kTileBytes);
           for (int a = 0; a < HDP / kAtomCols; ++a) {
@@ -769,6 +810,7 @@ decode_chunk_sm90(const __grid_constant__ CUtensorMap tm_k,
           }
         }
       } else {
+        if (kTma && pt == 0) mbar_arrive(&full[st]);
         for (int i = pt; i < kTile * np; i += 128) {
           const int j = i / np, c = i % np;
           const long long row =
@@ -874,8 +916,7 @@ int opt_in(K kernel, size_t bytes) {
 struct Args {
   const void *q, *k, *v;
   const float *ks, *vs;
-  const int *tables, *lengths;
-  int length_all;
+  const int *tables, *lengths;  // K5: lengths is the (1,) write index
   void* out;
   float* ws;
   int B, C, H, hd, seq, n_blk;
@@ -900,7 +941,7 @@ int launch_split(const Args& a) {
   kernel<<<grid, kSplitWarps * 32, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k),
       static_cast<const TC*>(a.v), a.ks, a.vs, a.tables, a.lengths,
-      a.length_all, static_cast<TQ*>(a.out), a.ws, ws_ml, a.C, a.H, a.hd,
+      static_cast<TQ*>(a.out), a.ws, ws_ml, a.C, a.H, a.hd,
       a.seq, a.n_blk, a.keys, a.scale);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc || a.n_splits == 1) return rc;
@@ -910,11 +951,12 @@ int launch_split(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5's bf16 cache (B, H, S, hd) as a 4-D (hd, H, length, B) map, boxes of
-// 64 columns x 64 rows: rows at or past the live length arrive as zeros.
+// K5's bf16 cache (B, H, S, hd) as a 4-D (hd, H, S, B) map, boxes of 64
+// columns x 64 rows. It covers every row: the live length is a device
+// value, so the kernel loads by TMA only tiles that lie below it.
 int map_cache(CUtensorMap* map, const void* base, const Args& a) {
   const cuuint64_t dims[4] = {(cuuint64_t)a.hd, (cuuint64_t)a.H,
-                              (cuuint64_t)a.length_all, (cuuint64_t)a.B};
+                              (cuuint64_t)a.seq, (cuuint64_t)a.B};
   const cuuint64_t strides[3] = {
       (cuuint64_t)a.seq * a.hd * sizeof(bf16),
       (cuuint64_t)a.hd * sizeof(bf16),
@@ -940,7 +982,7 @@ int launch_chunk(const Args& a) {
   const dim3 grid((a.C + kTile - 1) / kTile, a.H, a.B);
   kernel<<<grid, kChunkThreads, smem, a.stream>>>(
       tk, tv, static_cast<const bf16*>(a.q), a.k, a.v, a.ks, a.vs, a.tables,
-      a.lengths, a.length_all, static_cast<bf16*>(a.out), a.C, a.H, a.hd,
+      a.lengths, static_cast<bf16*>(a.out), a.C, a.H, a.hd,
       a.seq, a.n_blk, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -957,13 +999,13 @@ int launch_split_hd(const Args& a) {
 // dtype codes: 0 float32, 1 bfloat16, 2 int8 (cache only). n_splits 0
 // asks for the tensor-core regime (bf16 q, bf16 or int8 cache, hd a
 // multiple of 8), else the split-KV regime with n_splits splits of
-// ``keys`` keys, which must cover the span (K5: the length; K6: the
-// table's width x block size): a key past the splits would never be read.
+// ``keys`` keys, which must cover the capacity (K5: S; K6: the table's
+// width x block size): a key past the splits would never be read.
 template <bool PAGED>
 int dispatch(int q_dtype, int kv_dtype, const Args& a) {
   if (a.hd < 1 || a.hd > kMaxHd || a.C < 1) return kBadCombination;
   if (a.n_splits != 0) {
-    const long long span = PAGED ? (long long)a.n_blk * a.seq : a.length_all;
+    const long long span = PAGED ? (long long)a.n_blk * a.seq : a.seq;
     if (a.n_splits < 0 || a.keys < kSplitWarps || a.keys % kSplitWarps ||
         a.keys > kMaxSplitKeys || (long long)a.n_splits * a.keys < span)
       return kBadCombination;
@@ -994,18 +1036,19 @@ int dispatch(int q_dtype, int kv_dtype, const Args& a) {
 
 extern "C" {
 
-// K5: contiguous cache; every request's live length is ``length`` (the
-// chunk's start index + C). ``ws``: the f32 workspace of the split
-// regime when n_splits > 1; ``keys``: the keys of a split. Returns
-// cudaGetLastError() after the launches, or a code of this file's.
+// K5: contiguous cache; ``index`` (device, (1,) int32) is the chunk's
+// first position, so every request's live length is index + C. ``ws``:
+// the f32 workspace of the split regime when n_splits > 1; ``keys``: the
+// keys of a split. Returns cudaGetLastError() after the launches, or a
+// code of this file's.
 int dtg_decode_attention(const void* q, const void* k, const void* v,
                          const float* k_scale, const float* v_scale,
-                         void* out, float* ws, int B, int C, int H, int hd,
-                         int S, int length, int q_dtype, int kv_dtype,
-                         float scale, int n_splits, int keys,
+                         void* out, float* ws, const int* index, int B,
+                         int C, int H, int hd, int S, int q_dtype,
+                         int kv_dtype, float scale, int n_splits, int keys,
                          cudaStream_t stream) {
-  const Args a{q,   k,  v, k_scale, v_scale, nullptr, nullptr, length,
-               out, ws, B, C,       H,       hd,      S,       0,
+  const Args a{q,   k,  v, k_scale, v_scale, nullptr, index,
+               out, ws, B, C,       H,       hd,      S,     0,
                scale, n_splits, keys, stream};
   return dispatch<false>(q_dtype, kv_dtype, a);
 }
@@ -1020,7 +1063,7 @@ int dtg_paged_decode_attention(const void* q, const void* k, const void* v,
                                int q_dtype, int kv_dtype, float scale,
                                int n_splits, int keys,
                                cudaStream_t stream) {
-  const Args a{q,   k,  v, k_scale, v_scale, tables, lengths, 0,
+  const Args a{q,   k,  v, k_scale, v_scale, tables, lengths,
                out, ws, B, C,       H,       hd,     block_size, n_blk,
                scale, n_splits, keys, stream};
   return dispatch<true>(q_dtype, kv_dtype, a);

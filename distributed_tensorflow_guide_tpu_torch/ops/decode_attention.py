@@ -5,7 +5,9 @@ Two kernels, both written by hand for Hopper in ``csrc/decode_attention.cu``
 
 * **K5** :func:`decode_attention` reads a contiguous kernel-layout cache
   ``(B, H, S, hd)``; every request of the batch sits at the same
-  position (the one-shot generator, ``models/generation.py``).
+  position, which the kernel reads from device memory (a (1,) int32
+  tensor): the one-shot generator (``models/generation.py``) replays one
+  captured CUDA graph at every position.
 * **K6** :func:`paged_decode_attention` reads a block pool
   ``(N, H, block_size, hd)`` through per-request block tables, each
   request at its own length (the serve engine's decode steps and prefill
@@ -24,11 +26,12 @@ Two regimes, picked on the host from C (:func:`decode_regime`):
   that for f32 rows wider than 64), one CTA per split, and a second
   kernel merges the splits' (m, l, acc) in split order. The plan is made
   here alone and handed to the kernels (split count and keys a split):
-  the count comes from host-known sizes only (:func:`split_count`: K5's
-  length, K6's table width times the block size), so the wrapper reads
-  no device value and can be captured in a CUDA graph, and a request's
-  output does not depend on its batch-mates. The kernels' entry point
-  refuses a plan that does not cover the span.
+  the count comes from the cache's capacity only (:func:`split_count`:
+  K5's S, K6's table width times the block size), never from a live
+  length, so the wrapper reads no device value, one captured graph
+  serves every position, and a request's output does not depend on its
+  batch-mates. Splits past the live length exit early. The kernels'
+  entry point refuses a plan that does not cover the capacity.
   :func:`split_attention_plain` is the same algorithm in PyTorch.
 * ``"chunk"`` — prefill chunks of at least ``CHUNK_MIN_ROWS`` rows with
   bf16 queries, a bf16 or int8 cache and a head dim that is a multiple of
@@ -40,7 +43,11 @@ tensors lie on the CPU (the parity tests). A CUDA tensor launches the
 kernels or raises; nothing falls back. Each wrapper call adds one to
 ``LAUNCHES[name]``, however many kernels it launches, and one to
 ``REGIME_LAUNCHES[name + "." + regime]``, so a run can show that its main
-path went through the kernels, and through which regime how often.
+path went through the kernels, and through which regime how often. The
+counts are kept in Python, so a call inside a CUDA graph counts when it
+is captured; ``core/graphs.CapturedStep`` adds a graph's recorded
+launches again at every replay and takes back what its warm-up and
+capture counted.
 """
 
 from __future__ import annotations
@@ -150,9 +157,9 @@ def split_keys(kv_dtype: torch.dtype, head_dim: int) -> int:
 
 
 def split_count(span: int, keys: int = SPLIT_KEYS) -> int:
-    """Splits of ``keys`` keys over ``span`` key positions (K5: the live
-    length; K6: the table width times the block size): host-known sizes
-    only, never a device length."""
+    """Splits of ``keys`` keys over ``span`` key positions (K5: the cache
+    capacity S; K6: the table width times the block size): host-known
+    sizes only, never a device length."""
     return max(1, -(-int(span) // keys))
 
 
@@ -224,16 +231,42 @@ def split_attention_plain(q, k, v, ks, vs, q_pos, span: int,
     return (acc_sum / safe_l).permute(0, 2, 1, 3).to(q.dtype)
 
 
+def device_index(index, device) -> torch.Tensor:
+    """K5's write index as the kernel reads it: a (1,) int32 tensor on
+    ``device``. A tensor (0-d or (1,), any integer dtype) stays on the
+    device (a cast at most); a Python int is copied there."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([index], dtype=torch.int32, device=device)
+
+
 def decode_attention_plain(q, cached_key, cached_value, index, *,
                            key_scale=None, value_scale=None):
-    """K5's function in PyTorch. ``index`` is the position of the chunk's
-    first row; only cache rows below ``index + C`` are read."""
+    """K5's function in PyTorch. ``index`` (an int, or a 0-d or (1,)
+    integer tensor that stays where it is) is the position of the chunk's
+    first row; rows at or past ``index + C`` are zeroed before they meet
+    the scores or the probabilities, so whatever the cache holds there
+    (NaN included) cannot reach the output, and no device value is read
+    on the host. The live length ``index + C`` is clamped to [1, S] and
+    the chunk's rows sit at ``length - C + c``, as the kernel reads a
+    device index: the same function as the kernel's for an index out of
+    range too."""
     B, C = q.shape[:2]
-    length = int(index) + C
-    k, v = cached_key[:, :, :length], cached_value[:, :, :length]
-    ks = key_scale[..., :length] if key_scale is not None else None
-    vs = value_scale[..., :length] if value_scale is not None else None
-    q_pos = (int(index) + torch.arange(C, device=q.device))[None, :]
+    S = cached_key.shape[2]
+    idx = device_index(index, q.device).to(torch.int64)
+    length = torch.clamp(idx + C, min=1, max=S)  # (1,)
+    k_pos = torch.arange(S, device=q.device)
+    live = k_pos < length  # (S,)
+
+    def kept(t, axis):
+        shape = [1] * t.ndim
+        shape[axis] = S
+        return torch.where(live.view(shape), t, torch.zeros_like(t))
+
+    k, v = kept(cached_key, 2), kept(cached_value, 2)
+    ks = kept(key_scale, 3) if key_scale is not None else None
+    vs = kept(value_scale, 3) if value_scale is not None else None
+    q_pos = (length - C + torch.arange(C, device=q.device))[None, :]
     return _attend(q, k, v, ks, vs, q_pos.expand(B, C))
 
 
@@ -269,7 +302,7 @@ def _lib():
     if not getattr(lib, "_dtg_bound", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dtg_decode_attention.argtypes = (
-            [vp] * 7 + [i] * 6 + [i, i, f, i, i, vp])
+            [vp] * 8 + [i] * 5 + [i, i, f, i, i, vp])
         lib.dtg_decode_attention.restype = ctypes.c_int
         lib.dtg_paged_decode_attention.argtypes = (
             [vp] * 9 + [i] * 6 + [i, i, f, i, i, vp])
@@ -335,8 +368,13 @@ def decode_attention(q, cached_key, cached_value, index, *,
                      key_scale=None, value_scale=None):
     """K5: attention of a (B, C, H, hd) chunk against a contiguous
     (B, H, S, hd) cache whose rows ``[index, index + C)`` already hold the
-    chunk's k/v. int8 caches come with (B, H, 1, S) f32 scales. Returns
-    (B, C, H, hd) in q's dtype. CPU tensors take the plain version."""
+    chunk's k/v. ``index`` is a 0-d or (1,) int32 tensor on q's device,
+    which the kernel reads there (a Python int is copied to the device
+    first; on the card an int out of range raises); the live length
+    ``index + C`` is clamped to [1, S], here and in the plain version
+    alike, so the caller keeps it inside the cache. int8 caches come with
+    (B, H, 1, S) f32 scales. Returns (B, C, H, hd) in q's dtype. CPU
+    tensors take the plain version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cached_key, cached_value, index,
                                       key_scale=key_scale,
@@ -345,20 +383,29 @@ def decode_attention(q, cached_key, cached_value, index, *,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, C, H, hd = q.shape
     S = cached_key.shape[2]
-    length = int(index) + C
-    if cached_key.shape != (B, H, S, hd) or not 0 < length <= S:
-        raise ValueError(f"cache {tuple(cached_key.shape)} / index {index} "
-                         f"do not fit q {tuple(q.shape)}")
+    if cached_key.shape != (B, H, S, hd) or not 0 < C <= S:
+        raise ValueError(f"cache {tuple(cached_key.shape)} does not fit q "
+                         f"{tuple(q.shape)}")
+    if isinstance(index, torch.Tensor):
+        if (index.numel() != 1 or index.device != q.device
+                or index.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(f"index must be one int32/int64 value on "
+                             f"{q.device}, got {tuple(index.shape)} "
+                             f"{index.dtype} on {index.device}")
+    elif not 0 <= index <= S - C:  # a host int is checked on the host
+        raise ValueError(f"index {index} + chunk {C} does not fit the "
+                         f"cache's {S} rows")
+    index = device_index(index, q.device)
     q = q.contiguous()
     _check_cuda(q, cached_key, cached_value, key_scale, value_scale,
                 (B, H, 1, S))
     out = torch.empty_like(q)
     regime = decode_regime(q.dtype, cached_key.dtype, hd, C)
-    n_splits, keys, ws = _plan(q, regime, cached_key.dtype, length)
+    n_splits, keys, ws = _plan(q, regime, cached_key.dtype, S)
     rc = _lib().dtg_decode_attention(
         _ptr(q), _ptr(cached_key), _ptr(cached_value), _ptr(key_scale),
-        _ptr(value_scale), _ptr(out), _ptr(ws), B, C, H, hd, S, length,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[cached_key.dtype],
+        _ptr(value_scale), _ptr(out), _ptr(ws), _ptr(index), B, C, H, hd,
+        S, _DTYPE_CODE[q.dtype], _DTYPE_CODE[cached_key.dtype],
         1.0 / hd ** 0.5, n_splits, keys,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -31,9 +31,15 @@ def main(argv=None) -> None:
                     help="share a common system prompt across the demo "
                          "requests through the radix prefix cache "
                          "(watch prefill_tokens_saved in health())")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="serve the mix multi-LoRA: requests cycle "
+                         "through 3 adapters (0 = base) inside the "
+                         "shared decode step")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     args = ap.parse_args(argv)
+
+    import dataclasses
 
     import numpy as np
     import torch
@@ -48,19 +54,31 @@ def main(argv=None) -> None:
     from distributed_tensorflow_guide_tpu_torch.serve.engine import (
         Request,
         ServeEngine,
+        init_adapter_bank,
     )
 
     device = resolve_device(args.device)
     cfg = TransformerConfig(vocab_size=256, num_layers=2, num_heads=2,
                             d_model=32, d_ff=64, max_len=64, causal=True,
                             dtype=torch.float32)
+    bank = None
+    if args.lora_rank:
+        cfg = dataclasses.replace(cfg, lora_rank=args.lora_rank,
+                                  lora_adapters=2)
+        gen = torch.Generator().manual_seed(args.seed + 7)
+        bank = {}
+        for name, zeros in init_adapter_bank(cfg).items():
+            delta = 0.05 * torch.randn(zeros.shape, generator=gen)
+            delta[0] = 0.0  # adapter 0 is the base model
+            bank[name] = delta
     model = Transformer(cfg).init_weights(args.seed).to(device)
     eng = ServeEngine(cfg, model, slots=args.slots,
                       num_blocks=args.num_blocks,
                       block_size=args.block_size,
                       prefill_chunk=args.prefill_chunk,
                       temperature=args.temperature, top_k=args.top_k,
-                      prefix_cache=args.prefix_cache, device=device)
+                      prefix_cache=args.prefix_cache, adapters=bank,
+                      device=device)
     rng = np.random.RandomState(args.seed)
     sys_prompt = (rng.randint(0, cfg.vocab_size, 16).astype(np.int32)
                   if args.prefix_cache else None)
@@ -72,7 +90,7 @@ def main(argv=None) -> None:
         eng.submit(Request(
             rid=rid, prompt=prompt, max_new_tokens=args.max_new,
             rng=np.array([0, args.seed * 1000 + rid], np.uint32),
-            tenant=rid % 2))
+            adapter=rid % 3 if args.lora_rank else 0, tenant=rid % 2))
     for ev in eng.run():
         if ev.status != "ok":
             print(f"req {ev.rid:3d} ! {ev.status}")

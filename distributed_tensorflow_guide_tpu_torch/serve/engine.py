@@ -21,6 +21,27 @@ layer is simply updated). Sampling seeds derive from (request key,
 absolute position), which makes every per-request stream bitwise the
 one-shot ``make_generate_fn`` run of that request alone, however the
 scheduler interleaved it — through chunked prefill and preemption too.
+On the card that holds only where both sides prefill the prompt in the
+same regime (one engine chunk against a one-shot chunk of 10 to 64 rows:
+``models/generation.py`` says why); elsewhere they agree to rounding.
+
+On the card each step function is captured once as a CUDA graph
+(``core/graphs.CapturedStep``), the JAX package's two jitted programs:
+the host packs a step's inputs (block tables, write positions, tokens,
+position keys, adapter ids) into one pinned int64 buffer, one copy puts
+them into the graph's static device buffer, and the graph replays;
+the pool, the weights and the LoRA banks are captured by address and
+never reallocated. ``fns.captures`` stays at one per graph over the
+engine's life, and writing new adapter weights into the banks in place
+recaptures nothing. A capture or replay that fails raises: nothing falls
+back to the eager step on the card. ``fns.decode_fn`` and
+``fns.prefill_fn`` are the same steps run eagerly (one host-to-device
+copy, then the step's kernels), which the card's bitwise check holds the
+graphs to; on the CPU they are the steps.
+
+Multi-LoRA (``cfg.lora_rank``, ``adapters=``): both steps take the
+per-slot adapter ids, and the model view's delta banks serve every
+adapter resident in the batch — still two graphs, no per-adapter ones.
 
 The host side (:class:`~.scheduler.Scheduler`, the block pool, the
 prefix index) is the JAX package's, copied.
@@ -30,7 +51,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -41,6 +61,7 @@ from distributed_tensorflow_guide_tpu_torch.core.device import (
 from distributed_tensorflow_guide_tpu_torch.core.dist import (
     retry_with_backoff,
 )
+from distributed_tensorflow_guide_tpu_torch.core.graphs import CapturedStep
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
     _sample,
     decode_config,
@@ -64,7 +85,8 @@ from distributed_tensorflow_guide_tpu_torch.serve.scheduler import (
 )
 
 __all__ = ["Event", "Request", "ServeEngine", "EngineOverloaded",
-           "build_step_fns", "paged_cache_pool", "paged_config"]
+           "adapter_bank_shapes", "build_step_fns", "init_adapter_bank",
+           "paged_cache_pool", "paged_config"]
 
 # ServeEngine knobs of the JAX engine that this package does not serve
 # yet, and the ROADMAP item (Queue 1) that brings each
@@ -73,7 +95,6 @@ _DEFERRED = {
     "snapshot_dir": "item 11 (engine snapshots)",
     "host_blocks": "item 10 (host spill tier)",
     "persist_cache": "item 10 (warm cache persistence)",
-    "adapters": "item 7 (multi-LoRA serving)",
     "step_deadline_s": "item 11 (watchdog)",
     "online_tune": "item 16 (autotune)",
 }
@@ -108,37 +129,180 @@ def paged_cache_pool(model: Transformer) -> list[dict]:
     return model.init_pool()
 
 
-def build_step_fns(cfg: TransformerConfig, *, num_blocks: int,
-                   block_size: int, temperature: float = 0.0,
-                   top_k: int | None = None) -> SimpleNamespace:
-    """The two step functions, plain functions of (paged model view,
-    pool, host-built tensors). Both update the pool in place."""
+def adapter_bank_shapes(cfg: TransformerConfig) -> dict:
+    """name -> (shape, dtype) of the multi-LoRA delta banks of ``cfg``
+    (``blocks.{i}.attn.qkv_A`` (n, d_model, r), ``..._B`` (n, r, 3 * H *
+    hd), and likewise ``proj``, ``mlp.up``, ``mlp.down``; n =
+    ``lora_adapters + 1``), read off the model itself, so a bank can never
+    drift from what the steps read. Requires ``cfg.lora_rank``."""
+    if cfg.lora_rank is None:
+        raise ValueError("adapter_bank_shapes requires cfg.lora_rank")
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    return {name: (tuple(b.shape), b.dtype)
+            for name, b in model.adapter_bank().items()}
+
+
+def init_adapter_bank(cfg: TransformerConfig, device=None) -> dict:
+    """A zeroed adapter bank: every id (each non-zero one included) is
+    bitwise the base model until its rows are written."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in adapter_bank_shapes(cfg).items()}
+
+
+class _Packed:
+    """A step's host inputs as one int64 vector: ``fields`` are (name,
+    shape, dtype) in order; :meth:`host` packs numpy arrays, :meth:`views`
+    cuts a device copy back into tensors of the step's dtypes."""
+
+    def __init__(self, fields):
+        self.fields = [f for f in fields if f is not None]
+        self.size = sum(int(np.prod(shape)) for _, shape, _ in self.fields)
+
+    def host(self, arrays) -> np.ndarray:
+        out = np.empty(self.size, np.int64)
+        at = 0
+        for (name, shape, _), a in zip(self.fields, arrays, strict=True):
+            n = int(np.prod(shape))
+            out[at:at + n] = np.asarray(a, np.int64).reshape(n)
+            at += n
+        return out
+
+    def views(self, buf: torch.Tensor) -> dict:
+        out, at = {}, 0
+        for name, shape, dtype in self.fields:
+            n = int(np.prod(shape))
+            out[name] = buf[at:at + n].view(shape).to(dtype)
+            at += n
+        return out
+
+
+class _Step:
+    """One step function fed host arrays: ``step(model, pool, *arrays)``.
+
+    Eager (the CPU, and ``fns.decode_fn`` / ``fns.prefill_fn`` on the
+    card): one host-to-device copy of the packed inputs, then the step.
+    Captured (the card): the first call binds the model view and the pool,
+    and a :class:`CapturedStep` captures the step over one static device
+    buffer; every call packs its inputs into a pinned buffer, copies it
+    into the static one and replays (a retried launch does both again).
+    The capture's warm-up runs the first call's real inputs, which the
+    replay then repeats: it writes the same k/v to the same rows."""
+
+    def __init__(self, body, packed: _Packed, *, capture: bool):
+        self.body, self.packed, self.capture = body, packed, capture
+        self.step = self.model = self.pool = None
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.step is None else self.step.captures
+
+    @torch.inference_mode()
+    def __call__(self, model, pool, *arrays):
+        host = self.packed.host(arrays)
+        if not self.capture:
+            buf = torch.as_tensor(host, device=model.device)
+            return self.body(model, pool, self.packed.views(buf))
+        if self.step is None:
+            self.model, self.pool = model, pool
+            self.stage = torch.empty(self.packed.size, dtype=torch.int64,
+                                     pin_memory=True)
+            self.static = torch.empty(self.packed.size, dtype=torch.int64,
+                                      device=model.device)
+            body, packed, static = self.body, self.packed, self.static
+            self.step = CapturedStep(
+                lambda: body(model, pool, packed.views(static)),
+                device=model.device)
+        elif model is not self.model or pool is not self.pool:
+            raise ValueError("a captured step replays over the model view "
+                             "and pool it was captured with")
+        self.stage.numpy()[:] = host
+        self.static.copy_(self.stage, non_blocking=True)
+        return self.step()
+
+
+@dataclasses.dataclass
+class StepFns:
+    """The engine's two steps: ``decode`` and ``prefill`` (captured on the
+    card), ``decode_fn`` and ``prefill_fn`` (the same steps, eager)."""
+
+    cfg: TransformerConfig
+    n_blk: int
+    sampled: bool
+    lora: bool
+    decode_fn: _Step
+    prefill_fn: _Step
+    decode: object = None
+    prefill: object = None
+
+    @property
+    def captures(self) -> dict:
+        """Graph captures so far, per step (one each over an engine's
+        life on the card; none on the CPU)."""
+        return {name: getattr(getattr(self, name), "captures", 0)
+                for name in ("decode", "prefill")}
+
+
+def build_step_fns(cfg: TransformerConfig, *, slots: int, num_blocks: int,
+                   block_size: int, prefill_chunk: int,
+                   temperature: float = 0.0, top_k: int | None = None,
+                   device=None) -> StepFns:
+    """The two step functions, ``step(model view, pool, *host arrays)``;
+    both update the pool in place and return device tokens:
+
+    * ``decode(model, pool, tables (S, n_blk), written (S,), last_tok
+      (S,), pos_keys (S, 2) | None, adapter_ids (S,) | None)`` -> (S,);
+    * ``prefill(model, pool, tables (1, n_blk), start (1,), chunk (1,
+      CH), valid (1,), pos_key (2,) | None, adapter_id (1,) | None)`` ->
+      (1,).
+
+    ``pos_keys`` are each slot's key of the position it samples, folded
+    on the host (absent when greedy); adapter ids only with
+    ``cfg.lora_rank``. On ``device`` "cuda" ``decode`` and ``prefill``
+    are captured (see :class:`_Step`)."""
     pcfg = paged_config(cfg, num_blocks=num_blocks, block_size=block_size)
+    n_blk = pcfg.max_len // block_size
+    sampled, lora = temperature != 0.0, pcfg.lora
+    S, CH = slots, prefill_chunk
+    i32, i64 = torch.int32, torch.int64
 
-    @torch.inference_mode()
-    def decode_step(model, pool, tables, written, last_tok, pos_keys):
-        """(S,) tokens in, (S,) tokens out. ``pos_keys`` (S, 2): each
-        slot's key of the position it samples, host-made (None when
-        greedy)."""
-        logits = model(last_tok[:, None], written, cache=pool,
-                       block_tables=tables)
-        return sample_rows(logits[:, -1], pos_keys, temperature, top_k)
+    def decode_step(model, pool, x):
+        """(S,) tokens in, (S,) tokens out."""
+        logits = model(x["last_tok"][:, None], x["written"], cache=pool,
+                       block_tables=x["tables"], adapter=x.get("ids"))
+        return sample_rows(logits[:, -1], x.get("keys"), temperature, top_k)
 
-    @torch.inference_mode()
-    def prefill_chunk_step(model, pool, tables, start, chunk, valid: int,
-                           pos_key):
-        """One (1, prefill_chunk) slice of one prompt. ``valid`` rows are
-        real prompt; the rest are pads whose writes land inside the
-        request's blocks and are overwritten or masked forever. The sample
-        comes from row ``valid - 1`` with ``pos_key``, the key of absolute
-        position ``start + valid`` (host-made; None when greedy)."""
-        logits = model(chunk, start, cache=pool, block_tables=tables)
-        return _sample(logits[0, valid - 1][None], pos_key, temperature,
-                       top_k)[0]
+    def prefill_chunk_step(model, pool, x):
+        """One (1, CH) slice of one prompt. ``valid`` rows are real
+        prompt; the rest are pads whose writes land inside the request's
+        blocks and are overwritten or masked forever. The sample comes
+        from row ``valid - 1`` (read on the device) with the key of
+        absolute position ``start + valid``."""
+        logits = model(x["chunk"], x["start"], cache=pool,
+                       block_tables=x["tables"], adapter=x.get("ids"))
+        last = logits[0].index_select(0, x["valid"] - 1)  # (1, V)
+        return _sample(last, x.get("key"), temperature, top_k)
 
-    return SimpleNamespace(decode=decode_step, prefill=prefill_chunk_step,
-                           cfg=pcfg, n_blk=pcfg.max_len // block_size,
-                           sampled=temperature != 0.0)
+    decode_in = _Packed([
+        ("tables", (S, n_blk), i32), ("written", (S,), i32),
+        ("last_tok", (S,), i64),
+        ("keys", (S, 2), i64) if sampled else None,
+        ("ids", (S,), i64) if lora else None])
+    prefill_in = _Packed([
+        ("tables", (1, n_blk), i32), ("start", (1,), i32),
+        ("chunk", (1, CH), i64), ("valid", (1,), i64),
+        ("key", (2,), i64) if sampled else None,
+        ("ids", (1,), i64) if lora else None])
+    capture = resolve_device(device).type == "cuda"
+    fns = StepFns(cfg=pcfg, n_blk=n_blk, sampled=sampled, lora=lora,
+                  decode_fn=_Step(decode_step, decode_in, capture=False),
+                  prefill_fn=_Step(prefill_chunk_step, prefill_in,
+                                   capture=False))
+    fns.decode = (_Step(decode_step, decode_in, capture=True) if capture
+                  else fns.decode_fn)
+    fns.prefill = (_Step(prefill_chunk_step, prefill_in, capture=True)
+                   if capture else fns.prefill_fn)
+    return fns
 
 
 class ServeEngine:
@@ -153,7 +317,11 @@ class ServeEngine:
 
     ``model`` is a :class:`Transformer` holding the weights, on
     ``device`` (default the first CUDA card; ``device="cpu"`` only when
-    asked for).
+    asked for). With ``cfg.lora_rank``, ``adapters`` is the delta bank
+    (name -> array, :func:`init_adapter_bank`'s names; zeros by default),
+    copied into the engine's model view; ``Request.adapter`` picks a
+    request's row. ``engine.adapters`` holds the live banks: write new
+    adapter weights into them in place (:meth:`load_adapter_bank`).
     """
 
     def __init__(self, cfg: TransformerConfig, model: Transformer, *,
@@ -163,7 +331,7 @@ class ServeEngine:
                  retry_attempts: int = 3, retry_base_delay_s: float = 0.05,
                  prefix_cache: bool = False, tenant_quotas=None,
                  drr_quantum: int | None = None, recorder=None,
-                 device=None, **deferred):
+                 adapters=None, device=None, **deferred):
         for knob, value in deferred.items():
             if knob not in _DEFERRED:
                 raise TypeError(f"unexpected keyword argument {knob!r}")
@@ -175,10 +343,22 @@ class ServeEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        self.fns = build_step_fns(cfg, num_blocks=num_blocks,
+        self.fns = build_step_fns(cfg, slots=slots, num_blocks=num_blocks,
                                   block_size=block_size,
-                                  temperature=temperature, top_k=top_k)
+                                  prefill_chunk=prefill_chunk,
+                                  temperature=temperature, top_k=top_k,
+                                  device=self.device)
         self.model = model.with_config(self.fns.cfg)
+        if self.fns.lora:
+            self.model.set_adapter_bank(
+                adapters if adapters is not None
+                else init_adapter_bank(self.fns.cfg))
+            self.adapters = self.model.adapter_bank()
+        elif adapters is not None:
+            raise ValueError(
+                "ServeEngine(adapters=...) requires cfg.lora_rank")
+        else:
+            self.adapters = None
         self.num_slots = slots
         self.rec = recorder if recorder is not None else obs_events.current()
         self.sched = Scheduler(
@@ -205,10 +385,15 @@ class ServeEngine:
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if prompt.size and int(prompt.max()) >= self.fns.cfg.vocab_size:
             raise ValueError("prompt token out of vocabulary")
-        if req.adapter != 0:
+        if self.fns.lora:
+            if not 0 <= req.adapter <= self.fns.cfg.lora_adapters:
+                raise ValueError(
+                    f"request {req.rid} adapter {req.adapter} out of "
+                    f"range [0, {self.fns.cfg.lora_adapters}]")
+        elif req.adapter != 0:
             raise ValueError(
                 f"request {req.rid} names adapter {req.adapter} but the "
-                "engine serves no adapters")
+                "engine config has no lora_rank")
         # predicted-SLO gate: if recent TTFTs already blow this request's
         # TTFT budget, admitting it is a guaranteed miss that would also
         # push every queued request further out — shed at the door
@@ -239,6 +424,17 @@ class ServeEngine:
                          "prompt_len": int(prompt.size),
                          "max_new": int(req.max_new_tokens)},
                 t=float(req.arrival))
+
+    def load_adapter_bank(self, bank) -> None:
+        """Write ``bank`` (name -> array, every name of
+        :func:`adapter_bank_shapes`) into the live banks in place: the
+        captured steps read the new weights at their next replay, with no
+        recapture."""
+        if self.adapters is None:
+            raise ValueError("this engine serves no adapters")
+        with torch.inference_mode():
+            for name, buf in self.adapters.items():
+                buf.copy_(torch.as_tensor(bank[name]))
 
     def cancel(self, rid: int) -> bool:
         """Client abandon: free the stream's slot+blocks at the next step
@@ -321,9 +517,10 @@ class ServeEngine:
 
     def _launch(self, fn, tag: str):
         """One guarded step launch, retried through ``retry_with_backoff``:
-        every launch input is rebuilt from host state and the sampling
-        seeds are position-derived, so a retried launch re-runs the same
-        tick bitwise."""
+        every launch input is rebuilt from host state (a captured step
+        copies it into its static buffer again and replays) and the
+        sampling seeds are position-derived, so a retried launch re-runs
+        the same tick bitwise."""
 
         def attempt():
             try:
@@ -337,10 +534,6 @@ class ServeEngine:
             base_delay_s=self.retry_base_delay_s, max_delay_s=1.0,
             what=tag)
 
-    def _tensor(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
-
     def _run_prefill(self, i: int, now: float) -> list[Event]:
         s = self.sched.slots[i]
         CH = self.sched.prefill_chunk
@@ -351,15 +544,15 @@ class ServeEngine:
         tables = table_row(s.blocks, self.fns.n_blk,
                            self.sched.pool.trash_block)[None]
         # the sample's key, folded on the host: greedy derives none
-        pos_key = (fold_in(s.rng, start + valid) if self.fns.sampled
-                   else None)
-        args = (self.model, self.pool, self._tensor(tables),
-                self._tensor([start]), self._tensor(chunk, torch.int64),
-                valid, pos_key)
+        args = [self.model, self.pool, tables, [start], chunk, [valid]]
+        if self.fns.sampled:
+            args.append(fold_in(s.rng, start + valid))
+        if self.fns.lora:
+            args.append([s.adapter])
         tok = self._launch(lambda: self.fns.prefill(*args),
                            tag="serve_prefill_chunk_step")
         return [Event(now, *ev) for ev in
-                self.sched.apply_prefill(i, int(tok))]
+                self.sched.apply_prefill(i, int(tok[0]))]
 
     def _run_decode(self, ready: list[int], now: float) -> list[Event]:
         S, n_blk = self.num_slots, self.fns.n_blk
@@ -367,6 +560,7 @@ class ServeEngine:
         written = np.zeros((S,), np.int32)
         last_tok = np.zeros((S,), np.int64)
         keys = np.zeros((S, 2), np.int64)
+        adapter_ids = np.zeros((S,), np.int64)
         for i in ready:
             s = self.sched.slots[i]
             tables[i] = table_row(s.blocks, n_blk,
@@ -374,11 +568,12 @@ class ServeEngine:
             written[i] = s.written
             last_tok[i] = s.pending
             keys[i] = s.rng
-        pos_keys = (fold_in(keys, written.astype(np.int64) + 1)
-                    if self.fns.sampled else None)
-        args = (self.model, self.pool, self._tensor(tables),
-                self._tensor(written), self._tensor(last_tok, torch.int64),
-                pos_keys)
+            adapter_ids[i] = s.adapter
+        args = [self.model, self.pool, tables, written, last_tok]
+        if self.fns.sampled:
+            args.append(fold_in(keys, written.astype(np.int64) + 1))
+        if self.fns.lora:
+            args.append(adapter_ids)
         nxt = self._launch(lambda: self.fns.decode(*args),
                            tag="serve_decode_step").tolist()
         events = []

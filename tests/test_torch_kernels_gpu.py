@@ -741,3 +741,214 @@ def test_two_rank_1f1b_step_runs_the_flash_kernels_and_matches_one_process():
         got = torch.as_tensor(res[0][f"grad/{name}"], device="cuda")
         gap = (got - g.float()).norm() / g.float().norm().clamp_min(1e-30)
         assert gap.item() < 2e-2, (name, gap.item())
+
+
+# ---- the device-index K5 and the captured serving steps (CUDA graphs) ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("C", [1, 5, 64, 130])
+def test_k5_device_index_replays_and_hides_garbage_on_the_card(C, kind):
+    """K5 with its write index in device memory: a tensor index gives the
+    bits of an int index; NaN, and then 3e38, written past the live
+    length change no bit of the output (the chunk regime's TMA map covers
+    all S rows, so the tile the length crosses is gathered with zeros);
+    an index out of range is clamped as the plain version clamps it;
+    one call captured in a CUDA graph over a static index and replayed at
+    four indices gives the bits of four eager calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(31 + C)
+    b, h, S, hd = 2, 3, 640, 64
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    k, v, ks, vs = _cache(kind, b, h, S, hd, gen, dev)
+    q = torch.randn(b, C, h, hd, generator=gen, device=dev).to(q_dtype)
+    kw = dict(key_scale=ks, value_scale=vs)
+    indices = (0, 200, 511 - C + 1, S - C)
+    for index in indices:
+        n = index + C
+        want = DA.decode_attention(q, k, v, index, **kw)
+        idx = torch.tensor([index], dtype=torch.int32, device=dev)
+        assert torch.equal(DA.decode_attention(q, k, v, idx, **kw), want)
+        torch.testing.assert_close(
+            want.float(), DA.decode_attention_plain(q, k, v, idx,
+                                                    **kw).float(),
+            atol=TOL[kind], rtol=TOL[kind])
+        for garbage in (float("nan"), 3e38):
+            dirty = []
+            for t, ax in ((k, 2), (v, 2), (ks, 3), (vs, 3)):
+                if t is not None:
+                    t = t.clone()
+                    t.narrow(ax, n, S - n).fill_(
+                        127 if t.dtype == torch.int8 else garbage)
+                dirty.append(t)
+            got = DA.decode_attention(q, dirty[0], dirty[1], idx,
+                                      key_scale=dirty[2],
+                                      value_scale=dirty[3])
+            assert torch.equal(got, want), (index, garbage)
+    # a device index out of range: the kernel clamps the live length to
+    # [1, S] as the plain version does
+    for wild, same in ((S - C + 9, S - C),) + (((-40, 0),) if C == 1
+                                                else ()):
+        idx = torch.tensor([wild], dtype=torch.int32, device=dev)
+        got = DA.decode_attention(q, k, v, idx, **kw)
+        assert torch.equal(got, DA.decode_attention(q, k, v, same, **kw))
+        torch.testing.assert_close(
+            got.float(), DA.decode_attention_plain(q, k, v, idx,
+                                                   **kw).float(),
+            atol=TOL[kind], rtol=TOL[kind])
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    DA.decode_attention(q, k, v, idx, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.decode_attention(q, k, v, idx, **kw)
+    for index in indices:
+        idx.fill_(index)
+        graph.replay()
+        assert torch.equal(out, DA.decode_attention(q, k, v, index, **kw))
+
+
+def _small_lm(**kw):
+    """GPT-2 124M's widths at 4 layers, bf16: the widths at which cuBLAS's
+    GEMMs were measured to give each row the bits of a one-row product,
+    which the bitwise comparisons of differently batched runs rest on."""
+    cfg = dataclasses.replace(TF.gpt2_124m(dtype=torch.bfloat16, **kw),
+                              num_layers=4, max_len=256)
+    return cfg, TF.Transformer(cfg).init_weights(0).to("cuda")
+
+
+def _engine_streams(eng, prompts, max_new, adapters=None, rid0=0):
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import Request
+
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=rid0 + i, prompt=p, max_new_tokens=max_new,
+                           rng=torch.tensor([0, 50 + i]).numpy(),
+                           adapter=0 if adapters is None else adapters[i]))
+    eng.run()
+    eng.sched.pool.check_leaks()
+    return {rid - rid0: t for rid, t in eng.completions().items()
+            if rid >= rid0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp,top_k", [(0.0, None), (0.8, 10)],
+                         ids=["greedy", "sampled"])
+def test_captured_engine_steps_equal_eager_steps_on_the_card(temp, top_k):
+    """The engine's decode and prefill steps replayed from their CUDA
+    graphs give the eager steps' streams bitwise, with one capture a graph
+    over the engine's life and K6 counted once a layer a step through the
+    replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+    )
+
+    cfg, model = _small_lm()
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (5, 17, 40, 70, 9, 33)]
+    runs = {}
+    for eager in (False, True):
+        eng = ServeEngine(cfg, model, slots=4, num_blocks=65, block_size=16,
+                          prefill_chunk=32, temperature=temp, top_k=top_k)
+        if eager:
+            eng.fns.decode, eng.fns.prefill = (eng.fns.decode_fn,
+                                               eng.fns.prefill_fn)
+        DA.reset_launch_counts()
+        runs[eager] = _engine_streams(eng, prompts, 12)
+        steps = eng.steps["decode"] + eng.steps["prefill"]
+        assert DA.LAUNCHES["paged_decode_attention"] == (steps
+                                                         * cfg.num_layers)
+        want = 0 if eager else 1
+        assert eng.fns.captures == {"decode": want, "prefill": want}
+    assert runs[False] == runs[True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_captured_speculative_equals_vanilla_on_the_card(kv):
+    """Speculative decoding (draft 2 of 4 layers, lookahead 3), captured,
+    emits the captured vanilla stream bitwise, greedy and sampled, and
+    equals its own eager run; K5 launches once a layer a step through the
+    replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.models import generation
+
+    cfg, model = _small_lm(kv_dtype=kv)
+    prompt = torch.randint(0, 50257, (3, 21),
+                           generator=torch.Generator().manual_seed(6))
+    key = torch.tensor([0, 9]).numpy()
+    for temp, top_k in ((0.0, None), (0.8, 10)):
+        kw = dict(max_new_tokens=20, temperature=temp, top_k=top_k)
+        van = generation.make_generate_fn(cfg, **kw)
+        spec = generation.make_generate_fn(cfg, spec_draft_layers=2,
+                                           spec_lookahead=3, **kw)
+        want = van(model, prompt, key)
+        DA.reset_launch_counts()
+        got = spec(model, prompt, key)
+        rounds = spec.last_stats["verify_steps"]
+        assert DA.REGIME_LAUNCHES["decode_attention.split"] == rounds * (
+            4 * 2 + 4)
+        assert torch.equal(got, want)
+        assert torch.equal(spec.eager(model, prompt, key), want)
+        assert torch.equal(van.eager(model, prompt, key), want)
+        assert spec.captures == van.captures == 1
+
+
+@pytest.mark.gpu
+def test_lora_engine_on_the_card():
+    """The multi-LoRA engine, captured: adapter 0 is bitwise the base
+    engine, adapter k the one-shot with ``adapter_id=k`` (prompts of 10 to
+    32 tokens: one 32-row prefill chunk in the engine, one chunk of the
+    prompt's length in the one-shot, both in K5/K6's chunk regime); a
+    bank rewritten in place is served with no recapture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.models import generation
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+        init_adapter_bank,
+    )
+
+    cfg, model = _small_lm()
+    lcfg = dataclasses.replace(cfg, lora_rank=4, lora_adapters=2)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def bank():
+        out = {}
+        for name, z in init_adapter_bank(lcfg, device="cuda").items():
+            t = torch.randn(z.shape, generator=gen, device="cuda") * 0.1
+            t[0] = 0
+            out[name] = t.to(z.dtype)
+        return out
+
+    # one prefill chunk each, in the chunk regime both ways (10+ rows)
+    prompts = [torch.randint(0, 50257, (n,),
+                             generator=torch.Generator().manual_seed(n))
+               .numpy() for n in (10, 17, 30, 11, 32, 12)]
+    ids = [i % 3 for i in range(6)]
+    kw = dict(slots=4, num_blocks=65, block_size=16, prefill_chunk=32,
+              temperature=0.8, top_k=10)
+    base = _engine_streams(ServeEngine(cfg, model, **kw), prompts, 10)
+    banks = [bank(), bank()]
+    eng = ServeEngine(lcfg, model, adapters=banks[0], **kw)
+    for n, b in enumerate(banks):
+        if n:
+            eng.load_adapter_bank(b)
+        got = _engine_streams(eng, prompts, 10, adapters=ids, rid0=100 * n)
+        assert eng.fns.captures == {"decode": 1, "prefill": 1}
+        for i, a in enumerate(ids):
+            if a == 0:
+                assert got[i] == base[i]
+                continue
+            one = generation.make_generate_fn(
+                lcfg, max_new_tokens=10, temperature=0.8, top_k=10,
+                adapters=b, adapter_id=a)(
+                    model, prompts[i][None], torch.tensor([0, 50 + i]).numpy())
+            assert got[i] == one[0, len(prompts[i]):].tolist(), (n, i)
+        assert any(got[i] != base[i] for i, a in enumerate(ids) if a)

@@ -265,9 +265,14 @@ def test_submit_validation_and_deferred_knobs(model):
         eng.submit(Request(rid=2, prompt=np.array([1, 2], np.int32),
                            max_new_tokens=2, rng=_key(2), adapter=1))
     for knob in ("chaos", "snapshot_dir", "host_blocks", "persist_cache",
-                 "adapters", "step_deadline_s", "online_tune"):
+                 "step_deadline_s", "online_tune"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(TCFG, model, device="cpu", **ROOMY, **{knob: 1})
+    # adapters are served now: a bank without lora_rank is refused, as
+    # the JAX engine refuses it
+    with pytest.raises(ValueError, match="adapters"):
+        ServeEngine(TCFG, model, device="cpu", **ROOMY,
+                    adapters={"x": torch.zeros((1,))})
     with pytest.raises(TypeError):
         ServeEngine(TCFG, model, device="cpu", **ROOMY, fleet=2)
 

@@ -326,7 +326,9 @@ def test_sampled_generate_matches_jax(jparams, model, top_k):
 
 
 def test_config_validation_and_deferred_knobs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # lora_rank is served now: it needs an adapter count, as in the JAX
+    # package
+    with pytest.raises(ValueError, match="lora_adapters"):
         dataclasses.replace(TCFG, lora_rank=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dataclasses.replace(TCFG, moe_experts=4)
