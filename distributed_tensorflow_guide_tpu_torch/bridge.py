@@ -22,6 +22,14 @@ Layouts (flax -> torch):
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
+Quantised weights (``cfg.weight_dtype``): the reference's
+``ops/quant.quantize_params`` tree holds ``{qkernel, scale}`` (and ``up``'s
+bias) where the f32 tree holds ``kernel``; ``qkernel`` is already the 2-D
+(d_in[/2], d_out) layout of the port's ``WeightQuantLinear``, so
+:func:`params_from_flax` carries it and ``scale`` over as they are (int8,
+packed uint8, or e4m3 bytes, which numpy holds as ``ml_dtypes``
+``float8_e4m3fn``).
+
 Multi-LoRA banks: :func:`adapters_from_flax` reads the JAX "adapters"
 collection (``block_{i}/attn/{qkv,proj}_{A,B}``,
 ``block_{i}/mlp/{up,down}_{A,B}``, the same (n, d_in, r) and (n, r,
@@ -57,7 +65,16 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True))
+    a = np.array(a, copy=True)
+    if a.dtype.name == "float8_e4m3fn":  # ml_dtypes: reinterpret the bytes
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _quantized_from(node: Mapping, pre: str) -> dict[str, torch.Tensor]:
+    """A quantised projection's entries (``qkernel``, ``scale``, a bias)
+    under the port name ``pre``."""
+    return {f"{pre}.{k}": _t(v) for k, v in node.items()}
 
 
 def _tree_map(fn, tree):
@@ -77,18 +94,26 @@ def params_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
         for ln in ("ln1", "ln2"):
             sd[pre + ln + ".weight"] = _t(blk[ln]["scale"])
             sd[pre + ln + ".bias"] = _t(blk[ln]["bias"])
+        mlp = blk["mlp"]
+        if cfg.weight_dtype:
+            for sub, name in (("attn", "qkv"), ("attn", "proj"),
+                              ("mlp", "up"), ("mlp", "down")):
+                sd.update(_quantized_from(blk[sub][name],
+                                          f"{pre}{sub}.{name}"))
+            continue
         qkv = np.asarray(blk["attn"]["qkv"]["kernel"])
         sd[pre + "attn.qkv.weight"] = _t(qkv.reshape(D, 3 * H * hd).T)
         proj = np.asarray(blk["attn"]["proj"]["kernel"])
         sd[pre + "attn.proj.weight"] = _t(proj.reshape(H * hd, D).T)
-        mlp = blk["mlp"]
         sd[pre + "mlp.up.weight"] = _t(np.asarray(mlp["up"]["kernel"]).T)
         sd[pre + "mlp.up.bias"] = _t(mlp["up"]["bias"])
         sd[pre + "mlp.down.weight"] = _t(
             np.asarray(mlp["down"]["kernel"]).T)
     sd["ln_f.weight"] = _t(tree["ln_f"]["scale"])
     sd["ln_f.bias"] = _t(tree["ln_f"]["bias"])
-    if cfg.num_classes is None:
+    if cfg.num_classes is None and cfg.weight_dtype:
+        sd.update(_quantized_from(tree["lm_head"], "lm_head"))
+    elif cfg.num_classes is None:
         sd["lm_head.weight"] = _t(np.asarray(tree["lm_head"]["kernel"]).T)
     else:
         sd.update(_dense_from(tree["classifier"], "classifier"))

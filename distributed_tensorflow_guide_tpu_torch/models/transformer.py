@@ -52,6 +52,19 @@ every adapter in the batch. The banks are buffers, not parameters: the
 LoRA path is a serving feature and has no gradient, and new adapter
 weights are written into the same tensors in place.
 
+Quantised weights. ``cfg.weight_dtype`` ("int8", "int4", "fp8"; serving)
+stores the five projections (``qkv``, ``proj``, ``up``, ``down``,
+``lm_head``) as :class:`WeightQuantLinear`: a ``qkernel`` buffer (int8,
+int4 packed two a byte into uint8, or e4m3) of the reference's (d_in[/2],
+d_out) layout and an f32 per-output-column ``scale``, the reference's
+``WeightQuantDense``; ``ops/quant.quantize_params`` (or
+:meth:`Transformer.quantize`) makes them from an f32 model.
+``cfg.quantized_matmuls`` / ``cfg.fp8_matmuls`` (training; the ``int8`` /
+``fp8`` precision presets) keep the f32 ``nn.Linear`` parameters and run
+the products of ``qkv``, ``proj``, ``up`` and ``down`` through
+``ops/quant.int8_ste_dot`` / ``fp8_ste_dot``, the reference's
+``QuantTrainDense``; the head stays at full precision.
+
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
 chunk's rows into it **in place**, so a step function holds one copy of
@@ -87,6 +100,7 @@ from distributed_tensorflow_guide_tpu_torch.models.losses import (
 )
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
+from distributed_tensorflow_guide_tpu_torch.ops import quant
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
     scatter_chunk,
 )
@@ -97,7 +111,6 @@ LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 # ROADMAP item (Queue 1) that brings each
 _DEFERRED = {
     "moe_experts": "item 8 (MoE)",
-    "weight_dtype": "item 9 (quantised weights)",
 }
 
 
@@ -136,11 +149,44 @@ class TransformerConfig:
     # pairs per projection, row 0 zero (the base model)
     lora_rank: int | None = None
     lora_adapters: int = 0
+    # weight-only quantised serving: "int8", "int4" or "fp8" projections
+    # (ops/quant.quantize_params makes the weights)
+    weight_dtype: str | None = None
+    # int8 / fp8 training products with straight-through gradients
+    # (ops/quant.int8_ste_dot / fp8_ste_dot; core/precision.py's presets)
+    quantized_matmuls: bool = False
+    fp8_matmuls: bool = False
     # not served yet: setting any of these raises (see _DEFERRED)
     moe_experts: int | None = None
-    weight_dtype: str | None = None
 
     def __post_init__(self):
+        if self.weight_dtype not in (None, "int8", "int4", "fp8"):
+            raise ValueError(
+                "weight_dtype must be None, 'int8', 'int4' or 'fp8', "
+                f"got {self.weight_dtype!r}")
+        if self.weight_dtype is not None:
+            if self.quantized_matmuls:
+                raise ValueError(
+                    "weight_dtype (decode-side) and quantized_matmuls "
+                    "(training-side) are mutually exclusive")
+            if self.fp8_matmuls:
+                raise ValueError(
+                    "weight_dtype (decode-side) and fp8_matmuls "
+                    "(training-side) are mutually exclusive")
+        if self.quantized_matmuls or self.fp8_matmuls:
+            lever = ("quantized_matmuls" if self.quantized_matmuls
+                     else "fp8_matmuls")
+            if self.quantized_matmuls and self.fp8_matmuls:
+                raise ValueError(
+                    "quantized_matmuls and fp8_matmuls are mutually "
+                    "exclusive — one quantized representation per model")
+            if self.decode:
+                raise ValueError(
+                    f"{lever} is the training lever; decode-side "
+                    "quantization is weight_dtype")
+            if self.lora_rank is not None:
+                raise ValueError(
+                    f"{lever} and lora_rank are mutually exclusive")
         if self.lora_rank is not None:
             if self.lora_rank < 1:
                 raise ValueError(
@@ -208,6 +254,13 @@ class TransformerConfig:
     @property
     def lora(self) -> bool:
         return self.lora_rank is not None
+
+    @property
+    def train_quant(self) -> str | None:
+        """The quantised training product ("int8", "fp8") or None."""
+        if self.quantized_matmuls:
+            return "int8"
+        return "fp8" if self.fp8_matmuls else None
 
     def resolve_attn_impl(self, seq_len: int | None = None) -> str:
         """Resolve 'auto' against the sequence length (``max_len`` when
@@ -325,6 +378,67 @@ def _linear(x, weight, bias=None, dtype=None):
     return F.linear(x.to(dtype), weight.to(dtype), b)
 
 
+class WeightQuantLinear(nn.Module):
+    """A weight-only quantised projection (``cfg.weight_dtype``), the
+    reference's ``WeightQuantDense``: buffers ``qkernel`` (d_in, d_out)
+    int8, (d_in / 2, d_out) uint8 for int4, or e4m3, and ``scale``
+    (d_out,) f32, the layout ``ops/quant.quantize_params`` writes; an f32
+    ``bias`` parameter where the f32 projection has one. Zeros and ones
+    until quantised weights are loaded."""
+
+    def __init__(self, d_in: int, d_out: int, weight_dtype: str, *,
+                 bias: bool = False):
+        super().__init__()
+        self.bits = quant.WQ_BITS[weight_dtype]
+        if self.bits == 4:
+            if d_in % 2:
+                raise ValueError(
+                    f"int4 packing needs an even fan-in, got {d_in}")
+            rows, store = d_in // 2, torch.uint8
+        else:
+            rows = d_in
+            store = quant.FP8_DTYPE if self.bits == "fp8" else torch.int8
+        self.register_buffer("qkernel", torch.zeros(rows, d_out,
+                                                    dtype=store))
+        self.register_buffer("scale", torch.ones(d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+
+    def forward(self, x, dtype):
+        y = quant.wq_matmul(x, self.qkernel, self.scale, bits=self.bits,
+                            dtype=dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return y
+
+
+def _projection(cfg: TransformerConfig, d_in: int, d_out: int, *,
+                bias: bool = False) -> nn.Module:
+    """A projection site's module: ``nn.Linear`` (f32 weights), or a
+    :class:`WeightQuantLinear` under ``cfg.weight_dtype``."""
+    if cfg.weight_dtype:
+        return WeightQuantLinear(d_in, d_out, cfg.weight_dtype, bias=bias)
+    return nn.Linear(d_in, d_out, bias=bias)
+
+
+def _project(cfg: TransformerConfig, lin: nn.Module, x, dtype,
+             *, head: bool = False):
+    """``lin`` applied to ``x`` at ``dtype``: a quantised serving
+    projection through ``wq_matmul``; under ``quantized_matmuls`` /
+    ``fp8_matmuls`` (not the head) the product through
+    ``int8_ste_dot`` / ``fp8_ste_dot`` on the operands cast to ``dtype``,
+    bias added at ``dtype``; else :func:`_linear`."""
+    if isinstance(lin, WeightQuantLinear):
+        return lin(x, dtype)
+    mode = None if head else cfg.train_quant
+    if mode is None:
+        return _linear(x, lin.weight, lin.bias, dtype=dtype)
+    dot = quant.fp8_ste_dot if mode == "fp8" else quant.int8_ste_dot
+    y = dot(x.to(dtype), lin.weight.to(dtype).t()).to(dtype)
+    if lin.bias is not None:
+        y = y + lin.bias.to(dtype)
+    return y
+
+
 def _tp_enter(x, cfg: TransformerConfig):
     """A sub-layer's input under tensor parallelism: Megatron's ``f``
     (identity forward, psum backward), or under sequence parallelism the
@@ -399,8 +513,8 @@ class MultiHeadAttention(nn.Module):
         self.cfg = cfg
         h, hd, d = cfg.num_heads, cfg.head_dim, cfg.d_model
         # rows ordered (3, H, hd) like flax's qkv kernel (D, 3, H, hd)
-        self.qkv = nn.Linear(d, 3 * h * hd, bias=False)
-        self.proj = nn.Linear(h * hd, d, bias=False)
+        self.qkv = _projection(cfg, d, 3 * h * hd)
+        self.proj = _projection(cfg, h * hd, d)
         if cfg.lora:
             _lora_bank(self, cfg, "qkv", d, 3 * h * hd)
             _lora_bank(self, cfg, "proj", h * hd, d)
@@ -411,7 +525,7 @@ class MultiHeadAttention(nn.Module):
         x = _tp_enter(x, cfg)
         B, S, _ = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
-        qkv = _linear(x, self.qkv.weight, dtype=cfg.dtype)
+        qkv = _project(cfg, self.qkv, x, cfg.dtype)
         if adapter is not None:
             qkv = qkv + _lora_delta(self, "qkv", x, adapter)
         qkv = qkv.view(B, S, 3, h, hd)
@@ -426,7 +540,7 @@ class MultiHeadAttention(nn.Module):
         else:
             out = self._dense_attend(q, k, v)
         flat = out.reshape(B, S, h * hd)
-        out = _linear(flat, self.proj.weight, dtype=cfg.dtype)
+        out = _project(cfg, self.proj, flat, cfg.dtype)
         if adapter is not None:
             out = out + _lora_delta(self, "proj", flat, adapter)
         return _tp_leave(out, cfg)  # after the row-parallel proj
@@ -518,8 +632,8 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.up = nn.Linear(cfg.d_model, cfg.d_ff, bias=True)
-        self.down = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
+        self.up = _projection(cfg, cfg.d_model, cfg.d_ff, bias=True)
+        self.down = _projection(cfg, cfg.d_ff, cfg.d_model)
         if cfg.lora:
             _lora_bank(self, cfg, "up", cfg.d_model, cfg.d_ff)
             _lora_bank(self, cfg, "down", cfg.d_ff, cfg.d_model)
@@ -527,12 +641,12 @@ class MLP(nn.Module):
     def forward(self, x, adapter=None):
         cfg = self.cfg
         x = _tp_enter(x, cfg)
-        y = _linear(x, self.up.weight, self.up.bias, dtype=cfg.dtype)
+        y = _project(cfg, self.up, x, cfg.dtype)
         if adapter is not None:
             y = y + _lora_delta(self, "up", x, adapter)
         y = F.gelu(y, approximate="tanh")
         down_in = y
-        y = _linear(y, self.down.weight, dtype=cfg.dtype)
+        y = _project(cfg, self.down, y, cfg.dtype)
         if adapter is not None:
             y = y + _lora_delta(self, "down", down_in, adapter)
         return _tp_leave(y, cfg)  # after the row-parallel down
@@ -585,7 +699,7 @@ class Transformer(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
         if cfg.num_classes is None:
-            self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+            self.lm_head = _projection(cfg, cfg.d_model, cfg.vocab_size)
         else:
             self.classifier = nn.Linear(cfg.d_model, cfg.num_classes)
 
@@ -734,7 +848,23 @@ class Transformer(nn.Module):
         if cfg.num_classes is not None:  # [CLS] pooling
             return _linear(x[:, 0], self.classifier.weight,
                            self.classifier.bias, dtype=torch.float32)
-        return _linear(x, self.lm_head.weight, dtype=torch.float32)
+        return _project(cfg, self.lm_head, x, torch.float32, head=True)
+
+    def quantize(self, weight_dtype: str) -> "Transformer":
+        """A serving copy of this (f32-weight) model with its projections
+        stored as ``weight_dtype`` ("int8", "int4", "fp8") through
+        ``ops/quant.quantize_params``, on this model's device; the other
+        parameters are shared."""
+        if self.cfg.weight_dtype is not None:
+            raise ValueError(f"this model is quantised already "
+                             f"({self.cfg.weight_dtype})")
+        cfg = dataclasses.replace(self.cfg, weight_dtype=weight_dtype)
+        sd = quant.quantize_params(self.state_dict(),
+                                   bits=quant.WQ_BITS[weight_dtype])
+        with torch.device("meta"):
+            view = Transformer(cfg)
+        view.load_state_dict(sd, assign=True)
+        return view
 
 
 def vocab_parallel_embed(tokens, weight, axis: str, dtype, *,
@@ -808,6 +938,10 @@ def make_lm_loss_fn(model: Transformer, *, fused_ce="auto",
         resolve_fused_ce,
     )
 
+    if model.cfg.weight_dtype is not None:
+        raise ValueError(
+            f"weight_dtype={model.cfg.weight_dtype!r} is a serving config: "
+            "train the f32 model and quantise it for serving")
     use_fused = resolve_fused_ce(fused_ce, vocab_size=model.cfg.vocab_size,
                                  platform=model.device.type)
     axis = model.cfg.tp_axis

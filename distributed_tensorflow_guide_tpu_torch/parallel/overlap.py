@@ -19,6 +19,14 @@ FSDP gather/scatter markers.
   bitwise at two ranks (at more, gloo's ring may add a buffer's elements
   in an order that depends on its chunking).
 
+  ``compress="int8"`` sends each bucket in int8 (``ops/quant.py``'s
+  ``int8_pmean`` transform): the bucket's amax goes out first in a scalar
+  ``pmax`` (synchronous, 4 bytes), then the int8 values in one async
+  ``psum``; :func:`wait_buckets` turns the sum back into the mean. The
+  trace records ``pmax[data]`` and ``psum[data]``, so the wire is 1 byte
+  an element plus 4 bytes of scale a bucket, each at the ring's
+  2·(n−1)/n.
+
 * **FSDP's markers** (ZeRO-3, Rajbhandari et al., SC'20): a sharded leaf
   passes :func:`gather_shard` (all-gather of the full parameter forward,
   reduce-scatter of the MEAN gradient backward, so the gradient comes
@@ -101,19 +109,18 @@ def resolve_prefetch(setting, *, backend: str | None = None) -> bool:
     return _resolve_nccl_auto(setting, "fsdp prefetch", backend)
 
 
-def resolve_compress(setting) -> None:
+def resolve_compress(setting) -> str | None:
     """The gradient-compression knob: ``None``/"off"/"none" -> None (the
-    full-precision wire). "int8" needs ``ops/quant.int8_pmean``, which is
-    not ported yet."""
+    full-precision wire), "int8" -> "int8" (``ops/quant.int8_pmean``'s
+    transform). Never resolved from the backend: it changes the numerics,
+    so it is an explicit opt-in."""
     if setting is None:
         return None
     s = str(setting).lower()
     if s in ("off", "none", ""):
         return None
     if s == "int8":
-        raise NotImplementedError(
-            "compress='int8' needs ops/quant.int8_pmean, which is not "
-            "ported yet: ROADMAP Queue 1 item 9 (quantised weights)")
+        return "int8"
     raise ValueError(
         f"compress must be None/'off' or 'int8', got {setting!r}")
 
@@ -148,12 +155,15 @@ class _Bucket:
     into the bucket's flat buffer, and the last of them issues the
     buffer's all-reduce (async)."""
 
-    def __init__(self, leaves: Sequence[torch.Tensor], ax: AxisGroup):
+    def __init__(self, leaves: Sequence[torch.Tensor], ax: AxisGroup,
+                 compress: str | None = None):
         self.ax = ax
+        self.compress = compress
         self.sizes = [x.numel() for x in leaves]
         self.left = len(leaves)
         self.flat = None
         self.work = None
+        self.q = self.scale = None
         self.handles = [x.register_hook(self._hook(k))
                         for k, x in enumerate(leaves)]
 
@@ -167,15 +177,38 @@ class _Bucket:
             part.copy_(g.reshape(-1))
             self.left -= 1
             if self.left == 0:
-                cc._record("pmean", self.ax, self.flat,
-                           cc._reduce_wire(self.ax.size))
-                if self.ax.size > 1:
-                    self.work = dist.all_reduce(
-                        self.flat, op=dist.ReduceOp.SUM,
-                        group=self.ax.group, async_op=True)
+                self._issue()
             return part.view_as(g)
 
         return hook
+
+    def _issue(self) -> None:
+        """The bucket's all-reduce, async: the f32 buffer, or (int8) the
+        shared scale first, then the int8 values."""
+        buf = self.flat
+        if self.compress == "int8":
+            from distributed_tensorflow_guide_tpu_torch.ops import quant
+
+            (self.q,), self.scale = quant.int8_encode([self.flat], self.ax)
+            buf = self.q
+            cc._record("psum", self.ax, buf, cc._reduce_wire(self.ax.size))
+        else:
+            cc._record("pmean", self.ax, buf, cc._reduce_wire(self.ax.size))
+        if self.ax.size > 1:
+            self.work = dist.all_reduce(buf, op=dist.ReduceOp.SUM,
+                                        group=self.ax.group, async_op=True)
+
+    def finish(self) -> None:
+        """Wait on the all-reduce; the buffer then holds the mean."""
+        if self.work is not None:
+            self.work.wait()
+        if self.q is not None:
+            from distributed_tensorflow_guide_tpu_torch.ops import quant
+
+            self.flat.copy_(quant.int8_decode(self.q, self.scale,
+                                              self.ax.size, self.flat.dtype))
+        elif self.work is not None:
+            self.flat /= self.ax.size
 
     def remove_hooks(self) -> None:
         for h in self.handles:
@@ -183,7 +216,8 @@ class _Bucket:
 
 
 def bucket_sync(leaves: Sequence[torch.Tensor], axis: str, *,
-                pending: list, mesh: Mesh | None = None) -> None:
+                pending: list, mesh: Mesh | None = None,
+                compress: str | None = None) -> None:
     """The DDP bucket boundary over one bucket's leaves (leaf tensors of
     one dtype), which are used as they are: in the next backward, one
     all-reduce of the bucket's flat gradient buffer, issued async as soon
@@ -202,7 +236,7 @@ def bucket_sync(leaves: Sequence[torch.Tensor], axis: str, *,
         if not (x.is_leaf and x.requires_grad):
             raise ValueError("bucket_sync takes leaf tensors that require "
                              "grad (the module's parameters)")
-    pending.append(_Bucket(leaves, ax))
+    pending.append(_Bucket(leaves, ax, compress))
 
 
 def wait_buckets(pending: list) -> int:
@@ -218,9 +252,7 @@ def wait_buckets(pending: list) -> int:
             raise RuntimeError("a bucket is still waiting for "
                                f"{b.left} gradients: wait after the "
                                "backward")
-        if b.work is not None:
-            b.work.wait()
-            b.flat /= b.ax.size
+        b.finish()
     return n
 
 
@@ -234,7 +266,8 @@ def drop_buckets(pending: list) -> None:
 
 def pmean_buckets(params: Mapping[str, torch.Tensor], axis: str,
                   bucket_bytes: int, *, pending: list,
-                  mesh: Mesh | None = None) -> None:
+                  mesh: Mesh | None = None,
+                  compress: str | None = None) -> None:
     """:func:`bucket_sync` over each bucket of :func:`bucket_assignment`
     of ``params`` (leaf tensors): their next backward's gradients come
     out ``pmean``-ed bucket by bucket (after ``wait_buckets(pending)``).
@@ -249,7 +282,7 @@ def pmean_buckets(params: Mapping[str, torch.Tensor], axis: str,
         for group in bucket_assignment([params[n] for n in run],
                                        bucket_bytes):
             bucket_sync([params[run[i]] for i in group], axis,
-                        pending=pending, mesh=mesh)
+                        pending=pending, mesh=mesh, compress=compress)
         start = end
 
 
@@ -278,20 +311,22 @@ def call_with_params(loss_fn: LossFn, module: torch.nn.Module,
 
 def bucketed_loss_fn(loss_fn: LossFn, axis: str,
                      bucket_bytes: int | None = None, *, pending: list,
-                     mesh: Mesh | None = None) -> LossFn:
+                     mesh: Mesh | None = None,
+                     compress: str | None = None) -> LossFn:
     """``loss_fn`` with the module's parameters bucketed: the gradients of
     the result are already ``pmean``-ed over ``axis`` once
     ``wait_buckets(pending)`` has run (the caller must not ``pmean`` them
     again). Give each step a ``pending`` list of its own and call
     :func:`drop_buckets` on it if the step raises, so that nothing is
     left for the next step. ``bucket_bytes=None`` is
-    :data:`DEFAULT_BUCKET_BYTES`."""
+    :data:`DEFAULT_BUCKET_BYTES`; ``compress="int8"`` sends the buckets in
+    int8."""
     bb = DEFAULT_BUCKET_BYTES if bucket_bytes is None else bucket_bytes
 
     def wrapped(module, batch):
         pmean_buckets({n: p for n, p in module.named_parameters()
                        if p.requires_grad}, axis, bb, pending=pending,
-                      mesh=mesh)
+                      mesh=mesh, compress=compress)
         return loss_fn(module, batch)
 
     return wrapped

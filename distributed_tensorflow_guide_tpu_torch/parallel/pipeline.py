@@ -61,6 +61,7 @@ from distributed_tensorflow_guide_tpu_torch.core import (
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
 )
+from distributed_tensorflow_guide_tpu_torch.core.graphs import MultiStep
 from distributed_tensorflow_guide_tpu_torch.core.mesh import Mesh, axis_sizes
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     Block,
@@ -74,6 +75,10 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
 from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
     fused_next_token_loss,
     resolve_fused_ce,
+)
+from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+    capturable,
+    to_device,
 )
 from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
     gather_state_dict,
@@ -912,13 +917,26 @@ class PipelinedLM:
             loss = cc.pmean(loss, "data", mesh=self.mesh)
         return loss, grads
 
-    def make_train_step(self, optimizer: torch.optim.Optimizer):
+    def make_train_step(self, optimizer: torch.optim.Optimizer, *,
+                        steps_per_call: int | None = None,
+                        stacked_batch: bool = False):
         """``(module, batch{tokens: (B, S)}) -> (module, {"loss"})``: one
         pipelined forward and backward of this rank's share of the batch
         (B = num_microbatches x microbatch rows), then one ``optimizer``
-        step (over ``module``'s parameters, updated in place)."""
+        step (over ``module``'s parameters, updated in place).
 
-        def step(module, batch):
+        ``steps_per_call=k`` runs k steps a call over ``stacked_batch``
+        tokens (k, B, S) or the same tokens k times, metrics the last
+        inner step's (the reference's ``lax.scan`` around the schedule).
+        A pipeline step is one call whatever its microbatch count; on the
+        card, where no axis runs over gloo (one process, or NCCL), the k
+        steps are one CUDA graph (``core/graphs.MultiStep``: ``captured``,
+        ``eager``), so the host launches one graph where it launched the
+        schedule's thousands of kernels. The optimizer must then keep its
+        counter on the card (``Adam(..., capturable=True)``).
+        """
+
+        def one(module, batch):
             loss, grads = self.loss_and_grads(module, batch)
             for n, p in module.named_parameters():
                 p.grad = grads[n]
@@ -926,7 +944,16 @@ class PipelinedLM:
             optimizer.zero_grad(set_to_none=True)
             return module, {"loss": loss}
 
-        return step
+        if steps_per_call is None:
+            MultiStep.check_args(steps_per_call, stacked_batch)
+            return one
+        return MultiStep(
+            one, steps_per_call=steps_per_call, stacked_batch=stacked_batch,
+            per_step_metrics=False,
+            capture=capturable(self.mesh, self.device), device=self.device,
+            prepare=lambda b: to_device({"tokens": b["tokens"]},
+                                        self.device),
+            optimizer_of=lambda module: optimizer)
 
     def make_eval_step(self):
         """``(module, batch) -> {"loss", "perplexity"}``: the forward-only

@@ -223,20 +223,18 @@ class TensorParallel(DataParallel):
             out, grads = value_and_grad(loss_fn, module, batch)
             return out, self.complete_grads(grads)
 
-    def _in_mesh(self, step):
-        def run(*args):
-            with self.mesh:  # the f/g pair resolves "model" against it
-                return step(*args)
-        return run
+    def _context(self):
+        return self.mesh  # the f/g pair resolves "model" against it
 
-    def make_train_step(self, loss_fn, *, accum_steps: int = 1):
+    def make_train_step(self, loss_fn, *, accum_steps: int = 1,
+                        steps_per_call: int | None = None,
+                        stacked_batch: bool = False):
         """``(state, batch) -> (state, {"loss", **metrics})``: the
         tensor-parallel forward and backward on this rank's shards, the
-        gradients and metrics averaged over ``data``, one update."""
-        return self._in_mesh(super().make_train_step(
-            loss_fn, accum_steps=accum_steps))
-
-    def make_eval_step(self, metric_fn):
-        """``(state, batch) -> metrics`` without gradients, averaged over
-        ``data``."""
-        return self._in_mesh(super().make_eval_step(metric_fn))
+        gradients and metrics averaged over ``data``, one update.
+        ``steps_per_call`` / ``stacked_batch``: ``DataParallel``'s k steps
+        a call (one CUDA graph where no axis runs over gloo); the metrics
+        are the last inner step's, as in the reference."""
+        return super().make_train_step(
+            loss_fn, accum_steps=accum_steps, steps_per_call=steps_per_call,
+            stacked_batch=stacked_batch)

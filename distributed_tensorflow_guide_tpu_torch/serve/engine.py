@@ -55,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.core import precision
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
 )
@@ -343,6 +344,8 @@ class ServeEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
+        if cfg.weight_dtype == "fp8":
+            precision.require_fp8(self.device)
         self.fns = build_step_fns(cfg, slots=slots, num_blocks=num_blocks,
                                   block_size=block_size,
                                   prefill_chunk=prefill_chunk,

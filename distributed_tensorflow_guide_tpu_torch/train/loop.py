@@ -8,6 +8,19 @@ path: PyTorch queues each step's work and returns, and metric values are
 the host time between and inside them are counted in ``dispatch_stats``;
 with a flight recorder installed (``obs/events.py``) each data wait and
 each step call is a span.
+
+``steps_per_call=k > 1``: ``step_fn`` runs k optimizer steps a call
+(``DataParallel.make_train_step(steps_per_call=k, stacked_batch=True,
+per_step_metrics=True)``, one CUDA graph on the card) and ``data`` yields
+one packed item a call (leading axis = inner step; ``DataParallel.
+prefetch(..., steps_per_call=k)`` or ``data/prefetch.pack_stream``). The
+loop fans the per-step metrics back out, so hooks observe every optimizer
+step in order; a stop a hook requests takes effect at the next call
+boundary, so a run may overshoot the requesting step by up to k - 1 (by
+none for ``StopAtStepHook(n)`` with k dividing n). A short tail pack goes
+to ``tail_step_fn`` (a one-step sibling of ``step_fn``), one call a
+straggler, or is dropped with a warning. ``dispatch_stats`` counts calls
+and optimizer steps apart.
 """
 
 from __future__ import annotations
@@ -50,7 +63,14 @@ class TrainLoop:
         start_step: int = 0,
         recorder: Any = None,
         device=None,
+        steps_per_call: int = 1,
+        tail_step_fn: StepFn | None = None,
     ):
+        if steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1, got {steps_per_call}")
+        self.steps_per_call = steps_per_call
+        self.tail_step_fn = tail_step_fn
         self.step_fn = step_fn
         self.state = state
         self.data = data
@@ -75,12 +95,12 @@ class TrainLoop:
     def should_stop(self) -> bool:
         return self._stop
 
-    def _dispatch(self, batch):
+    def _dispatch(self, step_fn, batch):
         """One step call with host-gap / call-time accounting."""
         t0 = time.perf_counter()
         if self._last_return is not None:
             self.dispatch_stats.host_gap_s += t0 - self._last_return
-        self.state, metrics = self.step_fn(self.state, batch)
+        self.state, metrics = step_fn(self.state, batch)
         self._last_return = time.perf_counter()
         self.dispatch_stats.dispatch_s += self._last_return - t0
         self.dispatch_stats.dispatches += 1
@@ -91,6 +111,44 @@ class TrainLoop:
             h.after_step(self.step, metrics)
         self.step += 1
         self.dispatch_stats.steps += 1
+
+    @staticmethod
+    def _pack_len(batch) -> int:
+        """The leading length of a packed super-batch (its inner steps)."""
+        return int(next(iter(batch.values())).shape[0])
+
+    def _run_packed(self, batch) -> None:
+        """One call on a packed item; its per-step metrics go to the hooks
+        one step at a time."""
+        k = self._pack_len(batch)
+        if k < self.steps_per_call:
+            # a short tail pack: one single-step call a straggler
+            if self.tail_step_fn is None:
+                log.warning(
+                    "dropping a tail pack of %d < steps_per_call=%d "
+                    "batches (no tail_step_fn); pass drop_remainder=True "
+                    "upstream to silence, or a tail_step_fn to run them",
+                    k, self.steps_per_call)
+                return
+            for j in range(k):
+                if self._stop:
+                    return
+                single = {n: v[j] for n, v in batch.items()}
+                self._after_step(self._dispatch(self.tail_step_fn, single))
+            return
+        metrics = self._dispatch(self.step_fn, batch)
+        if not metrics:  # a step without metrics: nothing to slice
+            for _ in range(k):
+                self._after_step(metrics)
+            return
+        lead = {m.shape[0] if m.ndim else None for m in metrics.values()}
+        if lead != {k}:
+            raise ValueError(
+                f"steps_per_call={self.steps_per_call} needs per-step "
+                f"metrics (leading axis {k}); got leading sizes {lead} — "
+                "build the step with per_step_metrics=True")
+        for j in range(k):
+            self._after_step({n: m[j] for n, m in metrics.items()})
 
     def _span(self, kind: str, name: str) -> None:
         payload = {"name": name, "track": "loop"}
@@ -121,7 +179,11 @@ class TrainLoop:
                 if rec.enabled:
                     self._span("span.begin", "dispatch")
                 try:
-                    self._after_step(self._dispatch(batch))
+                    if self.steps_per_call > 1:
+                        self._run_packed(batch)
+                    else:
+                        self._after_step(self._dispatch(self.step_fn,
+                                                        batch))
                 finally:
                     if rec.enabled:
                         self._span("span.end", "dispatch")

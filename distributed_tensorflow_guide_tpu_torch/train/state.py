@@ -22,6 +22,18 @@ Unlike flax's, :meth:`TrainState.apply_gradients` updates the parameters
 in place and returns the same object: one copy of the weights and of the
 optimizer moments lives on the card, which is what the JAX package gets
 from buffer donation.
+
+A captured train step (``steps_per_call``, ``core/graphs.MultiStep``)
+replays this update from a CUDA graph. The gradients it assigns are then
+tensors of the graph's private pool, whose addresses the capture fixed,
+so every replay writes and reads them where the capture did; the
+optimizer must keep its step counter and its bias corrections on the card:
+``torch.optim.Adam(..., capturable=True)`` / ``AdamW(..., capturable=
+True)`` (SGD has no counter; its momentum buffer is made by the first
+call's eager run). A learning rate that a schedule moves between calls
+must be a device tensor written in place (``lr=torch.tensor(1e-3,
+device="cuda")``); at ``steps_per_call > 1`` such a schedule is refused.
+``step`` moves by k a call.
 """
 
 from __future__ import annotations

@@ -952,3 +952,167 @@ def test_lora_engine_on_the_card():
                     model, prompts[i][None], torch.tensor([0, 50 + i]).numpy())
             assert got[i] == one[0, len(prompts[i]):].tolist(), (n, i)
         assert any(got[i] != base[i] for i, a in enumerate(ids) if a)
+
+
+# ---- the captured k-step train step and quantised products ----------------
+
+
+def _train_lm(k, seed=0):
+    """A small flash LM (bf16 compute, f32 weights), Adam with its counter
+    on the card, and a k-step DataParallel step over stacked batches."""
+    cfg = TF.TransformerConfig(vocab_size=512, num_layers=2, num_heads=2,
+                               d_model=128, d_ff=256, max_len=256,
+                               dtype=torch.bfloat16, attn_impl="flash")
+    model = TF.Transformer(cfg).init_weights(seed).to("cuda")
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3,
+                                               capturable=True))
+    step = DataParallel().make_train_step(
+        TF.make_lm_loss_fn(model), steps_per_call=k, stacked_batch=k > 1,
+        per_step_metrics=k > 1)
+    return cfg, state, step
+
+
+def _packs(calls, k, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    return [{"tokens": torch.randint(0, 512, (k, 2, 256), generator=gen)}
+            for _ in range(calls)]
+
+
+@pytest.mark.gpu
+def test_captured_k_step_equals_its_eager_twin_on_the_card():
+    """A 4-step DataParallel call captured as one CUDA graph against the
+    same step run eagerly from the same weights: the per-step losses and
+    the parameters after three calls bitwise equal, one capture, K1-K3
+    counted k x layers a replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k, calls = 4, 3
+    packs = _packs(calls, k)
+    cfg, s_cap, cap = _train_lm(k)
+    _, s_eag, eag = _train_lm(k)
+    assert cap.captured is True
+    losses = {"cap": [], "eag": []}
+    for i, p in enumerate(packs):
+        FA.reset_launch_counts()
+        _, m = cap(s_cap, p)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == {"flash_fwd": k * cfg.num_layers,
+                               "flash_dq": k * cfg.num_layers,
+                               "flash_dkv": k * cfg.num_layers,
+                               "flash_carry": 0}, i
+        losses["cap"].append(m["loss"])
+        losses["eag"].append(eag.eager(s_eag, p)[1]["loss"])
+    assert cap.captures == 1 and s_cap.step == s_eag.step == k * calls
+    for a, b in zip(losses["cap"], losses["eag"]):
+        assert a.shape == (k,) and torch.equal(a, b)
+    assert len({x.item() for a in losses["cap"] for x in a}) == k * calls
+    for a, b in zip(s_cap.model.parameters(), s_eag.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_the_first_captured_call_takes_k_optimizer_steps_not_2k():
+    """The first call runs the k steps eagerly and captures them without
+    running them: Adam's counter on the card reads k after it, 2k after
+    the second call (the first replay)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    k = 3
+    _, state, step = _train_lm(k)
+    packs = _packs(2, k, seed=4)
+    step(state, packs[0])
+    opt_step = next(iter(state.optimizer.state.values()))["step"]
+    assert opt_step.is_cuda and opt_step.item() == k and state.step == k
+    step(state, packs[1])
+    assert opt_step.item() == 2 * k and state.step == 2 * k
+    _, s1, one = _train_lm(1)
+    for p in packs:
+        for j in range(k):
+            s1, _ = one.eager(s1, {"tokens": p["tokens"][j]})
+    for a, b in zip(state.model.parameters(), s1.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_a_captured_step_refuses_an_adam_without_capturable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, state, step = _train_lm(2)
+    state.optimizer = torch.optim.Adam(state.model.parameters(), lr=1e-3)
+    with pytest.raises(ValueError, match="capturable=True"):
+        step(state, _packs(1, 2)[0])
+
+
+@pytest.mark.gpu
+def test_fp8_casts_saturate_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.ops import quant
+
+    x = torch.tensor([1e4, 500.0, 448.0, -1e9, 3.0, -0.0], device="cuda")
+    assert quant.to_fp8(x).float().tolist() == [448.0, 448.0, 448.0,
+                                                -448.0, 3.0, -0.0]
+    w = torch.randn(64, 32, device="cuda")
+    w[3, 4] = 1e6
+    q, _ = quant.quantize_channelwise(w, bits="fp8")
+    assert torch.isfinite(q.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4, 16, 8), (17, 13, 5), (1, 768, 2304),
+                                   (8192, 768, 24), (100, 3072, 768)])
+def test_int8_and_fp8_products_pad_odd_shapes_on_the_card(m, k, n):
+    """``torch._int_mm`` takes m > 16 and k, n multiples of 8,
+    ``torch._scaled_mm`` multiples of 16: other shapes are zero-padded,
+    never run as a float product. The int8 sums are exact (int32, the
+    CPU's bits). The card sums e4m3 products in its tensor cores at less
+    than f32 precision (the measured gap to exact sums reaches ~1.6e-4 of
+    the largest output), so the fp8 sums are held to 1e-3 of it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    got = quant.int8_mm(a.cuda(), b.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant.int8_mm(a, b))
+    fa = quant.to_fp8(torch.randn(m, k, generator=gen) * 50)
+    fb = quant.to_fp8(torch.randn(k, n, generator=gen) * 50)
+    got = quant.fp8_mm(fa.cuda(), fb.cuda())
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    want = fa.double() @ fb.double()
+    gap = (got.cpu().double() - want).abs().max().item()
+    assert gap <= 1e-3 * want.abs().max().item(), gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wd", ["int8", "int4", "fp8"])
+def test_quantised_engine_equals_its_one_shot_on_the_card(wd):
+    """A weight-only quantised model through the captured engine and the
+    captured one-shot generator: the same greedy streams, bitwise (a
+    prompt chunk of 10 to 32 rows on both sides: one K5/K6 regime)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.models.generation import (
+        make_generate_fn,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+    )
+
+    cfg, model = _small_lm()
+    qmodel = model.quantize(wd)
+    qcfg = qmodel.cfg
+    gen = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (12, 20, 31)]
+    eng = ServeEngine(qcfg, qmodel, slots=4, num_blocks=65, block_size=16,
+                      prefill_chunk=32)
+    got = _engine_streams(eng, prompts, 10)
+    assert eng.fns.captures == {"decode": 1, "prefill": 1}
+    for i, p in enumerate(prompts):
+        one = make_generate_fn(qcfg, max_new_tokens=10, temperature=0.0)
+        out = one(qmodel, p[None], torch.tensor([0, 50 + i]).numpy())
+        assert out[0, len(p):].tolist() == got[i], i

@@ -3,8 +3,8 @@ and ``DataParallel(overlap=...)``) held to the JAX package's rules and to
 the port's own monolithic path.
 
 * The knob tables: ``overlap`` and ``prefetch`` resolve "auto" on under
-  NCCL only (the JAX package's "TPU only"); ``compress="int8"`` is
-  refused, naming the ROADMAP item that brings it.
+  NCCL only (the JAX package's "TPU only"); ``compress="int8"`` resolves
+  and needs ``overlap=True``.
 * ``bucket_assignment`` equals the JAX function on the same byte lists.
   The buckets themselves differ between the packages (flax flattens its
   tree in sorted key order, ``named_parameters`` in registration order),
@@ -63,12 +63,20 @@ def test_resolve_tables(resolve):
 
 
 def test_resolve_compress_refuses_int8_until_it_is_ported():
+    """int8 is ported now (``ops/quant.int8_pmean``): the knob resolves
+    it, the bucketed step takes it, and without the bucketed backward it
+    is refused, as the JAX package refuses it. The compressed step's
+    numerics and wire bytes are pinned in ``tests/test_torch_quant.py``."""
     for setting in (None, "off", "none", "", "OFF"):
         assert overlap.resolve_compress(setting) is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        overlap.resolve_compress("int8")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DataParallel(overlap=True, compress="int8", device="cpu")
+    assert overlap.resolve_compress("int8") == "int8"
+    assert overlap.resolve_compress("INT8") == "int8"
+    assert jov.resolve_compress("int8") == "int8"
+    assert DataParallel(overlap=True, compress="int8",
+                        device="cpu").compress == "int8"
+    assert DataParallel(overlap=True, device="cpu").compress is None
+    with pytest.raises(ValueError, match="requires overlap=True"):
+        DataParallel(compress="int8", device="cpu")
     with pytest.raises(ValueError, match="compress"):
         overlap.resolve_compress("zstd")
 

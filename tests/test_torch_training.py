@@ -220,12 +220,15 @@ def test_remat_modes_give_the_grads_of_none(jparams, mode):
 
 
 def test_precision_presets_mirror_jax():
-    assert set(precision.PRESETS) == {"f32", "bf16", "bf16_remat",
-                                      "bf16_remat_attn"}
+    # every preset of the JAX package, the int8 / fp8 ones included
+    assert set(precision.PRESETS) == set(jprec.PRESETS) == {
+        "f32", "bf16", "bf16_remat", "bf16_remat_attn", "int8", "fp8"}
     assert precision.REMAT_MODES == jprec.REMAT_MODES
     for name, pol in precision.PRESETS.items():
         jpol = jprec.PRESETS[name]
         assert pol.remat == jpol.remat
+        assert (pol.quantized_matmuls, pol.fp8_matmuls) == (
+            jpol.quantized_matmuls, jpol.fp8_matmuls)
         assert pol.compute_dtype == (torch.float32 if jpol.compute_dtype
                                      == jnp.float32 else torch.bfloat16)
         cfg = pol.apply_to_transformer(TCFG)
@@ -375,15 +378,24 @@ def _in_single_device_mesh(fn):
     (lambda: _in_single_device_mesh(lambda: fused_ce.fused_cross_entropy(
         torch.zeros(2, 4), torch.zeros(4, 8), torch.zeros(2),
         axis="model")), None),
-    (lambda: precision.resolve("int8"), "item 9"),
-    (lambda: precision.resolve("fp8"), "item 9"),
+    # ported since (quantised weights): the presets resolve, f32 compute
+    # around int8 / fp8 training products, as the JAX package's do
+    (lambda: precision.resolve("int8"), "quantized_matmuls"),
+    (lambda: precision.resolve("fp8"), "fp8_matmuls"),
 ], ids=["vocab_parallel_ce", "int8", "fp8"])
 def test_deferred_knobs_raise_naming_their_roadmap_item(call, item):
+    """Knobs once deferred to a ROADMAP item, each pinned now to what it
+    does since it was ported."""
     if item is None:
         assert call().item() == pytest.approx(np.log(8), rel=1e-6)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+    policy = call()
+    assert getattr(policy, item) is True
+    assert policy.compute_dtype == torch.float32
+    cfg = policy.apply_to_transformer(ttf.TransformerConfig(
+        vocab_size=64, num_layers=1, num_heads=2, d_model=16, d_ff=32,
+        max_len=8))
+    assert getattr(cfg, item) is True and cfg.dtype == torch.float32
 
 
 def test_data_parallel_takes_a_process_group_of_one_rank(jparams, tmp_path):

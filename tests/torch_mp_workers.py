@@ -900,6 +900,101 @@ def overlap_job() -> dict:
     return _data2(_overlap_runs)
 
 
+# ---- the 2-rank job of tests/test_torch_quant.py ------------------------------
+
+# tests/test_quant.py's int8_pmean tree (8 devices there, 2 ranks here)
+# and its DP least-squares problem
+QP_DIM = 8
+QP_LR = 0.05
+QP_STEPS = 10
+
+
+def qp_tree(rank: int) -> dict:
+    rng = np.random.RandomState(5 + rank)
+    return {"w": rng.randn(1, 16, 4).astype(np.float32),
+            "b": rng.randn(1, 4).astype(np.float32),
+            "count": np.array([rank], np.int32)}
+
+
+def qp_problem():
+    xs = np.random.RandomState(7).randn(64, QP_DIM).astype(np.float32)
+    return xs, (xs @ np.ones((QP_DIM, 1)) * 0.3).astype(np.float32)
+
+
+def qp_w0() -> np.ndarray:
+    return (np.random.RandomState(5).randn(QP_DIM, 1).astype(np.float32)
+            * 0.1)
+
+
+def _quant_runs(mesh) -> dict:
+    """``int8_pmean`` of one tree; ``compress="int8"`` against the plain
+    bucketed step over ``QP_STEPS`` SGD steps; a k-step DP call over
+    gloo (eager) against single steps."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.ops import quant
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    i = mesh.axis("data").index
+    tree = {k: torch.from_numpy(v) for k, v in qp_tree(i).items()}
+    with cc.trace_comm() as rec:
+        got = quant.int8_pmean(tree, "data", mesh=mesh)
+    out: dict = {"pmean": {k: v.tolist() for k, v in got.items()},
+                 "pmean_trace": _trace(rec)}
+    with cc.trace_comm() as rec:
+        quant.int8_pmean({"count": tree["count"]}, "data", mesh=mesh)
+    out["ints_trace"] = _trace(rec)
+
+    xs, ys = qp_problem()
+    share = {"x": xs[32 * i:32 * (i + 1)], "y": ys[32 * i:32 * (i + 1)]}
+
+    def loss_fn(module, batch):
+        err = module(batch["x"]) - batch["y"]
+        return (err ** 2).mean(), {}
+
+    def run(dp, steps=QP_STEPS, k=None):
+        model = torch.nn.Linear(QP_DIM, 1, bias=False)
+        with torch.no_grad():
+            model.weight.copy_(torch.from_numpy(qp_w0().T))
+        state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                                  lr=QP_LR))
+        step = dp.make_train_step(loss_fn, steps_per_call=k,
+                                  per_step_metrics=k is not None)
+        losses, traces = [], []
+        for _ in range(steps if k is None else steps // k):
+            with cc.trace_comm() as rec:
+                _, m = step(state, share)
+            losses.append(m["loss"].reshape(-1).tolist())
+            traces.append(_trace(rec))
+        return (model.weight.detach().T.tolist(), losses, traces[0],
+                getattr(step, "captured", None))
+
+    for name, dp in (("plain", DataParallel(mesh, overlap=True,
+                                            bucket_bytes=64, device="cpu")),
+                     ("int8", DataParallel(mesh, overlap=True,
+                                           bucket_bytes=64, compress="int8",
+                                           device="cpu"))):
+        w, losses, trace, _ = run(dp)
+        out[f"dp/{name}"] = {"w": w, "losses": losses, "trace": trace}
+    dp = DataParallel(mesh, device="cpu")
+    w1, l1, _, _ = run(dp, steps=4)
+    wk, lk, _, captured = run(dp, steps=4, k=4)
+    out["kstep"] = {"w_single": w1, "w_k": wk, "l_single": l1, "l_k": lk,
+                    "captured": captured}
+    return out
+
+
+def quant_job() -> dict:
+    """The int8-compressed collectives on a data axis of 2."""
+    return _data2(_quant_runs)
+
+
 # ---- the 4-rank job of tests/test_torch_async_ps.py --------------------------
 
 # tests/test_async_ps.py's least-squares problem
