@@ -209,6 +209,40 @@ and check them.
     repeated batch: the first loss near ln(50304) and within
     ``QUANT_LOSS0_GAP`` of the bf16 step's on the same weights and batch,
     the loss falling, K1-K3 12 launches a step; step ms.
+27. MoE serving (after phase 25): ``gpt2_124m(moe_experts=8,
+    moe_capacity=2)`` in bf16 (random weights from ``--seed``; 453 M
+    expert parameters), phase 25's engine geometry (8 slots, 32-token
+    chunks) and 12 requests of 10-32 prompt tokens, 64 new: greedy,
+    sampled (0.8, top-k 20), at capacity 1 (sampled; slots must stall)
+    and with int8 banks (``Transformer.quantize``, greedy). Each stream
+    bitwise the solo (B = 1) one-shot generator's run of its request;
+    the census exact, sum(load) + sum(overflow) = L x (prompt tokens +
+    requests x (new - 1) + stalled slot-ticks); one capture a step; K6
+    counted a drain and K5 an oracle run; every token within
+    ``LOGIT_MARGIN`` of a teacher-forced forward but those after a
+    router near tie (``ROUTER_TIE``; at most ``MOE_PAST_MARGIN_SHARE``
+    of them). Prints decode-step ms (host clock, median) and device ms a
+    replay beside the dense bf16 engine's at the same prompts, the
+    stalls, the per-expert load, and a profile of one greedy replay;
+28. the Switch LM, one process (``SwitchLM``, data 1 x expert 1):
+    ``benchmarks/bench_moe_lm.py``'s shape (12 layers, d 768, ff 3072,
+    12 heads, vocab 50304, 8 experts top-1, capacity factor 2.0, Switch
+    router, B = 8, S = 512), bf16 compute, flash, fused CE, Adam, 10
+    steps on one batch: the first LM loss near ln V, the loss falling,
+    K1-K3 12 launches a step; the first step's loss and gradients against
+    the same step under dense attention and the one-hot plain dispatch;
+    step ms (CUDA events, median of steps 3-10), tokens/s, peak memory,
+    step 1's per-expert load and dropped share;
+29. expert parallelism at 4 ranks sharing the card over gloo (data 2 x
+    expert 2): the Switch LM at phase 28's widths and depth 2, 2
+    sequences a rank, the dropless router, so the sharded step computes
+    the single-process step's function, which is computed once here
+    before the ranks start; each rank's first-step loss and gradient
+    shards within ``GRAD_REL_GAP`` of it, 4 ``all_to_all[expert]`` a
+    layer and step of E·C·d·2·(n−1)/n wire bytes (C = 1024), half the
+    experts' stack bytes a rank, replicated parameters bitwise equal on
+    all ranks and expert shards across ``data`` after 3 Adam steps; then
+    one Switch-router step with the same census at C = 256.
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -217,8 +251,8 @@ JAX test's 2e-2 of the uncompressed run's, and the wire: 1 byte an
 element in ``psum[data]`` and 4 bytes a bucket in ``pmax[data]``, each at
 the ring's 2 (n - 1) / n.
 
-Phases 16-21 time-share one card over gloo, which stages every message
-through host memory: their times say nothing of NCCL.
+Phases 16-21 and 29 time-share one card over gloo, which stages every
+message through host memory: their times say nothing of NCCL.
 
 The kernels are built once here, before any rank starts. Exits non-zero
 on any failure, and when no CUDA card is present. The last line of stdout
@@ -265,6 +299,7 @@ from distributed_tensorflow_guide_tpu_torch.models.generation import (
     make_generate_fn,
     sample_rows,
 )
+from distributed_tensorflow_guide_tpu_torch.models.moe_lm import SwitchLM
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     LORA_ROW_SUM_SITES,
     Transformer,
@@ -272,6 +307,7 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     gpt2_124m,
     make_cls_loss_fn,
     make_lm_loss_fn,
+    router_logits,
 )
 from distributed_tensorflow_guide_tpu_torch.data.prefetch import (
     pack_batches,
@@ -404,6 +440,24 @@ Q_CHUNK, Q_PROMPTS, Q_NEW = 32, (10, 33), 32
 # quantisers' error moves the logits by ~1e-2)
 Q_STEPS = 10
 QUANT_LOSS0_GAP = 0.05
+# phases 27-29: GPT-2 124M with 8 experts, top-1; the engine's capacity
+# (ceil(2 * slots / E), benchmarks/bench_serving.py:1375) and new tokens;
+# SwitchLM at benchmarks/bench_moe_lm.py's defaults (S = 512, global
+# batch 8, capacity factor 2.0); phase 29's ranks, depth and steps
+MOE_E, MOE_CAP, MOE_NEW = 8, 2, 64
+MOE_B, MOE_S, MOE_STEPS = 8, 512, 10
+EP_N, EP_LAYERS, EP_STEPS = 4, 2, 3
+# the MoE teacher-forced check: the router's argmax is discontinuous, so
+# where its two best logits at a position lie within bf16 rounding of
+# each other, the training view may send that position to the other
+# expert than the engine did, and the logits of later tokens move with it
+# (an H100 debugging run of this phase: 1 token of 768 at 0.287 below its
+# bar, after a tie of 7.5e-5 at an earlier position). A token past
+# LOGIT_MARGIN must follow a near tie (a gap below ROUTER_TIE at or before
+# its input position), and such tokens may be at most this share of the
+# tokens; a broken path moves nearly every token ~1.6 below the bar
+ROUTER_TIE = 1e-2
+MOE_PAST_MARGIN_SHARE = 0.01
 
 
 _TYPE_CODES = {"f": "float", "a": "int8_t"}
@@ -3420,6 +3474,372 @@ def check_quantised_training(cfg, seed, kind) -> dict:
     return launches
 
 
+# ---- phases 27-29: mixture of experts -------------------------------------
+
+
+def moe_teacher_forced(model, prompt, tokens, top_k=None) -> dict:
+    """:func:`teacher_forced_gap` for an MoE model, token by token, with
+    the router's margin (the gap between its two best logits, the least
+    over the layers) at each token's input position, from the same
+    training-view forward. Returns the largest gap, and the gaps and
+    margins of the tokens past ``LOGIT_MARGIN``."""
+    inputs = []
+    hooks = [blk.mlp.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0])) for blk in model.blocks]
+    seq = torch.as_tensor(np.concatenate([prompt, tokens]),
+                          device=model.device)[None]
+    try:
+        with torch.inference_mode():
+            logits = model(seq)[0]
+            margins = []
+            for blk, x in zip(model.blocks, inputs):
+                lg = router_logits(x.reshape(-1, x.shape[-1]),
+                                   blk.mlp.router.weight)
+                top2 = lg.topk(2, dim=-1).values
+                margins.append(top2[:, 0] - top2[:, 1])
+            margin = torch.stack(margins).amin(dim=0)
+    finally:
+        for h in hooks:
+            h.remove()
+    P, n = len(prompt), len(tokens)
+    rows = logits[P - 1:P - 1 + n]
+    got = rows[torch.arange(n), torch.as_tensor(tokens, device=rows.device)]
+    bar = (rows.max(dim=-1).values if top_k is None
+           else torch.topk(rows, top_k, dim=-1).values[:, -1])
+    gaps = (bar - got).cpu()
+    # token j was sampled from the forward at position P - 1 + j: a near
+    # tie at any position up to it may have moved its hidden state
+    at = torch.cummax(-margin[:P - 1 + n].cpu(), dim=0).values.neg()
+    over = (gaps > LOGIT_MARGIN).nonzero().flatten().tolist()
+    return {"max_gap": float(gaps.max()),
+            "over": [[float(gaps[j]), float(margin[P - 1 + j]),
+                      float(at[P - 1 + j])] for j in over]}
+
+
+def _moe_serve(cfg, model, prompts, seed, *, temperature, top_k,
+               label) -> dict:
+    """One MoE engine drain (captured) and the solo one-shot generator
+    of each request: bitwise the same streams, the census balanced, one
+    capture a step, K6 launches of the drain and K5 of each oracle run
+    exact. Returns the run's numbers and launches."""
+    L = cfg.num_layers
+    eng = make_engine(cfg, model, temperature=temperature, top_k=top_k,
+                      prefill_chunk=Q_CHUNK)
+    DA.reset_launch_counts()
+    got, stats = drain(eng, prompts, seed=seed, max_new=MOE_NEW)
+    k6 = check_k6_launches(label, stats, L)
+    check_captures(eng.fns, 1)
+    stats["decode_replay_device_ms"] = decode_replay_ms(eng)
+    if label == "moe greedy":
+        stats["decode_replay_profile"] = profile_replay(
+            eng.fns.decode.step.graph)
+    moe = eng.health()["moe"]
+    eng.close()
+    routed = (sum(len(p) for p in prompts)
+              + len(prompts) * (MOE_NEW - 1) + moe["stall_slot_ticks"])
+    balance = sum(moe["expert_load"]) + sum(moe["expert_overflow"])
+    if balance != L * routed:
+        fail(f"{label}: census {balance} (load + overflow) != {L} layers "
+             f"x {routed} routed tokens")
+    generate = make_generate_fn(cfg, max_new_tokens=MOE_NEW,
+                                temperature=temperature, top_k=top_k)
+    k5 = {"split": 0, "chunk": 0}
+    differ = []
+    for i, p in enumerate(prompts):
+        out, _, c = timed_generate(generate, model, p[None],
+                                   np.array([seed, i], np.uint32))
+        if c != {"chunk": L, "split": (MOE_NEW - 1) * L}:
+            fail(f"{label}: the solo oracle launched K5 {c}")
+        for r in k5:
+            k5[r] += c[r]
+        if out[0, len(p):].tolist() != got[i]:
+            differ.append(i)
+    tf = [moe_teacher_forced(model, prompts[r], got[r], top_k) for r in got]
+    over = [o for t in tf for o in t["over"]]
+    return {"stats": stats, "moe": moe, "engine_equals_solo_one_shot":
+            not differ, "differ": differ,
+            "max_logit_gap_teacher_forced": max(t["max_gap"] for t in tf),
+            "tokens_past_margin": len(over),
+            "past_margin_gap_margin_least_margin_before": over,
+            "k5": k5, "k6": k6}
+
+
+def check_moe_serving(dense_cfg, dense_model, seed, kind) -> dict:
+    """Phase 27. Returns K5's and K6's launches by regime."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed + 27)
+    prompts = [rng.randint(0, 50257, rng.randint(*Q_PROMPTS))
+               .astype(np.int32) for _ in range(12)]
+    cfg = gpt2_124m(dtype=torch.bfloat16, moe_experts=MOE_E,
+                    moe_capacity=MOE_CAP)
+    model = Transformer(cfg).init_weights(seed).to("cuda")
+    runs = {}
+    for name, c, m, temperature, top_k in (
+            ("greedy", cfg, model, 0.0, None),
+            ("sampled", cfg, model, 0.8, 20),
+            ("capacity1_sampled", dataclasses.replace(cfg, moe_capacity=1),
+             model, 0.8, 20),
+            ("int8_banks_greedy", None, None, 0.0, None)):
+        if m is None:
+            m = model.quantize("int8")
+            c = m.cfg
+        runs[name] = _moe_serve(c, m, prompts, seed,
+                                temperature=temperature, top_k=top_k,
+                                label=f"moe {name.replace('_', ' ')}")
+        if m is not model:
+            del m
+            torch.cuda.empty_cache()
+    eng = make_engine(dense_cfg, dense_model, temperature=0.0, top_k=None,
+                      prefill_chunk=Q_CHUNK)
+    _, dense = drain(eng, prompts, seed=seed, max_new=MOE_NEW)
+    dense["decode_replay_device_ms"] = decode_replay_ms(eng)
+    eng.close()
+    del model
+    torch.cuda.empty_cache()
+    counts = {"decode_attention": {"split": 0, "chunk": 0},
+              "paged_decode_attention": {"split": 0, "chunk": 0}}
+    for r in runs.values():
+        for regime in ("split", "chunk"):
+            counts["decode_attention"][regime] += r["k5"][regime]
+            counts["paged_decode_attention"][regime] += r["k6"][regime]
+    print(f"moe serving on {kind} (gpt2_124m, {MOE_E} experts top-1, "
+          f"capacity {MOE_CAP}; 8 slots, {Q_CHUNK}-token chunks, 12 "
+          f"requests of {Q_PROMPTS[0]}-{Q_PROMPTS[1] - 1} tokens, "
+          f"{MOE_NEW} new): " + json.dumps(
+              {"runs": runs, "dense_bf16_greedy": dense})
+          + f" | phase_s {time.perf_counter() - t0:.1f}", flush=True)
+    for name, r in runs.items():
+        if r["differ"]:
+            fail(f"moe engine {name}: requests {r['differ']} differ from "
+                 "the solo one-shot generator")
+        over = r["past_margin_gap_margin_least_margin_before"]
+        if (r["tokens_past_margin"] > MOE_PAST_MARGIN_SHARE * 12 * MOE_NEW
+                or any(least >= ROUTER_TIE for _, _, least in over)):
+            fail(f"moe engine {name}: {r['tokens_past_margin']} tokens past "
+                 f"the teacher-forced margin, (gap, router margin, least "
+                 f"margin before): {over}")
+    if runs["capacity1_sampled"]["moe"]["stall_slot_ticks"] < 1:
+        fail("moe engine at capacity 1: no slot stalled")
+    return counts
+
+
+def _switch_cfg(layers: int, attn_impl: str = "flash"):
+    return dataclasses.replace(
+        gpt2_124m(dtype=torch.bfloat16, attn_impl=attn_impl),
+        num_layers=layers, max_len=MOE_S)
+
+
+def _switch_tokens(seed: int) -> np.ndarray:
+    return np.random.RandomState(seed + 28).randint(
+        0, 50257, (MOE_B, MOE_S)).astype(np.int64)
+
+
+def _timed_steps(step, module, tokens, n: int):
+    """``n`` train steps, CUDA events around each call: (losses, ms
+    each, the last step's metrics)."""
+    curve, ms = [], []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, mets = step(module, tokens)
+        end.record()
+        curve.append(mets["loss"].item())
+        ms.append(start.elapsed_time(end))
+    return curve, ms, mets
+
+
+def check_switch_training(seed, kind) -> dict:
+    """Phase 28. Returns its K1-K3 launches."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    cfg = _switch_cfg(12)
+    mesh = build_mesh(MeshSpec(data=1, expert=1))
+    kw = dict(top_k=1, capacity_factor=2.0, router="switch", fused_ce=True)
+    lm = SwitchLM(mesh, cfg, MOE_E, **kw)
+    full = lm.init_state_dict(seed)
+    tokens = torch.as_tensor(_switch_tokens(seed), device=dev)
+    module = lm.shard_params(full)
+    FA.reset_launch_counts()
+    loss0, mets0, grads0 = lm.loss_and_grads(module, tokens)
+    first = {n: FA.LAUNCHES[n] for n in K1_K3}
+    # the same step through the one-hot plain dispatch, with the kernels'
+    # attention and then with the dense one
+    plain = {}
+    for attn in ("flash", "dense"):
+        other = SwitchLM(mesh, _switch_cfg(12, attn), MOE_E,
+                         dispatch="onehot", **kw)
+        m = other.shard_params(full)
+        loss, mets, grads = other.loss_and_grads(m, tokens)
+        gaps = _grad_gaps(grads0, grads)
+        worst = max(gaps, key=gaps.get)
+        flat = (torch.cat([g.float().flatten() for g in grads0.values()]),
+                torch.cat([g.float().flatten() for g in grads.values()]))
+        plain[attn] = {"loss_gap": abs(loss0.item() - loss.item()),
+                       "worst_grad": worst, "worst_grad_rel_gap": gaps[worst],
+                       "all_grads_rel_gap": _rel_gap(*flat),
+                       "expert_load_change": (mets["expert_load"]
+                                              - mets0["expert_load"])
+                       .tolist()}
+        del m, grads, flat
+        torch.cuda.empty_cache()
+    del full, grads0
+    opt = torch.optim.Adam(module.parameters(), lr=1e-3)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launch_counts()
+    curve, ms, _ = _timed_steps(lm.make_train_step(opt), module, tokens,
+                                MOE_STEPS)
+    counted = {n: FA.LAUNCHES[n] for n in K1_K3}
+    step_ms = float(np.median(ms[2:]))
+    T = MOE_B * MOE_S
+    row = {"loss_curve": curve, "first_lm_loss": mets0["lm_loss"].item(),
+           "first_aux": (mets0["load_balance"].item(),
+                         mets0["z_loss"].item()),
+           "against_onehot_dispatch": plain,
+           "step_ms_each": ms, "step_ms_median_3_10": step_ms,
+           "tokens_per_s": T / (step_ms / 1e3),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "step1_expert_load": mets0["expert_load"].tolist(),
+           "step1_dropped_share": mets0["dropped"].item() / T / 12,
+           "launches_first_step": first, "launches_10_steps": counted}
+    del module, opt
+    torch.cuda.empty_cache()
+    print(f"switch lm training on {kind} (12 layers, {MOE_E} experts "
+          f"top-1, capacity factor 2.0, B={MOE_B}, S={MOE_S}, flash, fused "
+          "CE, Adam): " + json.dumps(row)
+          + f" | phase_s {time.perf_counter() - t0:.1f}", flush=True)
+    L = cfg.num_layers
+    if first != dict.fromkeys(K1_K3, L) or counted != dict.fromkeys(
+            K1_K3, MOE_STEPS * L):
+        fail(f"switch lm: K1-K3 {first} in one step, {counted} in "
+             f"{MOE_STEPS}")
+    if abs(row["first_lm_loss"] - LN_VOCAB) > LOSS0_MARGIN:
+        fail(f"switch lm: first LM loss {row['first_lm_loss']}")
+    # the loss against both plain steps; the gradients against the plain
+    # dispatch's on the same attention. Dense attention rounds its scores
+    # to bf16, which moves some tokens to another expert (the load
+    # changes), and a moved token's gradient is another expert's: those
+    # gradient gaps are reported, not held to GRAD_REL_GAP
+    same = plain["flash"]
+    if (same["worst_grad_rel_gap"] > GRAD_REL_GAP
+            or max(p["loss_gap"] for p in plain.values()) > 1e-2):
+        fail(f"switch lm: against the one-hot plain dispatch {plain}")
+    check_falls("switch lm", curve, 3)
+    return {n: first[n] + counted[n] for n in K1_K3}
+
+
+def _ep_lm(mesh, router: str) -> SwitchLM:
+    return SwitchLM(mesh, _switch_cfg(EP_LAYERS), MOE_E, top_k=1,
+                    capacity_factor=2.0, router=router, fused_ce=True)
+
+
+def ep_rank(seed: int, ref_path: str) -> dict:
+    """One rank of phase 29 (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=2, expert=2))
+    lm = _ep_lm(mesh, "dropless")
+    full = lm.init_state_dict(seed)
+    share = lm.token_shard(_switch_tokens(seed))
+    module = lm.shard_params(full)
+    stacks = ("moe.w_in", "moe.w_out")
+    FA.reset_launch_counts()
+    with cc.trace_comm() as rec:
+        loss0, _, grads = lm.loss_and_grads(module, share)
+    ref = torch.load(ref_path)
+    sl = lm.expert_slice()
+    gaps = {n: _rel_gap(g, (ref["grads"][n][:, sl] if n in stacks
+                            else ref["grads"][n]).to(dev))
+            for n, g in grads.items()}
+    worst = max(gaps, key=gaps.get)
+    del grads, ref["grads"]
+    opt = torch.optim.Adam(module.parameters(), lr=1e-3)
+    dist.barrier()
+    curve, ms, _ = _timed_steps(lm.make_train_step(opt), module, share,
+                                EP_STEPS)
+    sw = _ep_lm(mesh, "switch")
+    with cc.trace_comm() as rec_sw:
+        sw.loss_and_grads(sw.shard_params(full), share)
+    return {"rank": dist.get_rank(), "device": str(dev),
+            "backend": dist.get_backend(),
+            "coords": [mesh.axis(a).index for a in ("data", "expert")],
+            "loss_gap": abs(loss0.item() - ref["loss"]),
+            "worst_grad": worst, "worst_grad_rel_gap": gaps[worst],
+            "loss_curve": curve, "step_ms": ms,
+            "launches": {n: FA.LAUNCHES[n] for n in K1_K3},
+            "stack_bytes": sum(module.get_parameter(n).numel()
+                               * module.get_parameter(n).element_size()
+                               for n in stacks),
+            "a2a": [rec.calls["all_to_all[expert]"],
+                    rec.wire["all_to_all[expert]"]],
+            "a2a_switch": [rec_sw.calls["all_to_all[expert]"],
+                           rec_sw.wire["all_to_all[expert]"]],
+            "digests": {n: _digest(p) for n, p in
+                        module.named_parameters()}}
+
+
+def check_expert_parallel(seed: int, kind: str) -> dict:
+    """Phase 29. Returns the ranks' K1-K3 launches, summed."""
+    t0 = time.perf_counter()
+    dev = resolve_device(None)
+    lm = _ep_lm(build_mesh(MeshSpec(data=1, expert=1)), "dropless")
+    module = lm.shard_params(lm.init_state_dict(seed))
+    loss, _, grads = lm.loss_and_grads(
+        module, torch.as_tensor(_switch_tokens(seed), device=dev))
+    with tempfile.TemporaryDirectory(prefix="dtg_ep_ref_") as ref_dir:
+        path = f"{ref_dir}/switch.pt"
+        torch.save({"loss": loss.item(),
+                    "grads": {n: g.cpu() for n, g in grads.items()}}, path)
+        del module, grads
+        torch.cuda.empty_cache()
+        res = [r.result for r in run_multiprocess(
+            "chip_smoke:ep_rank", EP_N, [seed, path], timeout=900)]
+    cfg = lm.cfg
+    L, d, ff = EP_LAYERS, cfg.d_model, cfg.d_ff
+    t_local = MOE_B * MOE_S // EP_N
+    # each all_to_all: the (E, C, d) bf16 buffer, half of it to the other
+    # expert rank; C = T_local dropless, ceil(T_local * 2.0 / E) Switch
+    wire = {router: MOE_E * cap * d * 2 * (2 - 1) / 2
+            for router, cap in (("dropless", t_local),
+                                ("switch", math.ceil(t_local * 2.0
+                                                     / MOE_E)))}
+    print(f"expert parallelism on {kind} ({_layout(res)}; data 2 x "
+          f"expert 2, gloo on one card, not NCCL): " + json.dumps(
+              {k: [r[k] for r in res] for k in (
+                  "coords", "loss_gap", "worst_grad", "worst_grad_rel_gap",
+                  "loss_curve", "step_ms", "launches", "stack_bytes", "a2a",
+                  "a2a_switch")}
+              | {"a2a_wire_each": wire,
+                 "phase_s": time.perf_counter() - t0}), flush=True)
+    for r in res:
+        if r["worst_grad_rel_gap"] > GRAD_REL_GAP or r["loss_gap"] > 1e-2:
+            fail(f"ep rank {r['rank']}: {r['worst_grad']} gap "
+                 f"{r['worst_grad_rel_gap']}, loss gap {r['loss_gap']}")
+        for key, router in (("a2a", "dropless"), ("a2a_switch", "switch")):
+            if r[key] != [4 * L, 4 * L * wire[router]]:
+                fail(f"ep rank {r['rank']} {router}: all_to_all[expert] "
+                     f"{r[key]}, expected {4 * L} of {wire[router]} bytes")
+        if r["stack_bytes"] != 2 * L * (MOE_E // 2) * d * ff * 2:
+            fail(f"ep rank {r['rank']}: {r['stack_bytes']} bytes of expert "
+                 "stacks, expected half the experts'")
+        if r["launches"] != dict.fromkeys(K1_K3, (EP_STEPS + 2) * L):
+            fail(f"ep rank {r['rank']}: K1-K3 {r['launches']}")
+    by_expert = {}
+    for r in res:
+        for n, dg in r["digests"].items():
+            key = (n, r["coords"][1]) if n.startswith(("moe.w_in",
+                                                       "moe.w_out")) else n
+            by_expert.setdefault(key, set()).add(dg)
+    if any(len(v) != 1 for v in by_expert.values()):
+        fail("ep: parameters differ across ranks after the steps: "
+             f"{sorted(str(k) for k, v in by_expert.items() if len(v) > 1)}")
+    if len({tuple(r["loss_curve"]) for r in res}) != 1:
+        fail("ep: the ranks report different losses")
+    return {n: sum(r["launches"][n] for r in res) for n in K1_K3}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3471,11 +3891,12 @@ def main() -> int:
                 cfg, model, args.seed, kind))):
         for regime, n in counts.items():
             by_regime[name][regime] += n
-    # phase 25 (quantised serving) on this model too
-    for name, counts in check_quantised_serving(cfg, model, args.seed,
-                                                kind).items():
-        for regime, n in counts.items():
-            by_regime[name][regime] += n
+    # phases 25 (quantised serving) and 27 (MoE serving, against this
+    # model's engine) on this model too
+    for phase in (check_quantised_serving, check_moe_serving):
+        for name, counts in phase(cfg, model, args.seed, kind).items():
+            for regime, n in counts.items():
+                by_regime[name][regime] += n
     launches = {f"{name}.{regime}": n for name, counts in by_regime.items()
                 for regime, n in counts.items()}
     del model
@@ -3484,10 +3905,12 @@ def main() -> int:
     phase7, step7_ms = check_training(cfg, rng, args.seed, kind, flash_ms)
     launches.update(phase7)
     torch.cuda.empty_cache()
-    # phases 24 and 26: the captured k-step step, quantised training
+    # phases 24, 26 and 28: the captured k-step step, quantised training,
+    # the Switch LM
     for more in (check_captured_training(cfg, rng, args.seed, kind,
                                          step7_ms),
-                 check_quantised_training(cfg, args.seed, kind)):
+                 check_quantised_training(cfg, args.seed, kind),
+                 check_switch_training(args.seed, kind)):
         for n, c in more.items():
             launches[n] += c
     torch.cuda.empty_cache()
@@ -3509,6 +3932,8 @@ def main() -> int:
     check_dp_overlap(args.seed, kind)
     check_sp_tp(args.seed, kind)
     check_async_ps(args.seed, kind)
+    for n, c in check_expert_parallel(args.seed, kind).items():
+        launches[n] += c
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

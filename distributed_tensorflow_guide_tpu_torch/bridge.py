@@ -30,6 +30,14 @@ bias) where the f32 tree holds ``kernel``; ``qkernel`` is already the 2-D
 packed uint8, or e4m3 bytes, which numpy holds as ``ml_dtypes``
 ``float8_e4m3fn``).
 
+Mixture of experts (``cfg.moe_experts``): ``mlp/router/kernel`` (D, E)
+-> ``mlp.router.weight`` (E, D); the banks ``mlp/w_in/kernel`` (E, D, F)
+and ``mlp/w_out/kernel`` (E, F, D) keep their layout as
+``mlp.w_in.weight`` / ``mlp.w_out.weight``, and their quantised
+``{qkernel, scale}`` pass over as they are. :func:`switch_lm_from_flax`
+and :func:`switch_lm_to_flax` carry the JAX ``SwitchLM``'s stacked tree
+(``{"embed", "attn", "ln2", "moe", "head"}``, block leaves (L, ...)).
+
 Multi-LoRA banks: :func:`adapters_from_flax` reads the JAX "adapters"
 collection (``block_{i}/attn/{qkv,proj}_{A,B}``,
 ``block_{i}/mlp/{up,down}_{A,B}``, the same (n, d_in, r) and (n, r,
@@ -95,9 +103,19 @@ def params_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
             sd[pre + ln + ".weight"] = _t(blk[ln]["scale"])
             sd[pre + ln + ".bias"] = _t(blk[ln]["bias"])
         mlp = blk["mlp"]
+        if cfg.moe:
+            sd[pre + "mlp.router.weight"] = _t(
+                np.asarray(mlp["router"]["kernel"]).T)
+            for name in ("w_in", "w_out"):
+                if cfg.weight_dtype:
+                    sd.update(_quantized_from(mlp[name], f"{pre}mlp.{name}"))
+                else:
+                    sd[f"{pre}mlp.{name}.weight"] = _t(mlp[name]["kernel"])
         if cfg.weight_dtype:
-            for sub, name in (("attn", "qkv"), ("attn", "proj"),
-                              ("mlp", "up"), ("mlp", "down")):
+            sites = (("attn", "qkv"), ("attn", "proj"))
+            if not cfg.moe:
+                sites += (("mlp", "up"), ("mlp", "down"))
+            for sub, name in sites:
                 sd.update(_quantized_from(blk[sub][name],
                                           f"{pre}{sub}.{name}"))
             continue
@@ -105,6 +123,8 @@ def params_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
         sd[pre + "attn.qkv.weight"] = _t(qkv.reshape(D, 3 * H * hd).T)
         proj = np.asarray(blk["attn"]["proj"]["kernel"])
         sd[pre + "attn.proj.weight"] = _t(proj.reshape(H * hd, D).T)
+        if cfg.moe:
+            continue
         sd[pre + "mlp.up.weight"] = _t(np.asarray(mlp["up"]["kernel"]).T)
         sd[pre + "mlp.up.bias"] = _t(mlp["up"]["bias"])
         sd[pre + "mlp.down.weight"] = _t(
@@ -143,13 +163,18 @@ def params_to_flax(state_dict: Mapping, cfg) -> dict:
             },
             "ln2": {"scale": a(pre + "ln2.weight"),
                     "bias": a(pre + "ln2.bias")},
-            "mlp": {
+            "mlp": ({
+                "router": {"kernel": np.ascontiguousarray(
+                    a(pre + "mlp.router.weight").T)},
+                "w_in": {"kernel": a(pre + "mlp.w_in.weight")},
+                "w_out": {"kernel": a(pre + "mlp.w_out.weight")},
+            } if cfg.moe else {
                 "up": {"kernel": np.ascontiguousarray(
                     a(pre + "mlp.up.weight").T),
                     "bias": a(pre + "mlp.up.bias")},
                 "down": {"kernel": np.ascontiguousarray(
                     a(pre + "mlp.down.weight").T)},
-            },
+            }),
         }
     tree["ln_f"] = {"scale": a("ln_f.weight"), "bias": a("ln_f.bias")}
     if cfg.num_classes is None:
@@ -158,6 +183,68 @@ def params_to_flax(state_dict: Mapping, cfg) -> dict:
     else:
         tree["classifier"] = _dense_to(state_dict, "classifier")
     return tree
+
+
+def switch_lm_from_flax(tree: Mapping, cfg) -> dict[str, torch.Tensor]:
+    """The JAX ``SwitchLM``'s param tree (numpy leaves, all E experts) ->
+    the state dict of ``models/moe_lm.SwitchLMParams`` with every expert
+    (``SwitchLM.shard_params`` cuts a rank's share)."""
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    emb, attn, head = tree["embed"], tree["attn"], tree["head"]
+    sd = {"embed.tok_emb.weight": _t(emb["tok_emb"]["embedding"]),
+          "embed.pos_emb.weight": _t(emb["pos_emb"]["embedding"]),
+          "head.ln_f.weight": _t(head["ln_f"]["scale"]),
+          "head.ln_f.bias": _t(head["ln_f"]["bias"]),
+          "head.lm_head.weight": _t(
+              np.asarray(head["lm_head"]["kernel"]).T)}
+    qkv = np.asarray(attn["attn"]["qkv"]["kernel"])
+    proj = np.asarray(attn["attn"]["proj"]["kernel"])
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}."
+        sd[pre + "ln1.weight"] = _t(attn["ln1"]["scale"][i])
+        sd[pre + "ln1.bias"] = _t(attn["ln1"]["bias"][i])
+        sd[pre + "attn.qkv.weight"] = _t(qkv[i].reshape(D, 3 * H * hd).T)
+        sd[pre + "attn.proj.weight"] = _t(proj[i].reshape(H * hd, D).T)
+        sd[pre + "ln2.weight"] = _t(tree["ln2"]["scale"][i])
+        sd[pre + "ln2.bias"] = _t(tree["ln2"]["bias"][i])
+    for name in ("router", "w_in", "w_out"):
+        sd[f"moe.{name}"] = _t(tree["moe"][name])
+    return sd
+
+
+def switch_lm_to_flax(state_dict: Mapping, cfg) -> dict:
+    """The inverse of :func:`switch_lm_from_flax` (a state dict with every
+    expert, or gradients keyed the same way)."""
+    D, H, hd, L = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
+
+    def a(key):
+        return state_dict[key].detach().cpu().numpy()
+
+    def stack(fmt, fn=lambda x: x):
+        return np.stack([fn(a(fmt.format(i))) for i in range(L)])
+
+    return {
+        "embed": {"tok_emb": {"embedding": a("embed.tok_emb.weight")},
+                  "pos_emb": {"embedding": a("embed.pos_emb.weight")}},
+        "attn": {
+            "ln1": {"scale": stack("blocks.{}.ln1.weight"),
+                    "bias": stack("blocks.{}.ln1.bias")},
+            "attn": {
+                "qkv": {"kernel": stack(
+                    "blocks.{}.attn.qkv.weight",
+                    lambda w: w.T.reshape(D, 3, H, hd))},
+                "proj": {"kernel": stack(
+                    "blocks.{}.attn.proj.weight",
+                    lambda w: w.T.reshape(H, hd, D))}}},
+        "ln2": {"scale": stack("blocks.{}.ln2.weight"),
+                "bias": stack("blocks.{}.ln2.bias")},
+        "moe": {name: a(f"moe.{name}") for name in ("router", "w_in",
+                                                      "w_out")},
+        "head": {"ln_f": {"scale": a("head.ln_f.weight"),
+                          "bias": a("head.ln_f.bias")},
+                 "lm_head": {"kernel": np.ascontiguousarray(
+                     a("head.lm_head.weight").T)}},
+    }
 
 
 def _adapter_names(cfg):

@@ -4,7 +4,9 @@ traceable place.
 Each op takes an axis of the port's mesh (``core/mesh.py``), by name,
 resolved against the mesh passed as ``mesh=`` or the one entered with
 ``with mesh:`` (or as the ``AxisGroup`` a name resolves to), and runs on
-that axis's process group. Inside an active
+that axis's process group. A tuple of names is one joint axis (the
+reductions over ``("data", "expert")`` of expert parallelism, recorded
+as ``psum[data,expert]``). Inside an active
 :func:`trace_comm` every call records its op, its axis, the payload bytes
 this rank hands it and the bytes it puts on the wire. The JAX package's
 trace counts traced call sites (a site inside a ``lax.scan`` counts once);
@@ -182,7 +184,8 @@ def _reduce_wire(n: int) -> float:
     return 2.0 * (n - 1) / n
 
 
-def psum(x, axis: str, *, mesh: Mesh | None = None):
+def psum(x, axis: "str | tuple[str, ...]", *,
+         mesh: Mesh | None = None):
     """All-reduce sum over ``axis`` of a tensor or a dict / list of them
     (one flat all-reduce per dtype)."""
     ax = resolve_axis(axis, mesh)
@@ -190,14 +193,16 @@ def psum(x, axis: str, *, mesh: Mesh | None = None):
     return _all_reduce(x, ax, dist.ReduceOp.SUM, mean=False)
 
 
-def pmean(x, axis: str, *, mesh: Mesh | None = None):
+def pmean(x, axis: "str | tuple[str, ...]", *,
+          mesh: Mesh | None = None):
     """All-reduce mean: the gradient average of data parallelism."""
     ax = resolve_axis(axis, mesh)
     _record("pmean", ax, x, _reduce_wire(ax.size))
     return _all_reduce(x, ax, dist.ReduceOp.SUM, mean=True)
 
 
-def pmax(x, axis: str, *, mesh: Mesh | None = None):
+def pmax(x, axis: "str | tuple[str, ...]", *,
+         mesh: Mesh | None = None):
     """All-reduce max."""
     ax = resolve_axis(axis, mesh)
     _record("pmax", ax, x, _reduce_wire(ax.size))
@@ -426,9 +431,12 @@ class _TPIdentity(torch.autograd.Function):
                            mean=False), None
 
 
-def tp_allreduce(x: torch.Tensor, axis: str, *,
+def tp_allreduce(x: torch.Tensor, axis: "str | tuple[str, ...]", *,
                  mesh: Mesh | None = None) -> torch.Tensor:
-    """Megatron's ``g``: psum over ``axis`` forward, identity backward."""
+    """Megatron's ``g``: psum over ``axis`` forward, identity backward.
+    Outside tensor parallelism it is the psum of a sum of per-rank partial
+    contributions to a value every rank then uses alike (a global-mean
+    loss): the backward hands each rank its own partial's cotangent."""
     ax = resolve_axis(axis, mesh)
     _record("psum", ax, x, _reduce_wire(ax.size))
     if ax.size == 1:

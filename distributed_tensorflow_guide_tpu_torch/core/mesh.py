@@ -11,6 +11,15 @@ lays out the JAX device array), and each axis is a
 only in that axis's coordinate form one group. ``collectives.py`` resolves
 an axis name against the mesh that is active (``with mesh:``) or passed.
 
+A tuple of axes, ``("data", "expert")``, is one joint axis (the JAX
+package's ``psum(x, ("data", "expert"))``): its size is the product, a
+rank's index the row-major index of its coordinates in the tuple's order,
+and its group the ranks that differ only in those coordinates. Its groups
+are made the first time a rank asks for it, on every rank (a collective
+is called by every rank in the same order, so the ranks make them
+together); a joint axis with at most one axis above size 1 reuses that
+axis's group.
+
 The groups are made with ``dist.new_group``, one per (axis, slice), and
 not with ``torch.distributed.device_mesh.init_device_mesh``: with
 ``device_type="cuda"`` that call sets each process's current card to
@@ -94,15 +103,48 @@ class Mesh:
         self.sizes = dict(sizes)
         self.rank = rank
         self._axes = axes
+        self._joint: dict[tuple[str, ...], AxisGroup] = {}
 
     @property
     def shape(self) -> tuple[int, ...]:
         return tuple(self.sizes[a] for a in AXES)
 
-    def axis(self, name: str) -> AxisGroup:
+    def axis(self, name: "str | tuple[str, ...]") -> AxisGroup:
+        if isinstance(name, (tuple, list)):
+            return self._joint_axis(tuple(name))
         if name not in self._axes:
             raise ValueError(f"unknown mesh axis {name!r} (one of {AXES})")
         return self._axes[name]
+
+    def _joint_axis(self, names: tuple[str, ...]) -> AxisGroup:
+        if len(names) == 1:
+            return self.axis(names[0])
+        hit = self._joint.get(names)
+        if hit is not None:
+            return hit
+        if len(set(names)) != len(names):
+            raise ValueError(f"mesh axes {names} repeat an axis")
+        parts = [self.axis(n) for n in names]
+        size = math.prod(p.size for p in parts)
+        index = int(np.ravel_multi_index([p.index for p in parts],
+                                         [p.size for p in parts]))
+        live = [p for p in parts if p.size > 1]
+        if len(live) <= 1:
+            ranks = live[0].ranks if live else (self.rank,)
+            group = live[0].group if live else None
+        else:
+            import torch.distributed as dist
+
+            shape = tuple(self.sizes[a] for a in AXES)
+            ranks = group = None
+            for members in _axes_ranks(shape, [AXES.index(n)
+                                               for n in names]):
+                made = dist.new_group(list(members))
+                if self.rank in members:
+                    ranks, group = members, made
+        joint = AxisGroup(",".join(names), size, index, ranks, group)
+        self._joint[names] = joint
+        return joint
 
     def __enter__(self) -> "Mesh":
         _ACTIVE.append(self)
@@ -120,26 +162,30 @@ def current_mesh() -> Mesh:
     return _ACTIVE[-1]
 
 
-def resolve_axis(axis: "str | AxisGroup", mesh: Mesh | None = None
-                 ) -> AxisGroup:
-    """An axis name against ``mesh`` (or the active mesh); an
-    ``AxisGroup`` is taken as it is."""
+def resolve_axis(axis: "str | tuple[str, ...] | AxisGroup",
+                 mesh: Mesh | None = None) -> AxisGroup:
+    """An axis name (or a tuple of them, one joint axis) against ``mesh``
+    (or the active mesh); an ``AxisGroup`` is taken as it is."""
     if isinstance(axis, AxisGroup):
         return axis
     return (mesh if mesh is not None else current_mesh()).axis(axis)
 
 
-def _axis_ranks(shape: tuple[int, ...], axis: int):
-    """Every group of one axis: for each choice of the other coordinates,
-    the flat ranks along ``axis`` in order. The same order on every rank,
-    so that every rank makes the same groups in the same sequence."""
-    others = [range(n) if i != axis else [None]
+def _axes_ranks(shape: tuple[int, ...], axes: list[int]):
+    """Every group of the joint axis ``axes`` (dims of ``shape``): for
+    each choice of the other coordinates, the flat ranks over ``axes``,
+    row-major in their order. The same order on every rank, so that every
+    rank makes the same groups in the same sequence."""
+    others = [range(n) if i not in axes else [None]
               for i, n in enumerate(shape)]
     for fixed in itertools.product(*others):
-        coords = [list(fixed) for _ in range(shape[axis])]
-        for j, c in enumerate(coords):
-            c[axis] = j
-        yield tuple(int(np.ravel_multi_index(c, shape)) for c in coords)
+        group = []
+        for inner in itertools.product(*(range(shape[a]) for a in axes)):
+            c = list(fixed)
+            for a, j in zip(axes, inner):
+                c[a] = j
+            group.append(int(np.ravel_multi_index(c, shape)))
+        yield tuple(group)
 
 
 def build_mesh(spec: MeshSpec | None = None) -> Mesh:
@@ -159,7 +205,7 @@ def build_mesh(spec: MeshSpec | None = None) -> Mesh:
     axes = {}
     for i, name in enumerate(AXES):
         mine = None
-        for ranks in _axis_ranks(shape, i):
+        for ranks in _axes_ranks(shape, [i]):
             group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
             if rank in ranks:
                 mine = (ranks, group)

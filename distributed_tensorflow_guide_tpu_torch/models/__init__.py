@@ -1,2 +1,3 @@
-"""The models: the Transformer (LM and classifier) and its generator,
-ResNet, the MNIST CNN and Wide&Deep."""
+"""The models: the Transformer (LM and classifier, with the routed MoE
+FFN) and its generator, the Switch LM (``moe_lm``), ResNet, the MNIST CNN
+and Wide&Deep."""

@@ -20,6 +20,11 @@ samplers the serve engine shares with it.
   in the caches past the index, where K5 cannot see them.
 * Multi-LoRA (``adapters``, ``adapter_id``): one adapter of the bank for
   the whole batch, the engine's per-request oracle.
+* Mixture of experts (``cfg.moe_experts``) runs unchanged: the prompt
+  chunk is dropless (every token has a seat) and each decode step seats
+  ``moe_capacity`` tokens an expert among the batch's rows, so a solo
+  (B = 1) run never overflows: it is the MoE engine's per-request
+  oracle, whose stalled slots retry until they are seated.
 * Sampling: greedy (``temperature == 0``, an exact argmax), temperature,
   and top-k, drawn as the JAX package draws them: the token at absolute
   position p of a request takes the key ``fold_in(rng, p)`` and the

@@ -65,6 +65,18 @@ the products of ``qkv``, ``proj``, ``up`` and ``down`` through
 ``ops/quant.int8_ste_dot`` / ``fp8_ste_dot``, the reference's
 ``QuantTrainDense``; the head stays at full precision.
 
+Mixture of experts (``cfg.moe_experts``, ``cfg.moe_capacity``; serving,
+as in the reference, where ``models/moe_lm.SwitchLM`` owns MoE training):
+each block's FFN is a routed top-1 :class:`MoEMLP` over an f32 router and
+two expert banks (``mlp.w_in.weight`` (E, d, ff), ``mlp.w_out.weight``
+(E, ff, d); ``qkernel`` / ``scale`` banks under ``weight_dtype``). A
+decode call (one token a row) seats ``moe_capacity`` tokens an expert and
+reports the rows past it (``moe_census``); the serve engine retries them
+(``serve/engine.py``). Every other call is dropless. The router's logits
+are row-invariant (:func:`router_logits`), and the dispatch is index
+algebra with no data-dependent shape, so the engine's steps stay
+captured.
+
 The cache is a list with one dict per layer (``k``, ``v`` and, for an
 int8 cache, the f32 scale rows ``ks``, ``vs``); a forward writes the
 chunk's rows into it **in place**, so a step function holds one copy of
@@ -101,17 +113,12 @@ from distributed_tensorflow_guide_tpu_torch.models.losses import (
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.ops import quant
+from distributed_tensorflow_guide_tpu_torch.parallel import expert as EP
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
     scatter_chunk,
 )
 
 LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
-
-# knobs of the JAX config that this package does not serve yet, and the
-# ROADMAP item (Queue 1) that brings each
-_DEFERRED = {
-    "moe_experts": "item 8 (MoE)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,8 +163,11 @@ class TransformerConfig:
     # (ops/quant.int8_ste_dot / fp8_ste_dot; core/precision.py's presets)
     quantized_matmuls: bool = False
     fp8_matmuls: bool = False
-    # not served yet: setting any of these raises (see _DEFERRED)
+    # routed top-1 MoE FFN (MoEMLP): the expert count, and the seats an
+    # expert has in a one-token-a-row (decode) call; None: every call is
+    # dropless
     moe_experts: int | None = None
+    moe_capacity: int | None = None
 
     def __post_init__(self):
         if self.weight_dtype not in (None, "int8", "int4", "fp8"):
@@ -200,16 +210,29 @@ class TransformerConfig:
                     "weight_dtype and lora_rank are mutually exclusive "
                     "(the quantized projections have no f32 kernel for "
                     "the deltas to ride on)")
-            if self.moe_experts is not None:
+        elif self.lora_adapters:
+            raise ValueError("lora_adapters requires lora_rank")
+        if self.moe_capacity is not None and self.moe_experts is None:
+            raise ValueError("moe_capacity requires moe_experts")
+        if self.moe_experts is not None:
+            if self.moe_experts < 2:
+                raise ValueError(
+                    f"moe_experts must be >= 2, got {self.moe_experts}")
+            if self.moe_capacity is not None and self.moe_capacity < 1:
+                raise ValueError(
+                    f"moe_capacity must be >= 1, got {self.moe_capacity}")
+            if self.lora_rank is not None:
                 raise ValueError(
                     "moe_experts and lora_rank are mutually exclusive "
                     "(no delta bank wiring on the routed FFN)")
-        elif self.lora_adapters:
-            raise ValueError("lora_adapters requires lora_rank")
-        for knob, item in _DEFERRED.items():
-            if getattr(self, knob) is not None:
-                raise NotImplementedError(
-                    f"{knob} is not ported yet: ROADMAP Queue 1 {item}")
+            if self.quantized_matmuls or self.fp8_matmuls:
+                raise ValueError(
+                    "moe_experts and the training quant levers are "
+                    "mutually exclusive (SwitchLM owns MoE training)")
+            if self.tp_axis:
+                raise ValueError(
+                    "moe_experts and tp_axis are mutually exclusive "
+                    "(expert parallelism is the MoE sharding story)")
         if self.attn_impl not in ("auto", "dense", "flash"):
             raise ValueError(
                 "attn_impl must be 'auto', 'dense' or 'flash', "
@@ -254,6 +277,10 @@ class TransformerConfig:
     @property
     def lora(self) -> bool:
         return self.lora_rank is not None
+
+    @property
+    def moe(self) -> bool:
+        return self.moe_experts is not None
 
     @property
     def train_quant(self) -> str | None:
@@ -378,6 +405,17 @@ def _linear(x, weight, bias=None, dtype=None):
     return F.linear(x.to(dtype), weight.to(dtype), b)
 
 
+def _quant_storage(d_in: int, weight_dtype: str):
+    """``(bits, stored rows, storage dtype)`` of a quantised kernel of fan-in
+    ``d_in``: int8, two int4 values a byte (uint8), or e4m3."""
+    bits = quant.WQ_BITS[weight_dtype]
+    if bits == 4:
+        if d_in % 2:
+            raise ValueError(f"int4 packing needs an even fan-in, got {d_in}")
+        return bits, d_in // 2, torch.uint8
+    return bits, d_in, quant.FP8_DTYPE if bits == "fp8" else torch.int8
+
+
 class WeightQuantLinear(nn.Module):
     """A weight-only quantised projection (``cfg.weight_dtype``), the
     reference's ``WeightQuantDense``: buffers ``qkernel`` (d_in, d_out)
@@ -389,15 +427,7 @@ class WeightQuantLinear(nn.Module):
     def __init__(self, d_in: int, d_out: int, weight_dtype: str, *,
                  bias: bool = False):
         super().__init__()
-        self.bits = quant.WQ_BITS[weight_dtype]
-        if self.bits == 4:
-            if d_in % 2:
-                raise ValueError(
-                    f"int4 packing needs an even fan-in, got {d_in}")
-            rows, store = d_in // 2, torch.uint8
-        else:
-            rows = d_in
-            store = quant.FP8_DTYPE if self.bits == "fp8" else torch.int8
+        self.bits, rows, store = _quant_storage(d_in, weight_dtype)
         self.register_buffer("qkernel", torch.zeros(rows, d_out,
                                                     dtype=store))
         self.register_buffer("scale", torch.ones(d_out))
@@ -652,6 +682,109 @@ class MLP(nn.Module):
         return _tp_leave(y, cfg)  # after the row-parallel down
 
 
+class ExpertBank(nn.Module):
+    """The f32 kernels of one MoE projection for every expert: ``weight``
+    (E, d_in, d_out), the reference's ``_ExpertBank`` layout (the
+    product's own; ``ops/quant.quantize_params`` folds it per expert)."""
+
+    def __init__(self, e: int, d_in: int, d_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(e, d_in, d_out))
+
+    def forward(self, x, dtype):
+        return torch.bmm(x, self.weight.to(dtype))
+
+
+class WeightQuantBank(nn.Module):
+    """The weight-only quantised sibling of :class:`ExpertBank`
+    (``cfg.weight_dtype``), the reference's ``_WeightQuantBank``: buffers
+    ``qkernel`` (E, d_in[/2], d_out) and ``scale`` (E, d_out) f32, each
+    expert's kernel through ``ops/quant.wq_bank_matmul``."""
+
+    def __init__(self, e: int, d_in: int, d_out: int, weight_dtype: str):
+        super().__init__()
+        self.bits, rows, store = _quant_storage(d_in, weight_dtype)
+        self.register_buffer("qkernel", torch.zeros(e, rows, d_out,
+                                                    dtype=store))
+        self.register_buffer("scale", torch.ones(e, d_out))
+
+    def forward(self, x, dtype):
+        return quant.wq_bank_matmul(x, self.qkernel, self.scale,
+                                    bits=self.bits, dtype=dtype)
+
+
+def router_logits(x, weight):
+    """f32 router logits (T, E) of ``x`` (T, d) against ``weight`` (E, d),
+    as f32 products summed by :func:`row_sum`: a token's logits do not
+    depend on how many rows route with it (an 8-slot engine step against
+    the solo generator), where one bit moves a gate and can move the
+    argmax."""
+    return row_sum((x.float()[:, None, :] * weight.float()[None])
+                   .contiguous())
+
+
+def moe_capacity(cfg: TransformerConfig, rows: int, tokens: int) -> int:
+    """Seats an expert has in a call of ``rows`` x ``tokens`` tokens:
+    ``cfg.moe_capacity`` for one token a row, else all of them (top-1: an
+    expert cannot receive more, so the call is dropless)."""
+    if cfg.moe_capacity is not None and tokens == 1:
+        return cfg.moe_capacity
+    return rows * tokens
+
+
+class MoEMLP(nn.Module):
+    """The routed top-1 MoE FFN (``cfg.moe_experts``), the reference's
+    ``MoEMLP``: an f32 ``router`` (no bias) picks each token's expert by
+    the argmax of its softmax gates; the token is copied into that
+    expert's seat of an (E, C, d) buffer (``parallel/expert.route`` /
+    ``dispatch``: seats fill in token order), the experts run as two
+    ``bmm`` with the tanh GELU between, and the output row comes back
+    times the gate cast to ``cfg.dtype`` (``combine``). ``C`` is
+    ``cfg.moe_capacity`` for one token a row (decode) and every token
+    otherwise (:func:`moe_capacity`); a token past capacity gets exactly
+    zero from the FFN.
+
+    ``moe_mask`` (rows of the call, bool) routes a row nowhere: no seat,
+    no census entry (the engine's idle slots and prefill pads). A
+    ``census`` list gets this layer's ``(load (E,), overflow (E,),
+    overflow_tok (T,))``, int64 on the device (the reference's
+    ``sow("moe_stats")``)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        e, d, ff = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.router = nn.Linear(d, e, bias=False)
+        if cfg.weight_dtype:
+            self.w_in = WeightQuantBank(e, d, ff, cfg.weight_dtype)
+            self.w_out = WeightQuantBank(e, ff, d, cfg.weight_dtype)
+        else:
+            self.w_in = ExpertBank(e, d, ff)
+            self.w_out = ExpertBank(e, ff, d)
+
+    def forward(self, x, moe_mask=None, census=None):
+        cfg = self.cfg
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        capacity = moe_capacity(cfg, b, s)
+        gates = torch.softmax(router_logits(xt, self.router.weight), dim=-1)
+        r = EP.route(gates, 1, capacity, moe_mask)
+        if census is not None:
+            census.append((r.load, r.overflow, r.overflow_tok))
+        xb = EP.dispatch(xt.to(cfg.dtype), r).view(cfg.moe_experts,
+                                                     capacity, d)
+        h = F.gelu(self.w_in(xb, cfg.dtype), approximate="tanh")
+        out = self.w_out(h, cfg.dtype)
+        y = EP.combine(out.reshape(-1, d), r, cfg.dtype)
+        return y.reshape(b, s, d).to(x.dtype)
+
+
+def moe_census_sum(census: list) -> tuple:
+    """A forward's census, summed over its MoE layers: ``(load (E,),
+    overflow (E,), overflow_tok (T,))``."""
+    return tuple(torch.stack(parts).sum(dim=0) for parts in zip(*census))
+
+
 class Block(nn.Module):
     """Pre-LN block: x + attn(LN(x)); x + mlp(LN(x))."""
 
@@ -660,10 +793,10 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
         self.attn = MultiHeadAttention(cfg)
         self.ln2 = LayerNorm(cfg.d_model, cfg.dtype, cfg.decode)
-        self.mlp = MLP(cfg)
+        self.mlp = MoEMLP(cfg) if cfg.moe else MLP(cfg)
 
     def forward(self, x, index=None, *, cache=None, block_tables=None,
-                adapter=None):
+                adapter=None, moe_mask=None, moe_census=None):
         cfg = self.attn.cfg
         h = self.ln1(x)
         if (cfg.remat_mode == "attention" and not cfg.decode
@@ -673,6 +806,8 @@ class Block(nn.Module):
         else:
             x = x + self.attn(h, index, cache=cache,
                               block_tables=block_tables, adapter=adapter)
+        if cfg.moe:
+            return x + self.mlp(self.ln2(x), moe_mask, moe_census)
         return x + self.mlp(self.ln2(x), adapter)
 
 
@@ -687,7 +822,10 @@ class Transformer(nn.Module):
     tensor (one position per request) — and ``cache`` is what
     :meth:`init_cache` / :meth:`init_pool` returned, updated in place.
     ``adapter`` ((B,) int, with ``cfg.lora_rank``) picks each request's
-    row of the delta banks; None runs the base model.
+    row of the delta banks; None runs the base model. With
+    ``cfg.moe_experts``, ``moe_mask`` ((B,) or (B, S) bool) keeps rows out
+    of the routing and a ``moe_census`` list gets each MoE layer's census
+    (:class:`MoEMLP`; :func:`moe_census_sum` adds them up).
     """
 
     def __init__(self, cfg: TransformerConfig):
@@ -806,7 +944,8 @@ class Transformer(nn.Module):
         return leaf
 
     def forward(self, tokens, index=None, *, cache=None, block_tables=None,
-                adapter=None, return_hidden: bool = False):
+                adapter=None, moe_mask=None, moe_census=None,
+                return_hidden: bool = False):
         cfg = self.cfg
         if cfg.decode and index is None:
             raise ValueError("cfg.decode=True requires the position index")
@@ -839,7 +978,8 @@ class Transformer(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x, index, cache=None if cache is None else cache[i],
-                        block_tables=block_tables, adapter=adapter)
+                        block_tables=block_tables, adapter=adapter,
+                        moe_mask=moe_mask, moe_census=moe_census)
         x = self.ln_f(x)
         if cfg.tp_sequence:  # the whole sequence into the head
             x = cc.sp_all_gather(x, cfg.tp_axis, dim=1)
@@ -852,7 +992,8 @@ class Transformer(nn.Module):
 
     def quantize(self, weight_dtype: str) -> "Transformer":
         """A serving copy of this (f32-weight) model with its projections
-        stored as ``weight_dtype`` ("int8", "int4", "fp8") through
+        (and expert banks) stored as ``weight_dtype`` ("int8", "int4",
+        "fp8"; the MoE router stays f32) through
         ``ops/quant.quantize_params``, on this model's device; the other
         parameters are shared."""
         if self.cfg.weight_dtype is not None:

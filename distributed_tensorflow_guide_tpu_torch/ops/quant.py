@@ -42,6 +42,7 @@ import torch
 
 __all__ = [
     "QMAX", "FP8_DTYPE", "FP8_MAX", "WQ_BITS_VALUES", "WQ_PROJECTIONS",
+    "WQ_BANKS",
     "quantize_channelwise", "dequantize_channelwise", "pack_int4",
     "unpack_int4", "to_fp8", "wq_matmul", "wq_bank_matmul",
     "quantize_params", "int8_ste_dot", "fp8_ste_dot", "int8_pmean",
@@ -63,6 +64,12 @@ WQ_BITS = {"int8": 8, "int4": 4, "fp8": "fp8"}
 #: (its ``proj`` kernel is (heads, head_dim, d_model)). The port's
 #: ``nn.Linear`` weights are already 2-D (d_out, d_in).
 WQ_PROJECTIONS = {"qkv": 1, "proj": 2, "up": 1, "down": 1, "lm_head": 1}
+#: The MoE expert banks (``models/transformer.MoEMLP``), by module name:
+#: (E, d_in, d_out) weights whose leading axis is the expert, folded one
+#: expert at a time into ``qkernel`` (E, d_in[/2], d_out) and ``scale``
+#: (E, d_out), the layout :func:`wq_bank_matmul` takes. The router is in
+#: neither table and stays f32.
+WQ_BANKS = ("w_in", "w_out")
 
 
 def _check_bits(bits) -> float:
@@ -161,14 +168,22 @@ def quantize_params(state_dict: Mapping[str, torch.Tensor], *, bits=8,
     (``<...>.{name}.weight`` for a name of :data:`WQ_PROJECTIONS`, an
     ``nn.Linear`` weight (d_out, d_in)) becomes ``{name}.qkernel``
     (d_in[/2], d_out) and ``{name}.scale`` (d_out,), the reference's
-    layout and bits; its bias and every other entry pass through. The
-    input is left alone."""
+    layout and bits; each expert bank (:data:`WQ_BANKS`, (E, d_in,
+    d_out)) becomes ``qkernel`` (E, d_in[/2], d_out) and ``scale`` (E,
+    d_out), one expert at a time; biases and every other entry pass
+    through. The input is left alone."""
     _check_bits(bits)
     names = WQ_PROJECTIONS if projections is None else projections
     out: dict[str, torch.Tensor] = {}
     for key, t in state_dict.items():
         mod, _, leaf = key.rpartition(".")
-        if leaf == "weight" and mod.rpartition(".")[2] in names:
+        if leaf == "weight" and mod.rpartition(".")[2] in WQ_BANKS:
+            qs, scales = zip(*(quantize_channelwise(k, bits=bits)
+                               for k in t.detach()))
+            q = torch.stack([pack_int4(x) if bits == 4 else x for x in qs])
+            out[f"{mod}.qkernel"] = q
+            out[f"{mod}.scale"] = torch.stack(scales)
+        elif leaf == "weight" and mod.rpartition(".")[2] in names:
             q, scale = quantize_channelwise(t.detach().t(), bits=bits)
             out[f"{mod}.qkernel"] = pack_int4(q) if bits == 4 else q
             out[f"{mod}.scale"] = scale

@@ -43,6 +43,20 @@ Multi-LoRA (``cfg.lora_rank``, ``adapters=``): both steps take the
 per-slot adapter ids, and the model view's delta banks serve every
 adapter resident in the batch — still two graphs, no per-adapter ones.
 
+Mixture of experts (``cfg.moe_experts``): both steps route inside the
+graph and return the census with the tokens, packed into one int64
+vector, so a tick still reads the device once. Decode keeps idle slots
+out of the routing (``written > 0``) and seats ``moe_capacity`` tokens an
+expert; prefill keeps its pad rows out and is dropless. A slot whose
+token overflowed an expert in some layer stalls (degrade-to-overflow):
+its sample is discarded, ``pending`` and ``written`` stay, and the same
+token is tried again next tick (its k/v rows are rewritten with the same
+values). Seats fill in slot order, so the lowest contending slot always
+advances, and every emitted token was computed by its own experts: the
+streams stay bitwise the solo one-shot generator's (which, one request
+at a time, never overflows). ``health()["moe"]`` holds the per-expert
+load and overflow summed over launches and layers and the stall counts.
+
 The host side (:class:`~.scheduler.Scheduler`, the block pool, the
 prefix index) is the JAX package's, copied.
 """
@@ -72,6 +86,7 @@ from distributed_tensorflow_guide_tpu_torch.models.generation import (
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
+    moe_census_sum,
 )
 from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
@@ -231,6 +246,7 @@ class StepFns:
     n_blk: int
     sampled: bool
     lora: bool
+    moe: bool
     decode_fn: _Step
     prefill_fn: _Step
     decode: object = None
@@ -259,30 +275,50 @@ def build_step_fns(cfg: TransformerConfig, *, slots: int, num_blocks: int,
 
     ``pos_keys`` are each slot's key of the position it samples, folded
     on the host (absent when greedy); adapter ids only with
-    ``cfg.lora_rank``. On ``device`` "cuda" ``decode`` and ``prefill``
-    are captured (see :class:`_Step`)."""
+    ``cfg.lora_rank``. With ``cfg.moe_experts`` the output carries the
+    census after the tokens, int64: decode (S,) tokens, (S,) overflow
+    flags, (E,) load, (E,) overflow; prefill (1,) token, (E,) load, (E,)
+    overflow. On ``device`` "cuda" ``decode`` and ``prefill`` are
+    captured (see :class:`_Step`)."""
     pcfg = paged_config(cfg, num_blocks=num_blocks, block_size=block_size)
     n_blk = pcfg.max_len // block_size
-    sampled, lora = temperature != 0.0, pcfg.lora
+    sampled, lora, moe = temperature != 0.0, pcfg.lora, pcfg.moe
     S, CH = slots, prefill_chunk
     i32, i64 = torch.int32, torch.int64
 
     def decode_step(model, pool, x):
-        """(S,) tokens in, (S,) tokens out."""
+        """(S,) tokens in, (S,) tokens out (with the MoE census)."""
+        census = [] if moe else None
         logits = model(x["last_tok"][:, None], x["written"], cache=pool,
-                       block_tables=x["tables"], adapter=x.get("ids"))
-        return sample_rows(logits[:, -1], x.get("keys"), temperature, top_k)
+                       block_tables=x["tables"], adapter=x.get("ids"),
+                       moe_mask=x["written"] > 0 if moe else None,
+                       moe_census=census)
+        nxt = sample_rows(logits[:, -1], x.get("keys"), temperature, top_k)
+        if not moe:
+            return nxt
+        load, overflow, of_tok = moe_census_sum(census)
+        return torch.cat([nxt.to(i64), (of_tok > 0).to(i64), load,
+                          overflow])
 
     def prefill_chunk_step(model, pool, x):
         """One (1, CH) slice of one prompt. ``valid`` rows are real
         prompt; the rest are pads whose writes land inside the request's
-        blocks and are overwritten or masked forever. The sample comes
-        from row ``valid - 1`` (read on the device) with the key of
-        absolute position ``start + valid``."""
+        blocks and are overwritten or masked forever (and which the MoE
+        router skips). The sample comes from row ``valid - 1`` (read on
+        the device) with the key of absolute position ``start +
+        valid``."""
+        census = [] if moe else None
+        mask = (torch.arange(CH, device=x["valid"].device)[None, :]
+                < x["valid"]) if moe else None
         logits = model(x["chunk"], x["start"], cache=pool,
-                       block_tables=x["tables"], adapter=x.get("ids"))
+                       block_tables=x["tables"], adapter=x.get("ids"),
+                       moe_mask=mask, moe_census=census)
         last = logits[0].index_select(0, x["valid"] - 1)  # (1, V)
-        return _sample(last, x.get("key"), temperature, top_k)
+        tok = _sample(last, x.get("key"), temperature, top_k)
+        if not moe:
+            return tok
+        load, overflow, _ = moe_census_sum(census)
+        return torch.cat([tok.to(i64), load, overflow])
 
     decode_in = _Packed([
         ("tables", (S, n_blk), i32), ("written", (S,), i32),
@@ -296,6 +332,7 @@ def build_step_fns(cfg: TransformerConfig, *, slots: int, num_blocks: int,
         ("ids", (1,), i64) if lora else None])
     capture = resolve_device(device).type == "cuda"
     fns = StepFns(cfg=pcfg, n_blk=n_blk, sampled=sampled, lora=lora,
+                  moe=moe,
                   decode_fn=_Step(decode_step, decode_in, capture=False),
                   prefill_fn=_Step(prefill_chunk_step, prefill_in,
                                    capture=False))
@@ -374,6 +411,15 @@ class ServeEngine:
         self._trash_row = table_row(
             [], self.fns.n_blk, self.sched.pool.trash_block)
         self.steps = {"decode": 0, "prefill": 0, "idle": 0}
+        # the MoE census: per-expert load and overflow summed over launches
+        # and layers, and the stalls (a stalled slot-tick is one discarded
+        # sample)
+        if self.fns.moe:
+            n_e = self.fns.cfg.moe_experts
+            self._moe_load = np.zeros((n_e,), np.int64)
+            self._moe_overflow = np.zeros((n_e,), np.int64)
+            self._moe_stall_slot_ticks = 0
+            self._moe_stall_ticks = 0
         self.retry_attempts = retry_attempts
         self.retry_base_delay_s = retry_base_delay_s
         # every failed launch attempt (retried-and-recovered ones included)
@@ -552,10 +598,19 @@ class ServeEngine:
             args.append(fold_in(s.rng, start + valid))
         if self.fns.lora:
             args.append([s.adapter])
-        tok = self._launch(lambda: self.fns.prefill(*args),
-                           tag="serve_prefill_chunk_step")
+        out = self._launch(lambda: self.fns.prefill(*args),
+                           tag="serve_prefill_chunk_step").tolist()
+        if self.fns.moe:
+            self._add_census(out[1:])
         return [Event(now, *ev) for ev in
-                self.sched.apply_prefill(i, int(tok[0]))]
+                self.sched.apply_prefill(i, int(out[0]))]
+
+    def _add_census(self, loads: list) -> None:
+        """Fold one launch's (E,) load and (E,) overflow into the
+        engine's census."""
+        n_e = len(self._moe_load)
+        self._moe_load += np.asarray(loads[:n_e], np.int64)
+        self._moe_overflow += np.asarray(loads[n_e:], np.int64)
 
     def _run_decode(self, ready: list[int], now: float) -> list[Event]:
         S, n_blk = self.num_slots, self.fns.n_blk
@@ -579,10 +634,24 @@ class ServeEngine:
             args.append(adapter_ids)
         nxt = self._launch(lambda: self.fns.decode(*args),
                            tag="serve_decode_step").tolist()
+        overflowed = [False] * S
+        if self.fns.moe:
+            overflowed = nxt[S:2 * S]
+            self._add_census(nxt[2 * S:])
         events = []
+        stalled = 0
         for i in ready:
+            if overflowed[i]:
+                # degrade-to-overflow: the token skipped its expert in
+                # some layer; discard it and retry the same token next
+                # tick (pending and written untouched)
+                stalled += 1
+                continue
             events.extend(Event(now, *ev) for ev in
                           self.sched.apply_decode(i, int(nxt[i])))
+        if stalled:
+            self._moe_stall_slot_ticks += stalled
+            self._moe_stall_ticks += 1
         return events
 
     # ---- drain -----------------------------------------------------------
@@ -631,6 +700,12 @@ class ServeEngine:
             "last_tick_s": self.last_tick_s,
             "ticks": self._tick,
             "launch_failures": self.launch_failures,
+            **({"moe": {
+                "expert_load": [int(x) for x in self._moe_load],
+                "expert_overflow": [int(x) for x in self._moe_overflow],
+                "stall_slot_ticks": int(self._moe_stall_slot_ticks),
+                "stall_ticks": int(self._moe_stall_ticks),
+            }} if self.fns.moe else {}),
         }
 
     def close(self) -> None:

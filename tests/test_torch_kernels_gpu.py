@@ -1,5 +1,7 @@
 """The hand-written decode-attention kernels (K5, K6) and flash-attention
-kernels (K1-K4) against their plain PyTorch versions, on CUDA tensors.
+kernels (K1-K4) against their plain PyTorch versions, on CUDA tensors;
+and the MoE routing (index dispatch against its one-hot plain version,
+the row-invariant router, the MoE engine against its solo generator).
 
 Needs the card; each test decides inside itself to skip where there is
 none. This file imports neither jax nor the JAX package, so it also runs
@@ -1115,4 +1117,93 @@ def test_quantised_engine_equals_its_one_shot_on_the_card(wd):
     for i, p in enumerate(prompts):
         one = make_generate_fn(qcfg, max_new_tokens=10, temperature=0.0)
         out = one(qmodel, p[None], torch.tensor([0, 50 + i]).numpy())
+        assert out[0, len(p):].tolist() == got[i], i
+
+
+# ---- mixture of experts -----------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k,capacity", [(1, 1024), (1, 300), (2, 600)])
+def test_index_dispatch_is_bitwise_the_one_hot_plain_version_on_the_card(
+        top_k, capacity):
+    """``parallel/expert.route`` / ``dispatch`` / ``combine`` against the
+    one-hot algebra (``route_onehot`` and its two einsums) on CUDA
+    tensors at phase 28's shape (4096 bf16 tokens, d 768, 8 experts):
+    the same expert buffer and the same combined output, bit for bit
+    (exact row copies; one product a token at top-1, two summed in f32 at
+    top-2), with and without drops."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.parallel import expert as EP
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t, d, e = 4096, 768, 8
+    x = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    gates = torch.softmax(torch.randn(t, e, generator=gen, device="cuda")
+                          * 2, dim=-1)
+    r = EP.route(gates, top_k, capacity)
+    buf = EP.dispatch(x, r)
+    disp, comb = EP.route_onehot(gates, top_k, capacity)
+    want = torch.einsum("tec,td->ecd", disp.bfloat16(), x)
+    assert torch.equal(buf.view(e, capacity, d), want)
+    out = torch.randn(e, capacity, d, generator=gen,
+                      device="cuda").bfloat16()
+    got = EP.combine(out.reshape(-1, d), r, torch.bfloat16)
+    plain = torch.einsum("tec,ecd->td", comb.bfloat16(), out)
+    if top_k == 1:
+        assert torch.equal(got, plain)
+    else:  # two f32 products summed, rounded once on both sides
+        assert torch.allclose(got.float(), plain.float(), rtol=1e-2,
+                              atol=1e-2)
+    assert int(r.load.sum() + r.overflow.sum()) == top_k * t
+    # ~512 choices an expert a round: 300 seats drop, 1024 do not
+    assert bool(r.overflow.sum() > 0) == (capacity < 1000)
+
+
+@pytest.mark.gpu
+def test_router_gives_one_row_the_same_bits_in_an_8_row_batch():
+    """``models/transformer.router_logits`` at GPT-2 widths and 8
+    experts: a token's f32 logits are the same bits routed alone as
+    inside an 8-row batch (an engine decode step against the solo
+    generator)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(8, 768, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(8, 768, generator=gen, device="cuda") * 0.02
+    batch = TF.router_logits(x, w)
+    for i in range(8):
+        assert torch.equal(TF.router_logits(x[i:i + 1], w)[0], batch[i]), i
+
+
+@pytest.mark.gpu
+def test_moe_engine_equals_its_solo_one_shot_on_the_card():
+    """An MoE model (8 experts, capacity 1 at decode, so slots stall)
+    through the captured engine: every greedy stream bitwise the solo
+    one-shot generator's, the census balanced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.models.generation import (
+        make_generate_fn,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+    )
+
+    cfg, model = _small_lm(moe_experts=8, moe_capacity=1)
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (12, 20, 31, 17)]
+    eng = ServeEngine(cfg, model, slots=4, num_blocks=65, block_size=16,
+                      prefill_chunk=32)
+    got = _engine_streams(eng, prompts, 10)
+    assert eng.fns.captures == {"decode": 1, "prefill": 1}
+    moe = eng.health()["moe"]
+    routed = sum(len(p) for p in prompts) + 4 * 9 + moe["stall_slot_ticks"]
+    assert (sum(moe["expert_load"]) + sum(moe["expert_overflow"])
+            == cfg.num_layers * routed)
+    one = make_generate_fn(cfg, max_new_tokens=10, temperature=0.0)
+    for i, p in enumerate(prompts):
+        out = one(model, p[None], torch.tensor([0, 50 + i]).numpy())
         assert out[0, len(p):].tolist() == got[i], i

@@ -330,8 +330,12 @@ def test_config_validation_and_deferred_knobs():
     # package
     with pytest.raises(ValueError, match="lora_adapters"):
         dataclasses.replace(TCFG, lora_rank=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(TCFG, moe_experts=4)
+    # moe_experts is served now, with the JAX package's validation
+    assert dataclasses.replace(TCFG, moe_experts=4, moe_capacity=2).moe
+    with pytest.raises(ValueError, match="moe_experts must be >= 2"):
+        dataclasses.replace(TCFG, moe_experts=1)
+    with pytest.raises(ValueError, match="moe_capacity requires"):
+        dataclasses.replace(TCFG, moe_capacity=2)
     with pytest.raises(ValueError):
         dataclasses.replace(TCFG, kv_dtype="int4")
     with pytest.raises(ValueError):

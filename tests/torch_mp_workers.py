@@ -1206,6 +1206,131 @@ def pipeline_gpu_rank() -> dict:
     return out
 
 
+# ---- the 4-rank job of tests/test_torch_expert_parallel.py --------------------
+
+# one MoE layer (tests/test_expert_parallel.py's widths) on two meshes:
+# data 1 x expert 2 (the model axis holds a second, identical copy) and
+# data 2 x expert 2; capacity factor 1.0, so that Switch drops tokens
+EP_CASES = (("data1-expert2", dict(data=1, model=2, expert=2)),
+            ("data2-expert2", dict(data=2, expert=2)))
+EP_DIM, EP_FF, EP_E, EP_T, EP_CF, EP_LR = 8, 16, 4, 64, 1.0, 0.05
+
+
+def ep_problem():
+    """Full params (router, w_in, w_out), the global tokens and targets."""
+    rs = np.random.RandomState(11)
+    params = {"router": rs.randn(EP_DIM, EP_E) / np.sqrt(EP_DIM),
+              "w_in": rs.randn(EP_E, EP_DIM, EP_FF) / np.sqrt(EP_DIM),
+              "w_out": rs.randn(EP_E, EP_FF, EP_DIM) / np.sqrt(EP_FF)}
+    x = rs.randn(EP_T, EP_DIM)
+    y = np.tanh(rs.randn(EP_T, EP_DIM))
+    return ({k: v.astype(np.float32) for k, v in params.items()},
+            x.astype(np.float32), y.astype(np.float32))
+
+
+def ep_job() -> dict:
+    """``ExpertParallel.apply`` and one ``make_train_step`` step at top-1
+    and top-2 on both meshes: each rank's outputs, aux and new params."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.expert import (
+        ExpertParallel,
+        MoEConfig,
+    )
+
+    params, x, y = ep_problem()
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    out: dict = {"rank": dist.get_rank()}
+    for name, spec in EP_CASES:
+        mesh = build_mesh(MeshSpec(**spec))
+        out[f"{name}/token_index"] = mesh.axis(("data", "expert")).index
+        out[f"{name}/expert_index"] = mesh.axis("expert").index
+        for top_k in (1, 2):
+            cfg = MoEConfig(EP_DIM, EP_FF, EP_E, top_k=top_k,
+                            capacity_factor=EP_CF)
+            ep = ExpertParallel(mesh, cfg, device="cpu")
+            local = ep.shard_params(full)
+            xs, ys = ep.token_shard(x), ep.token_shard(y)
+            with cc.trace_comm() as rec:
+                got, aux = ep.apply(local, xs)
+            new, mets = ep.make_train_step(EP_LR)(local, xs, ys)
+            pre = f"{name}/k{top_k}"
+            out[f"{pre}/y"] = got
+            out[f"{pre}/trace"] = _trace(rec)
+            for k in ("load_balance", "z_loss"):
+                out[f"{pre}/{k}"] = aux[k].item()
+            out[f"{pre}/loss"] = mets["loss"].item()
+            for k, v in new.items():
+                out[f"{pre}/new/{k}"] = v
+    return out
+
+
+# ---- the 4-rank job of tests/test_torch_moe_lm.py ----------------------------
+
+# tests/test_moe_lm.py's CFG; Switch top-2 (capacity factor 2.0) and
+# dropless top-1, 8 experts, at data 2 x expert 2
+ML_GEOM = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=32,
+               d_ff=64, max_len=16, causal=True)
+ML_CASES = (("switch", 2), ("dropless", 1))
+ML_E, ML_B = 8, 16
+
+
+def ml_tokens() -> np.ndarray:
+    return np.random.RandomState(1).randint(
+        0, ML_GEOM["vocab_size"], (ML_B, ML_GEOM["max_len"])).astype(
+            np.int64)
+
+
+def moe_lm_job(weights: str) -> dict:
+    """SwitchLM at data 2 x expert 2 from the JAX tree in ``weights``
+    (``flatten``ed .npz): each case's loss, this rank's gradients and,
+    after one Adam step, the shapes of its moments."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch import bridge
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models.moe_lm import SwitchLM
+    from distributed_tensorflow_guide_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+
+    cfg = TransformerConfig(**ML_GEOM, dtype=torch.float32)
+    with np.load(weights) as z:
+        full = bridge.switch_lm_from_flax(unflatten(dict(z)), cfg)
+    mesh = build_mesh(MeshSpec(data=2, expert=2))
+    out: dict = {"rank": dist.get_rank(),
+                 "expert_index": mesh.axis("expert").index,
+                 "data_index": mesh.axis("data").index}
+    for router, top_k in ML_CASES:
+        lm = SwitchLM(mesh, cfg, ML_E, top_k=top_k, router=router,
+                      fused_ce=False, device="cpu")
+        module = lm.shard_params(full)
+        share = lm.token_shard(ml_tokens())
+        loss, mets, grads = lm.loss_and_grads(module, share)
+        out[f"{router}/loss"] = loss.item()
+        out[f"{router}/lm_loss"] = mets["lm_loss"].item()
+        for n, g in grads.items():
+            out[f"{router}/grad/{n}"] = g
+        opt = torch.optim.Adam(module.parameters(), lr=1e-3)
+        lm.make_train_step(opt)(module, share)
+        for n, p in module.named_parameters():
+            out[f"{router}/moment/{n}"] = [list(opt.state[p]["exp_avg"]
+                                                .shape), list(p.shape)]
+    return out
+
+
 # ---- the launcher test's script ----------------------------------------------
 
 
