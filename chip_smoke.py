@@ -244,6 +244,52 @@ and check them.
     all ranks and expert shards across ``data`` after 3 Adam steps; then
     one Switch-router step with the same census at C = 256.
 
+30. supervised training: ``run_with_recovery`` over phase 7's model,
+    batch shape and loss (times a float ``scale`` of 1.0 that a
+    ``nan_batch`` fault poisons), Adam with ``capturable=True``, 12 steps,
+    checkpoints every 4 (2 kept) of 1.96 GB each under a temporary
+    directory, under a fault schedule fixed from ``--seed``: a step
+    exception before the first checkpoint (a fresh start), a NaN batch
+    the sentinel skips, the step-8 checkpoint corrupted in place, a 1 s
+    data stall against a 0.5 s deadline (the ladder skips step 8). Sync
+    saves, then async ones: parameters, Adam moments and step bitwise the
+    uninterrupted run on the stream without the skipped batch, K1-K3 12
+    times a step call. Then a sync save, an async save's blocking copy,
+    its commit and a restore are timed, and the step-12 checkpoint is
+    restored in place into a live ``steps_per_call=2`` captured step,
+    whose 4 more steps (graph replays, no recapture) equal the
+    uninterrupted captured run's bitwise;
+31. engine snapshots: phase 4's engine geometry (8 slots, captured
+    steps), 16 sampled requests of 32-300 tokens: killed after snapshots
+    at ticks 20 (sync) and 30 (async), a fresh engine restored and
+    drained, every stream bitwise the uninterrupted engine's; again with
+    the tick-30 snapshot corrupted (the ladder restores tick 20); a launch
+    failure and a pool-pressure spike in an 80-block pool that preempts;
+    a 3 s launch deadline that does not trip (its overhead a decode step)
+    and one forced trip from a host stall (retried bitwise); a watchdog
+    armed around ``torch.cuda.synchronize()`` over ~2 s of queued
+    products, whose trip fires at its deadline and whose interrupt
+    arrives when the synchronize returns; then phase 27's MoE engine
+    killed and restored, bitwise. A restored or preempted stream
+    re-prefills its prompt and feeds its emitted tokens back through
+    decode steps (the scheduler's ``"replay"`` continuations, which
+    the engine picks on the card); the restore's cost: the restored
+    residents' prefill chunks, the decode ticks they spend feeding their
+    tokens back, and the time until every one of them emits again,
+    beside the same numbers for the same snapshot restored with its
+    emitted tokens re-prefilled in chunks (timed only: that form is not
+    bitwise on the card);
+32. preemption: SIGTERM sent by a hook after step 6 of phase 30's run:
+    the run saves step 7 and stops with ``stop_reason == "preemption"``,
+    ``EvalHook`` skips its end pass, the SIGTERM handler comes back, and
+    the resumed run ends bitwise the uninterrupted one;
+33. the elastic world: ``ElasticSupervisor`` over two slices of one
+    process sharing the card over gloo (``MultiSliceLocalSGD``,
+    ``sync_period=2``, outer Nesterov momentum; the reference's linear
+    regression), slice 1 lost after round 3 and back at round 6; the same
+    supervisor on the CPU beside it: the same three generations, the
+    stream accounting exactly once, final parameters within 1e-6.
+
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
 package's ``int8_pmean`` bound), 3 steps whose losses stay within the
@@ -251,8 +297,8 @@ JAX test's 2e-2 of the uncompressed run's, and the wire: 1 byte an
 element in ``psum[data]`` and 4 bytes a bucket in ``pmax[data]``, each at
 the ring's 2 (n - 1) / n.
 
-Phases 16-21 and 29 time-share one card over gloo, which stages every
-message through host memory: their times say nothing of NCCL.
+Phases 16-21, 29 and 33 time-share one card over gloo, which stages
+every message through host memory: their times say nothing of NCCL.
 
 The kernels are built once here, before any rank starts. Exits non-zero
 on any failure, and when no CUDA card is present. The last line of stdout
@@ -269,7 +315,10 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -352,6 +401,21 @@ from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
 from distributed_tensorflow_guide_tpu_torch.runtime.multiprocess import (
     run_multiprocess,
 )
+from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
+from distributed_tensorflow_guide_tpu_torch.testing.chaos import (
+    Fault,
+    FaultSchedule,
+)
+from distributed_tensorflow_guide_tpu_torch.train.anomaly import (
+    AnomalySentinelHook,
+)
+from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+    Checkpointer,
+)
+from distributed_tensorflow_guide_tpu_torch.train.elastic import (
+    PreemptionHook,
+    run_with_recovery,
+)
 from distributed_tensorflow_guide_tpu_torch.train.hooks import (
     BaseHook,
     StopAtStepHook,
@@ -370,6 +434,7 @@ from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     ServeEngine,
     init_adapter_bank,
 )
+from distributed_tensorflow_guide_tpu_torch.utils.watchdog import Watchdog
 
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_S = 989e12  # dense bf16 tensor-core peak (data sheet)
@@ -3840,6 +3905,835 @@ def check_expert_parallel(seed: int, kind: str) -> dict:
     return {n: sum(r["launches"][n] for r in res) for n in K1_K3}
 
 
+# ---- phases 30-33: checkpoints, recovery, snapshots, preemption, elastic ----
+
+# phase 30: steps of a supervised run, checkpoint cadence and kept steps;
+# the data stall against its deadline; phase 32's preemption step
+RESIL_TOTAL, RESIL_EVERY, RESIL_KEEP = 12, 4, 2
+STALL_S, DATA_DEADLINE_S = 1.0, 0.5
+PREEMPT_AT = 6
+# phase 31: requests, their prompt lengths and new tokens; the watchdog
+# deadline of a launch (it must cover a first call's capture; the forced
+# trip waits it out); the storm's pool (80 blocks for 8 slots: residents
+# are preempted) and its pool-pressure fault's blocks
+SNAP_REQS, SNAP_PROMPTS, SNAP_NEW = 16, (32, 301), 32
+SERVE_DEADLINE_S = 3.0
+STORM_BLOCKS, PRESSURE_BLOCKS = 81, 24
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _Counted:
+    """A step that counts the calls reaching it (a chaos-injected failure
+    raises before)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, state, batch):
+        self.calls += 1
+        return self.fn(state, batch)
+
+
+def _scaled_lm_loss(model):
+    """Phase 7's loss times the batch's ``scale`` (1.0): a float leaf, so
+    a ``nan_batch`` fault NaNs the loss as it would a float batch."""
+    base = make_lm_loss_fn(model)
+
+    def loss_fn(module, batch):
+        loss, mets = base(module, batch)
+        return loss * batch["scale"].mean(), mets
+
+    return loss_fn
+
+
+def _resil_batch(seed: int, pos: int, B: int, S: int) -> dict:
+    toks = np.random.RandomState(seed * 100003 + pos).randint(0, 50257,
+                                                              (B, S))
+    return {"tokens": toks.astype(np.int64),
+            "scale": np.ones((1,), np.float32)}
+
+
+_HOST_MODELS: dict = {}
+
+
+def _resil_state(cfg, seed, dev):
+    """A fresh train state: the weights ``init_weights(seed)`` draws (kept
+    on the host after the first call: phases 30 and 32 build a dozen
+    states), Adam with its counter on the card."""
+    key = (repr(cfg), seed)
+    if key not in _HOST_MODELS:
+        _HOST_MODELS[key] = Transformer(cfg).init_weights(seed)
+    model = copy.deepcopy(_HOST_MODELS[key]).to(dev)
+    return TrainState(model, torch.optim.Adam(
+        model.parameters(), lr=1e-3, capturable=dev.type == "cuda"))
+
+
+def _state_tensors(state) -> list:
+    return ([t for t in state.model.state_dict().values()]
+            + [v for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v)])
+
+
+def _bitwise(a, b) -> bool:
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return (a.step == b.step and len(ta) == len(tb)
+            and all(torch.equal(x, y) for x, y in zip(ta, tb)))
+
+
+def _dir_bytes(path) -> int:
+    import pathlib
+
+    return sum(p.stat().st_size for p in pathlib.Path(path).rglob("*")
+               if p.is_file())
+
+
+def _plain_run(cfg, seed, dev, B, S, positions):
+    """The uninterrupted run over the stream ``positions``."""
+    state = _resil_state(cfg, seed, dev)
+    step = DataParallel(device=dev).make_train_step(
+        _scaled_lm_loss(state.model))
+    for p in positions:
+        state, _ = step(state, to_device(_resil_batch(seed, p, B, S), dev))
+    _sync(dev)
+    return state
+
+
+def _supervised_run(cfg, seed, dev, B, S, ckdir, schedule, *, async_save):
+    """One supervised run under ``schedule``: (final state, the sentinel,
+    calls that reached the step, the recovery trace, wall s)."""
+    state = _resil_state(cfg, seed, dev)
+    step = _Counted(DataParallel(device=dev).make_train_step(
+        _scaled_lm_loss(state.model)))
+    rec = obs_events.FlightRecorder()
+    sentinel = AnomalySentinelHook(budget=3, skip_offending=True,
+                                   recorder=rec)
+    ckpt = Checkpointer(ckdir, max_to_keep=RESIL_KEEP, recorder=rec)
+    prev = obs_events.install(rec)
+    schedule.recorder = rec
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        out = run_with_recovery(
+            schedule.wrap_step(step), state,
+            schedule.inject_data(
+                lambda start: (_resil_batch(seed, p, B, S)
+                               for p in range(start, 10_000)),
+                checkpoint_dir=ckdir),
+            ckpt, hooks=[StopAtStepHook(RESIL_TOTAL), sentinel],
+            checkpoint_every=RESIL_EVERY, max_restarts=6,
+            async_save=async_save, data_deadline_s=DATA_DEADLINE_S,
+            device=dev)
+        _sync(dev)
+    finally:
+        obs_events.install(prev)
+        ckpt.close()
+    wall = time.perf_counter() - t0
+    trace = [(e.kind, {k: v for k, v in e.payload.items()
+                       if k in ("start", "step", "error", "skipped",
+                                "kind", "position", "fresh")})
+             for e in rec.events() if e.kind in (
+                 "elastic.restore", "elastic.restart", "ckpt.restore",
+                 "chaos.fault", "anomaly.trip")]
+    return out, sentinel, step.calls, trace, wall
+
+
+def _resil_schedule(seed):
+    """Phase 30's faults, fixed from the seed: a step exception before the
+    first checkpoint (a fresh start), a NaN batch after it (the sentinel
+    skips it), the step-8 checkpoint corrupted in place (same size), then
+    a data stall that the deadline turns into a restart whose ladder skips
+    the corrupted step."""
+    rng = np.random.RandomState(seed + 30)
+    call = int(rng.randint(2, 4))
+    nan = int(rng.randint(5, 8))
+    corrupt = int(rng.randint(10, 12))
+    return [Fault("step_exception", call), Fault("nan_batch", nan),
+            Fault("ckpt_corrupt", corrupt),
+            Fault("iterator_stall", corrupt + 1, param=STALL_S)], nan
+
+
+def check_supervised_training(cfg, seed, kind, *, B=TRAIN_B, S=TRAIN_S,
+                              dev=None) -> dict:
+    """Phase 30. Returns its K1-K3 launches."""
+    t_phase = time.perf_counter()
+    dev = resolve_device(dev)
+    L = cfg.num_layers
+    faults, nan_pos = _resil_schedule(seed)
+    positions = [p for p in range(64) if p != nan_pos][:RESIL_TOTAL]
+    ref = _plain_run(cfg, seed, dev, B, S, positions)
+    root = tempfile.mkdtemp(prefix="dtg_phase30_")
+    out = {"model": "gpt2_124m" if cfg.num_layers == 12 else "small",
+           "B": B, "S": S, "steps": RESIL_TOTAL,
+           "checkpoint_every": RESIL_EVERY, "max_to_keep": RESIL_KEEP,
+           "faults": [[f.kind, f.position, f.param] for f in faults]}
+    launches = dict.fromkeys(K1_K3, 0)
+    try:
+        for mode in ("sync", "async"):
+            sched = FaultSchedule(faults)
+            FA.reset_launch_counts()
+            state, sentinel, calls, trace, wall = _supervised_run(
+                cfg, seed, dev, B, S, f"{root}/{mode}", sched,
+                async_save=mode == "async")
+            got = {n: FA.LAUNCHES[n] for n in K1_K3}
+            for n in K1_K3:
+                launches[n] += got[n]
+            same = _bitwise(state, ref)
+            out[mode] = {"bitwise_equal_uninterrupted": same,
+                         "wall_s": wall, "step_calls": calls,
+                         "k1_k3": got, "sentinel_trips": sentinel.trips,
+                         "trace": trace}
+            if sched.pending:
+                fail(f"supervised {mode}: faults never fired: "
+                     f"{sched.pending}")
+            if not same:
+                fail(f"supervised {mode}: the final state differs from the "
+                     f"uninterrupted run's")
+            if [s for s, _ in sentinel.trips] != [nan_pos]:
+                fail(f"supervised {mode}: sentinel trips {sentinel.trips}, "
+                     f"expected one at step {nan_pos}")
+            if got != dict.fromkeys(K1_K3, calls * L):
+                fail(f"supervised {mode}: K1-K3 {got}, expected {calls} "
+                     f"steps x {L} layers")
+            restarts = sum(k == "elastic.restart" for k, _ in trace)
+            if restarts != 3:
+                fail(f"supervised {mode}: {restarts} restarts, expected 3")
+            if mode == "sync" and not any(
+                    k == "ckpt.restore" and p.get("skipped")
+                    for k, p in trace):
+                fail("supervised sync: the ladder skipped no corrupted "
+                     "checkpoint")
+            if mode == "sync":
+                final_dir = f"{root}/sync"
+            del state
+        # the checkpoint's own numbers, on the uninterrupted run's state:
+        # a sync save (its first: it allocates the pinned buffers), an
+        # async save's blocking copy and its commit, a restore
+        timing = Checkpointer(f"{root}/timing", max_to_keep=4)
+        times = {}
+        for name, step_label, asy in (("sync_save_s", 1, False),
+                                      ("async_save_blocking_s", 3, True)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            timing.save(step_label, ref, async_=asy)
+            times[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timing.wait()
+        times["async_commit_wait_s"] = time.perf_counter() - t0
+        nbytes = _dir_bytes(f"{root}/timing/3")
+        probe = _resil_state(cfg, seed + 1, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = timing.restore_latest_valid(probe)
+        _sync(dev)
+        times["restore_s"] = time.perf_counter() - t0
+        if got is None or got[1] != 3 or not _bitwise(probe, ref):
+            fail("the timed checkpoint does not restore bitwise on the "
+                 "state's device")
+        del probe
+        timing.close()
+        out["checkpoint_bytes"] = nbytes
+        out["ms"] = {k: 1e3 * v for k, v in times.items()}
+        out["MB_per_s"] = {k.removesuffix("_s"): nbytes / 1e6 / v
+                           for k, v in times.items()
+                           if k != "async_commit_wait_s"}
+        # restore into a live captured step (k = 2) and run 4 more steps:
+        # bitwise the uninterrupted captured run
+        more = positions[-1] + 1
+        packs = [{n: torch.as_tensor(np.stack([
+            _resil_batch(seed, more + 2 * c + j, B, S)[n] for j in (0, 1)]),
+            device=dev) for n in ("tokens", "scale")} for c in range(3)]
+        dp = DataParallel(device=dev)
+        k_ref = dp.make_train_step(_scaled_lm_loss(ref.model),
+                                   steps_per_call=2, stacked_batch=True,
+                                   per_step_metrics=True)
+        for p in packs[1:]:
+            ref, _ = k_ref(ref, p)
+        live = _resil_state(cfg, seed + 2, dev)
+        k_live = dp.make_train_step(_scaled_lm_loss(live.model),
+                                    steps_per_call=2, stacked_batch=True,
+                                    per_step_metrics=True)
+        live, _ = k_live(live, packs[0])  # captures over live's tensors
+        ptrs = [t.data_ptr() for t in _state_tensors(live)]
+        ck = Checkpointer(final_dir, max_to_keep=RESIL_KEEP)
+        restored, at = ck.restore_latest_valid(live)
+        if at != RESIL_TOTAL or restored is not live or ptrs != [
+                t.data_ptr() for t in _state_tensors(live)]:
+            fail(f"captured restore: step {at}, in place "
+                 f"{restored is live}")
+        FA.reset_launch_counts()
+        for p in packs[1:]:
+            live, _ = k_live(live, p)
+        _sync(dev)
+        cap = {n: FA.LAUNCHES[n] for n in K1_K3}
+        for n in K1_K3:
+            launches[n] += cap[n]
+        out["captured_restore"] = {
+            "captured": k_live.captured, "captures": k_live.captures,
+            "bitwise_equal_uninterrupted": _bitwise(live, ref),
+            "k1_k3": cap}
+        if not _bitwise(live, ref):
+            fail("the captured step restored in place does not continue "
+                 "bitwise")
+        if dev.type == "cuda" and (k_live.captures != 1
+                                   or not k_live.captured):
+            fail(f"captured restore: {k_live.captures} captures")
+        ck.close()
+        del live, ref, k_live, k_ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"supervised training on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
+class _SigtermAt(BaseHook):
+    """Sends this process SIGTERM after step ``at``."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def after_step(self, step, metrics):
+        if step == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def check_preemption(cfg, seed, kind, *, B=TRAIN_B, S=TRAIN_S,
+                     dev=None) -> dict:
+    """Phase 32. Returns its K1-K3 launches."""
+    t_phase = time.perf_counter()
+    dev = resolve_device(dev)
+    ref = _plain_run(cfg, seed, dev, B, S, range(RESIL_TOTAL))
+    held_out = _resil_batch(seed, 10_000, B, S)
+    root = tempfile.mkdtemp(prefix="dtg_phase32_")
+    launches = dict.fromkeys(K1_K3, 0)
+    original = signal.getsignal(signal.SIGTERM)
+
+    def run(state, ckpt, hooks):
+        step = _Counted(DataParallel(device=dev).make_train_step(
+            _scaled_lm_loss(state.model)))
+        out = run_with_recovery(
+            step, state, lambda start: (_resil_batch(seed, p, B, S)
+                                        for p in range(start, 10_000)),
+            ckpt, hooks=[StopAtStepHook(RESIL_TOTAL), *hooks],
+            checkpoint_every=10_000, device=dev)
+        _sync(dev)
+        return out, step.calls
+
+    def evaluator(calls):
+        loss_fn = _scaled_lm_loss(ref.model)
+
+        def eval_step(state, batch):
+            calls.append(1)
+            with torch.no_grad():
+                return {"loss": loss_fn(state.model,
+                                        to_device(batch, dev))[0]}
+
+        return Evaluator(eval_step, lambda: [held_out])
+
+    try:
+        FA.reset_launch_counts()
+        first_evals, second_evals = [], []
+        ckpt = Checkpointer(root, max_to_keep=RESIL_KEEP)
+        pre = PreemptionHook(ckpt)
+        ev1 = EvalHook(evaluator(first_evals))
+        t0 = time.perf_counter()
+        _, calls1 = run(_resil_state(cfg, seed, dev), ckpt,
+                        [_SigtermAt(PREEMPT_AT), pre, ev1])
+        t_pre = time.perf_counter() - t0
+        ckpt.close()
+        stop_reason = ev1._loop.stop_reason
+        restored_handler = signal.getsignal(signal.SIGTERM) == original
+        ev2 = EvalHook(evaluator(second_evals))
+        ckpt = Checkpointer(root, max_to_keep=RESIL_KEEP)
+        t0 = time.perf_counter()
+        final, calls2 = run(_resil_state(cfg, seed + 1, dev), ckpt, [ev2])
+        t_resume = time.perf_counter() - t0
+        ckpt.close()
+        got = {n: FA.LAUNCHES[n] for n in K1_K3}
+        evals = len(second_evals)
+        same = _bitwise(final, ref)
+        del final
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    L = cfg.num_layers
+    out = {"preempted_at": pre.preempted_at, "stop_reason": stop_reason,
+           "end_eval_skipped": not first_evals,
+           "handler_restored": restored_handler,
+           "resumed_eval_batches": evals, "first_run_s": t_pre,
+           "resumed_run_s": t_resume, "step_calls": [calls1, calls2],
+           "bitwise_equal_uninterrupted": same, "k1_k3": got}
+    _HOST_MODELS.clear()
+    print(f"preemption on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    if pre.preempted_at != PREEMPT_AT + 1 or stop_reason != "preemption":
+        fail(f"preemption: saved at {pre.preempted_at}, stop reason "
+             f"{stop_reason}")
+    if first_evals or evals != 1 or not restored_handler:
+        fail(f"preemption: end-pass evaluations {len(first_evals)} / "
+             f"{evals}, handler restored {restored_handler}")
+    if not same:
+        fail("preemption: the resumed run differs from the uninterrupted "
+             "one")
+    # the eval passes' forwards launch K1 too
+    want_fwd = (calls1 + calls2 + evals) * L
+    if got != {"flash_fwd": want_fwd, "flash_dq": (calls1 + calls2) * L,
+               "flash_dkv": (calls1 + calls2) * L}:
+        fail(f"preemption: K1-K3 {got}")
+    for n in K1_K3:
+        launches[n] += got[n]
+    return launches
+
+
+def _snap_prompts(seed, n, lengths):
+    rng = np.random.RandomState(seed + 31)
+    return [rng.randint(0, 50257, rng.randint(*lengths)).astype(np.int32)
+            for _ in range(n)]
+
+
+def _snap_engine(cfg, model, *, prefill_chunk, num_blocks=513, **kw):
+    """Phase 4's engine geometry (8 slots, block 16, 513 blocks),
+    sampled (temperature 0.8, top-k 20), captured steps."""
+    return ServeEngine(cfg, model, slots=8, block_size=16,
+                       num_blocks=num_blocks, prefill_chunk=prefill_chunk,
+                       temperature=0.8, top_k=20, device=model.device, **kw)
+
+
+def _submit(eng, prompts, seed, max_new):
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=max_new,
+                           rng=np.array([seed, i], np.uint32)))
+
+
+def _ticks(eng) -> dict:
+    """Drain ``eng`` tick by tick: each kind's tick seconds (host clock
+    around inputs, replay and readback)."""
+    ticks = {"decode": [], "prefill": []}
+    while eng.sched.has_queued or eng.sched.has_resident:
+        _, kind = eng.step()
+        if kind == "idle":
+            fail("engine idle with work queued")
+        ticks[kind].append(eng.last_tick_s)
+    eng.sched.pool.check_leaks()
+    return ticks
+
+
+def _k6(what, steps, layers) -> dict:
+    """K6's launches since the counts were zeroed: ``steps`` x layers,
+    both regimes, no K5."""
+    return check_k6_launches(what, {"decode_steps": steps,
+                                    "prefill_chunks": 0}, layers)
+
+
+def _n_steps(eng) -> int:
+    return eng.steps["decode"] + eng.steps["prefill"]
+
+
+def _median_ms(xs) -> float:
+    return 1e3 * float(np.median(xs))
+
+
+def _uninterrupted(cfg, model, prompts, seed, max_new, prefill_chunk,
+                   **kw):
+    eng = _snap_engine(cfg, model, prefill_chunk=prefill_chunk, **kw)
+    _submit(eng, prompts, seed, max_new)
+    DA.reset_launch_counts()
+    ticks = _ticks(eng)
+    k6 = _k6("uninterrupted engine", _n_steps(eng), cfg.num_layers)
+    check_captures(eng.fns, 1)
+    got = eng.completions()
+    eng.close()
+    return got, ticks, k6
+
+
+def _restore_cost(eng, back, t0) -> tuple[dict, dict]:
+    """Drive a restored engine until every stream that was resident at
+    the snapshot (``back``) has emitted a new token. Counts its prefill
+    ticks and the decode ticks on which a restored stream was still
+    rebuilding its cache: with ``"replay"`` continuations a stream feeds
+    each token it had emitted back through one decode step before it
+    samples again. Takes the time from ``t0`` (the start of the restore)
+    to the last of those first new tokens. Returns (numbers, tick
+    seconds by kind)."""
+    sched = eng.sched
+    base = {rid: len(sched.emitted.get(rid, ())) for rid in back}
+    replay_tokens = sum(len(r.replay) for r in sched.queue if r.rid in back)
+    waiting = set(back)
+    ticks = {"decode": [], "prefill": []}
+    rebuild = []
+    while waiting:
+        rebuilding = any(s is not None and s.rid in waiting
+                         and s.phase == "decode" for s in sched.slots)
+        _, kind = eng.step()
+        if kind == "idle":
+            fail("restored engine idle with work queued")
+        ticks[kind].append(eng.last_tick_s)
+        if kind == "decode" and rebuilding:
+            rebuild.append(eng.last_tick_s)
+        waiting = {rid for rid in waiting
+                   if len(sched.emitted.get(rid, ())) == base[rid]}
+    return {"replay_tokens": replay_tokens,
+            "prefill_ticks": len(ticks["prefill"]),
+            "prefill_ticks_ms": 1e3 * sum(ticks["prefill"]),
+            "rebuild_decode_ticks": len(rebuild),
+            "rebuild_decode_ms": 1e3 * sum(rebuild),
+            "rebuild_decode_median_ms": _median_ms(rebuild) if rebuild
+            else None,
+            "ms_until_every_restored_stream_emits":
+                1e3 * (time.perf_counter() - t0)}, ticks
+
+
+def _as_prefill_continuations(sched) -> None:
+    """Turn a restored scheduler's queued ``"replay"`` continuations into
+    the re-prefilling form (prompt and emitted tokens prefilled in
+    chunks, the JAX engine's), to time that form on the card. Its
+    streams are not held bitwise there: a chunk writes the emitted
+    tokens' rows in another summation order than their decode steps."""
+    sched.continuations = "prefill"
+    sched.queue = [
+        dataclasses.replace(r, prompt=np.concatenate([
+            np.asarray(r.prompt, np.int32), np.asarray(r.replay, np.int32)]),
+            replay=()) if r.replay else r
+        for r in sched.queue]
+
+
+def _kill_restore(cfg, model, prompts, seed, snap, *, max_new,
+                  prefill_chunk, kill_at, saves, corrupt_at=None,
+                  want=None):
+    """Serve, snapshot at the ticks of ``saves`` ({tick: async}), with a
+    ``snapshot_corrupt`` fault at ``corrupt_at``, close the engine at tick
+    ``kill_at`` (the kill: a pending async snapshot commits at close),
+    restore a fresh engine from the newest valid snapshot and drain it.
+    K6 is counted over both engines. Given the uninterrupted streams
+    ``want``, the same snapshot is then restored once more with its
+    continuations re-prefilled (:func:`_as_prefill_continuations`), until
+    every restored stream emits, to set the cost of the two forms side
+    by side. Returns (streams, numbers, K6 by regime)."""
+    L = cfg.num_layers
+    chaos = (FaultSchedule([Fault("snapshot_corrupt", corrupt_at)])
+             if corrupt_at is not None else None)
+    eng = _snap_engine(cfg, model, prefill_chunk=prefill_chunk,
+                       snapshot_dir=snap, chaos=chaos)
+    _submit(eng, prompts, seed, max_new)
+    DA.reset_launch_counts()
+    save_ms, residents = {}, {}
+    for t in range(kill_at):
+        eng.step()
+        if t + 1 in saves:
+            t0 = time.perf_counter()
+            label = eng.save_snapshot(async_=saves[t + 1])
+            save_ms["async" if saves[t + 1] else "sync"] = (
+                1e3 * (time.perf_counter() - t0))
+            residents[label] = {s.rid for s in eng.sched.slots
+                                if s is not None}
+    steps1 = _n_steps(eng)
+    eng.close()
+    if chaos is not None and chaos.pending:
+        fail(f"snapshot fault never fired: {chaos.pending}")
+    rec = obs_events.FlightRecorder()
+    eng2 = _snap_engine(cfg, model, prefill_chunk=prefill_chunk,
+                        snapshot_dir=snap, recorder=rec)
+    t0 = time.perf_counter()
+    label = eng2.restore_latest_snapshot()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    at_restore = _n_steps(eng2)
+    back = residents.get(label, set())
+    replay_cost, ticks = _restore_cost(eng2, back, t0)
+    for k, v in _ticks(eng2).items():
+        ticks[k] += v
+    k6 = _k6("restored engine", steps1 + _n_steps(eng2) - at_restore, L)
+    check_captures(eng2.fns, 1)
+    reprefill = [e.payload for e in rec.events()
+                 if e.kind == "prefill.launch" and e.payload["rid"] in back]
+    got = eng2.completions()
+    eng2.close()
+    stats = {
+        "saved_labels": sorted(residents), "restored_label": label,
+        "snapshot_bytes": _dir_bytes(f"{snap}/{label}"),
+        "save_ms": save_ms, "restore_ms": restore_ms,
+        "restored_residents": len(back),
+        "reprefill_chunks": len(reprefill),
+        "reprefill_ms": 1e3 * sum(p["dur_s"] for p in reprefill),
+        "replay": replay_cost,
+        "decode_step_ms_after_restore": _median_ms(ticks["decode"])}
+    if want is not None:
+        eng3 = _snap_engine(cfg, model, prefill_chunk=prefill_chunk,
+                            snapshot_dir=snap)
+        t0 = time.perf_counter()
+        if eng3.restore_latest_snapshot() != label:
+            fail(f"engine {snap}: a second restore took another snapshot")
+        _as_prefill_continuations(eng3.sched)
+        prefill_cost, _ = _restore_cost(eng3, back, t0)
+        prefill_cost["first_new_tokens_equal_uninterrupted"] = all(
+            eng3.completions()[rid] == want[rid][:len(eng3.completions()[
+                rid])] for rid in back)
+        eng3.close()
+        stats["prefill_continuations"] = prefill_cost
+    return got, stats, k6
+
+
+def _trip_during_sync(dev, diag) -> dict:
+    """A watchdog armed around ``torch.cuda.synchronize()`` over ~2 s of
+    queued products, deadline 0.3 s: when the trip fires, and when its
+    interrupt reaches the main thread."""
+    a = torch.randn(16384, 16384, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(16384, 16384, device=dev, dtype=torch.bfloat16)
+    c = torch.empty_like(a)
+    for _ in range(2):
+        torch.matmul(a, b, out=c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        torch.matmul(a, b, out=c)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / 5
+    n = max(1, int(2000 / one_ms))
+    wd = Watchdog(name="sync-probe", poll_s=0.01, diag_path=diag)
+    arrived = None
+    t1 = time.perf_counter()
+    for _ in range(n):
+        torch.matmul(a, b, out=c)
+    queued = time.perf_counter() - t1
+    wd.arm("synchronize", 0.3)
+    try:
+        torch.cuda.synchronize()
+        while time.perf_counter() - t1 < 10.0:
+            time.sleep(0.005)
+    except KeyboardInterrupt:
+        arrived = time.perf_counter() - t1
+    finally:
+        wd.disarm()
+        trip = wd.tripped
+        wd.close()
+    torch.cuda.synchronize()
+    del a, b, c
+    return {"deadline_s": 0.3, "queued_products": n,
+            "one_product_ms": one_ms, "enqueue_s": queued,
+            "queued_work_s": n * one_ms / 1e3,
+            "trip_fired_after_s": None if trip is None else
+            queued + trip.waited_s,
+            "interrupt_arrived_after_s": arrived}
+
+
+def check_engine_snapshots(cfg, model, seed, kind) -> dict:
+    """Phase 31. Returns K6's launches by regime."""
+    t_phase = time.perf_counter()
+    dev = model.device
+    L = cfg.num_layers
+    prompts = _snap_prompts(seed, SNAP_REQS, SNAP_PROMPTS)
+    chunk = 128
+    counts = {"split": 0, "chunk": 0}
+
+    def add(k6):
+        for r in counts:
+            counts[r] += k6[r]
+
+    root = tempfile.mkdtemp(prefix="dtg_phase31_")
+    out = {"model": "gpt2_124m" if L == 12 else "small",
+           "requests": SNAP_REQS, "prompt_lengths": list(SNAP_PROMPTS),
+           "new_tokens": SNAP_NEW}
+    try:
+        want, ticks, k6 = _uninterrupted(cfg, model, prompts, seed,
+                                         SNAP_NEW, chunk)
+        add(k6)
+        out["uninterrupted_decode_step_ms"] = _median_ms(ticks["decode"])
+        runs = {}
+        for name, kw in (
+                ("kill_restore", dict(kill_at=40, saves={20: False,
+                                                         30: True})),
+                ("corrupt_newest", dict(kill_at=40, saves={20: False,
+                                                           30: True},
+                                        corrupt_at=35))):
+            got, stats, k6 = _kill_restore(
+                cfg, model, prompts, seed, f"{root}/{name}",
+                max_new=SNAP_NEW, prefill_chunk=chunk,
+                want=want if name == "kill_restore" else None, **kw)
+            add(k6)
+            stats["bitwise_equal_uninterrupted"] = got == want
+            runs[name] = stats
+            if got != want:
+                fail(f"engine {name}: a restored stream differs from the "
+                     "uninterrupted engine's")
+        if runs["corrupt_newest"]["restored_label"] != \
+                runs["corrupt_newest"]["saved_labels"][0]:
+            fail(f"engine corrupt_newest: restored "
+                 f"{runs['corrupt_newest']['restored_label']}, not the "
+                 "older snapshot")
+        out.update(runs)
+
+        # a launch failure and a pool-pressure spike in a pool that
+        # preempts residents, no kill
+        chaos = FaultSchedule([Fault("serve_step_exception", 12),
+                               Fault("pool_pressure", 20,
+                                     float(PRESSURE_BLOCKS))])
+        eng = _snap_engine(cfg, model, prefill_chunk=chunk, chaos=chaos,
+                           retry_base_delay_s=0.001,
+                           num_blocks=STORM_BLOCKS)
+        _submit(eng, prompts, seed, SNAP_NEW)
+        DA.reset_launch_counts()
+        eng.run()
+        eng.sched.pool.check_leaks()
+        add(_k6("engine storm", _n_steps(eng), L))
+        storm = {"launch_failures": eng.launch_failures,
+                 "preemptions": eng.sched.preemptions,
+                 "bitwise_equal_uninterrupted": eng.completions() == want}
+        eng.close()
+        out["storm"] = storm
+        if chaos.pending or not storm["bitwise_equal_uninterrupted"] \
+                or storm["launch_failures"] != 1 or not storm["preemptions"]:
+            fail(f"engine storm: {storm}, pending {chaos.pending}")
+
+        # the guarded launch: a deadline that does not trip, then one
+        # forced trip from a host stall in a decode launch
+        eng = _snap_engine(cfg, model, prefill_chunk=chunk,
+                           step_deadline_s=SERVE_DEADLINE_S)
+        _submit(eng, prompts, seed, SNAP_NEW)
+        DA.reset_launch_counts()
+        ticks = _ticks(eng)
+        add(_k6("engine with a deadline", _n_steps(eng), L))
+        guarded = {"decode_step_ms": _median_ms(ticks["decode"]),
+                   "launch_failures": eng.launch_failures,
+                   "bitwise_equal_uninterrupted": eng.completions() == want}
+        guarded["overhead_ms_a_decode_step"] = (
+            guarded["decode_step_ms"] - out["uninterrupted_decode_step_ms"])
+        eng.close()
+        eng = _snap_engine(cfg, model, prefill_chunk=chunk,
+                           step_deadline_s=SERVE_DEADLINE_S,
+                           retry_base_delay_s=0.001)
+        real, hung = eng.fns.decode, []
+
+        def hang_once(*a, **kw):
+            if len(hung) == 0 and eng.steps["decode"] >= 5:
+                hung.append(time.perf_counter())
+                while time.perf_counter() - hung[0] < 60.0:
+                    time.sleep(0.02)  # a Python-level stall
+            return real(*a, **kw)
+
+        eng.fns.decode = hang_once
+        _submit(eng, prompts, seed, SNAP_NEW)
+        DA.reset_launch_counts()
+        t0 = time.perf_counter()
+        _ticks(eng)
+        trip_wall = time.perf_counter() - t0
+        add(_k6("engine with a forced trip", _n_steps(eng), L))
+        guarded["forced_trip"] = {
+            "deadline_s": SERVE_DEADLINE_S, "drain_s": trip_wall,
+            "launch_failures": eng.launch_failures,
+            "bitwise_equal_uninterrupted": eng.completions() == want}
+        eng.close()
+        guarded["trip_during_synchronize"] = _trip_during_sync(
+            dev, f"{root}/stacks.txt")
+        out["guarded_launch"] = guarded
+        if not (guarded["bitwise_equal_uninterrupted"]
+                and guarded["launch_failures"] == 0
+                and guarded["forced_trip"]["launch_failures"] == 1
+                and guarded["forced_trip"]["bitwise_equal_uninterrupted"]
+                and guarded["forced_trip"]["drain_s"] < 30.0):
+            fail(f"engine deadlines: {guarded}")
+        if guarded["trip_during_synchronize"]["trip_fired_after_s"] is None:
+            fail("the watchdog did not trip during a long synchronize")
+
+        # the MoE engine (phase 27's configuration), killed and restored
+        mcfg = gpt2_124m(dtype=torch.bfloat16, moe_experts=MOE_E,
+                         moe_capacity=MOE_CAP) if L == 12 else \
+            dataclasses.replace(cfg, moe_experts=4, moe_capacity=2)
+        mmodel = Transformer(mcfg).init_weights(seed).to(dev)
+        mprompts = _snap_prompts(seed + 1, 8, Q_PROMPTS)
+        mwant, _, k6 = _uninterrupted(mcfg, mmodel, mprompts, seed,
+                                      SNAP_NEW, Q_CHUNK)
+        add(k6)
+        got, stats, k6 = _kill_restore(
+            mcfg, mmodel, mprompts, seed, f"{root}/moe", max_new=SNAP_NEW,
+            prefill_chunk=Q_CHUNK, kill_at=30, saves={15: False, 22: True})
+        add(k6)
+        stats["bitwise_equal_uninterrupted"] = got == mwant
+        out["moe_kill_restore"] = stats
+        del mmodel
+        if got != mwant:
+            fail("moe engine kill/restore: a restored stream differs from "
+                 "the uninterrupted MoE engine's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"engine snapshots on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"K6 launches by regime (phase 31's drains): "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
+# phase 33: the elastic world's storm (two slices of one process, slice 1
+# lost after round 3 and back at round 6), its workload and its deadline
+ELASTIC_SPEC = dict(total_steps=8, ckpt_every=2, sync_period=2,
+                    global_batch=8, dim=4, seed=3, outer_momentum=0.9,
+                    outer_lr=0.7)
+ELASTIC_TOL = 1e-6
+
+
+def check_elastic_world(seed, kind) -> None:
+    """Phase 33: ``ElasticSupervisor`` over two slices of one process
+    sharing the card over gloo (``MultiSliceLocalSGD``, ``sync_period=2``,
+    outer Nesterov momentum), one ``slice_loss`` and one
+    ``slice_return``; the same supervisor on the CPU beside it."""
+    import concurrent.futures
+
+    from distributed_tensorflow_guide_tpu_torch.train.elastic_world import (
+        ElasticSupervisor,
+        toy_spec,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dtg_phase33_")
+
+    def run(device):
+        sched = FaultSchedule([Fault("slice_loss", 3, 1.0),
+                               Fault("slice_return", 6, 1.0)])
+        sup = ElasticSupervisor(
+            sched, n_slices=2, procs_per_slice=1,
+            base_spec=toy_spec(**dict(ELASTIC_SPEC, seed=seed + 3)),
+            ckpt_dir=f"{root}/{device}/ckpt",
+            workdir=f"{root}/{device}/work", timeout=300,
+            failure_grace=2.0, device=device)
+        return sup.run(), sup, sched
+
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futures = {d: pool.submit(run, d) for d in ("cuda", "cpu")}
+            runs = {d: f.result() for d, f in futures.items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"slices": 2, "procs_per_slice": 1,
+           **dict(ELASTIC_SPEC, seed=seed + 3)}
+    for device, (rep, sup, sched) in runs.items():
+        ok, problems = rep.accounting(ELASTIC_SPEC["total_steps"],
+                                      ELASTIC_SPEC["global_batch"])
+        out[device] = {
+            "timeline": rep.timeline,
+            "generations": len(rep.timeline),
+            "restarts": sum(e["outcome"] != "clean" for e in rep.timeline),
+            "seconds_a_generation": sup.generation_s,
+            "mttr_s": rep.mttr_s, "accounting_ok": ok,
+            "problems": problems, "pending_faults": len(sched.pending),
+            "final_params": rep.final_params}
+    gap = float(np.max(np.abs(np.asarray(out["cuda"]["final_params"])
+                              - np.asarray(out["cpu"]["final_params"]))))
+    out["max_param_gap_card_vs_cpu"] = gap
+    print(f"elastic world on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    for device in ("cuda", "cpu"):
+        r = out[device]
+        if [e["outcome"] for e in r["timeline"]] != [
+                "slice_loss", "clean", "clean"] or r["pending_faults"]:
+            fail(f"elastic world on {device}: timeline {r['timeline']}")
+        if not r["accounting_ok"]:
+            fail(f"elastic world on {device}: accounting {r['problems']}")
+    if gap > ELASTIC_TOL:
+        fail(f"elastic world: the card's final parameters differ from the "
+             f"CPU run's by {gap} (limit {ELASTIC_TOL})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3847,6 +4741,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -3934,6 +4829,24 @@ def main() -> int:
     check_async_ps(args.seed, kind)
     for n, c in check_expert_parallel(args.seed, kind).items():
         launches[n] += c
+    # phases 30-33: supervised training with checkpoints, engine
+    # snapshots, preemption, the elastic world; their K1-K3 and K6
+    # launches join the line
+    torch.cuda.empty_cache()
+    t_resil = time.perf_counter()
+    for n, c in check_supervised_training(cfg, args.seed, kind).items():
+        launches[n] += c
+    torch.cuda.empty_cache()
+    model = Transformer(cfg).init_weights(args.seed).to("cuda")
+    for regime, n in check_engine_snapshots(cfg, model, args.seed,
+                                            kind).items():
+        launches[f"paged_decode_attention.{regime}"] += n
+    del model
+    torch.cuda.empty_cache()
+    for n, c in check_preemption(cfg, args.seed, kind).items():
+        launches[n] += c
+    check_elastic_world(args.seed, kind)
+    print(f"phases 30-33: {time.perf_counter() - t_resil:.1f} s", flush=True)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name
@@ -3978,6 +4891,8 @@ def main() -> int:
          "launches": launches["flash_carry"],
          **head("flash_carry", lambda r: not r["diag"])},
     ]
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {

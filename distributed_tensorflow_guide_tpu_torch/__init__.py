@@ -12,7 +12,9 @@ Package layout (slices 1-3: the GPT-2 serving path, the training step,
 the process mesh and sequence parallelism; slice 7: the non-LM judged
 configs; slice 8: tensor and pipeline parallelism; slice 9: FSDP, the
 bucketed all-reduce, Megatron sequence parallelism, the async-PS
-family):
+family; slices 10-12: serving graphs, the captured train step,
+quantisation, mixture of experts; slice 13: checkpoints, resilience and
+the elastic world):
     core/        device resolution, the process group's bootstrap
                  (dist), the process mesh, precision
     collectives/ psum / pmean / ppermute / all_to_all ... over a mesh axis,
@@ -29,13 +31,19 @@ family):
     parallel/    data parallelism over a mesh axis (bucketed all-reduce:
                  overlap), FSDP, tensor parallelism (Megatron SP),
                  pipeline parallelism, sequence parallelism (ring
-                 attention, Ulysses), LocalSGD / GossipSGD /
-                 AccumulatedAdaptive and the async-PS emulator, gradient
-                 accumulation
-    train/       TrainState, hooks, TrainLoop, held-out evaluation
-    serve/       paged pool, scheduler, prefix index, engine, CLI
+                 attention, Ulysses), two-tier multi-slice training,
+                 LocalSGD / GossipSGD / AccumulatedAdaptive and the
+                 async-PS emulator, gradient accumulation
+    train/       TrainState, hooks, TrainLoop, held-out evaluation;
+                 checkpoints (manifest, ladder, async saves), the anomaly
+                 sentinel, run_with_recovery and preemption, the elastic
+                 world's supervisor
+    serve/       paged pool, scheduler, prefix index, engine (snapshots,
+                 chaos faults, launch deadlines), CLI
+    testing/     the seeded chaos harness (fault schedules)
     obs/         flight recorder (copied)
-    utils/       dispatch accounting, matmul and convolution FLOPs
+    utils/       dispatch accounting, matmul and convolution FLOPs, the
+                 watchdog
     bridge       flax param trees <-> state dicts, numpy in and out
 """
 

@@ -38,6 +38,13 @@ and ``mlp/w_out/kernel`` (E, F, D) keep their layout as
 and :func:`switch_lm_to_flax` carry the JAX ``SwitchLM``'s stacked tree
 (``{"embed", "attn", "ln2", "moe", "head"}``, block leaves (L, ...)).
 
+The two-tier strategy and the elastic world: the toy linear regression's
+``{"w": (d, 1)}`` is a bias-free ``nn.Linear(d, 1)``'s ``weight`` (1, d)
+(:func:`regression_from_flax`), and the reference's ``TwoTierState``
+carries its inner parameters and its outer momentum, a tree of the
+parameters' structure, across through one such pair of functions
+(:func:`two_tier_from_flax`, :func:`two_tier_to_flax`).
+
 Multi-LoRA banks: :func:`adapters_from_flax` reads the JAX "adapters"
 collection (``block_{i}/attn/{qkv,proj}_{A,B}``,
 ``block_{i}/mlp/{up,down}_{A,B}``, the same (n, d_in, r) and (n, r,
@@ -580,3 +587,32 @@ def wide_deep_to_flax(state_dict: Mapping) -> dict:
                              _count(state_dict, "mlp."))
     return {flax_name: (_embed_to if kind == "embed" else _dense_to)(
         state_dict, name) for flax_name, name, kind in names}
+
+
+# ---- the two-tier strategy and the elastic world ---------------------------
+
+
+def regression_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """``{"w": (d, 1)}`` -> ``{"weight": (1, d)}``."""
+    return {"weight": _t(np.asarray(params["w"]).T)}
+
+
+def regression_to_flax(state_dict: Mapping) -> dict:
+    """The inverse of :func:`regression_from_flax` (tensors or numpy
+    arrays in)."""
+    w = state_dict["weight"]
+    return {"w": (_np(w) if torch.is_tensor(w) else np.asarray(w)).T.copy()}
+
+
+def two_tier_from_flax(params: Mapping, outer_momentum: Mapping, from_flax
+                       ) -> tuple[dict, dict]:
+    """A reference ``TwoTierState``'s inner parameters and outer momentum
+    (numpy trees of one structure) -> (state dict, momentum by parameter
+    name), each through ``from_flax``."""
+    return from_flax(params), from_flax(outer_momentum)
+
+
+def two_tier_to_flax(state_dict: Mapping, momentum: Mapping, to_flax
+                     ) -> tuple[dict, dict]:
+    """The inverse of :func:`two_tier_from_flax`."""
+    return to_flax(state_dict), to_flax(momentum)

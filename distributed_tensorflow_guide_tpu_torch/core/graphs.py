@@ -33,6 +33,7 @@ schedule moves between calls must be a device tensor written in place.
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 
@@ -50,6 +51,23 @@ def _counters() -> list[dict]:
 
 def _snapshot() -> list[dict]:
     return [dict(c) for c in _counters()]
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """Python's cycle collector off while a graph captures:
+    ``torch.cuda.graph`` collects before the capture begins, and a
+    collection that fires mid-capture (the capture allocates many Python
+    objects) would run the finalizers of dead graphs and pinned buffers,
+    whose CUDA calls are not permitted while a stream captures and
+    invalidate the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class CapturedStep:
@@ -94,7 +112,7 @@ class CapturedStep:
             torch.cuda.current_stream(self.device).wait_stream(side)
             warmed = _snapshot()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with _no_gc(), torch.cuda.graph(graph):
                 out = self.fn()
             captured = _snapshot()
         except BaseException as exc:

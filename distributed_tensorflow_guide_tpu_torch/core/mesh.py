@@ -29,8 +29,15 @@ ranks time-sharing ``cuda:0``), and the call then fails; it also makes a
 group for every axis of size 1, which no collective needs. The backend of
 each group is the default group's (``core/dist.py`` picks it).
 
-The multislice helpers of the JAX module (``num_slices``,
-``hybrid_device_array``) come with multislice (ROADMAP Queue 1 item 14).
+Several slices (``parallel/multislice.py``): ranks on one slice (one host
+or NVLink island) talk over the fast fabric, slices over the slower
+data-centre network. A process knows its world's slice count from
+``DTG_NUM_SLICES`` (:func:`num_slices`; a launcher sets it, 1 elsewhere),
+and slices are contiguous blocks of ranks. :func:`hybrid_device_array`
+lays the ranks of a five-axis mesh out so that only one axis's outer
+factor crosses slices; ``multislice.two_tier_mesh`` names that factor as
+a sixth axis, ``dcn``, in front of the five (a :class:`Mesh` carries its
+axis names).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -96,24 +104,28 @@ class AxisGroup:
 
 
 class Mesh:
-    """The five axes of one rank: sizes, coordinates and process groups."""
+    """The axes of one rank (``names``, the five of :data:`AXES` unless a
+    builder names others): sizes, coordinates and process groups."""
 
     def __init__(self, sizes: dict[str, int], rank: int,
-                 axes: dict[str, AxisGroup]):
+                 axes: dict[str, AxisGroup],
+                 names: tuple[str, ...] = AXES):
         self.sizes = dict(sizes)
         self.rank = rank
+        self.names = tuple(names)
         self._axes = axes
         self._joint: dict[tuple[str, ...], AxisGroup] = {}
 
     @property
     def shape(self) -> tuple[int, ...]:
-        return tuple(self.sizes[a] for a in AXES)
+        return tuple(self.sizes[a] for a in self.names)
 
     def axis(self, name: "str | tuple[str, ...]") -> AxisGroup:
         if isinstance(name, (tuple, list)):
             return self._joint_axis(tuple(name))
         if name not in self._axes:
-            raise ValueError(f"unknown mesh axis {name!r} (one of {AXES})")
+            raise ValueError(f"unknown mesh axis {name!r} (one of "
+                             f"{self.names})")
         return self._axes[name]
 
     def _joint_axis(self, names: tuple[str, ...]) -> AxisGroup:
@@ -135,10 +147,9 @@ class Mesh:
         else:
             import torch.distributed as dist
 
-            shape = tuple(self.sizes[a] for a in AXES)
             ranks = group = None
-            for members in _axes_ranks(shape, [AXES.index(n)
-                                               for n in names]):
+            for members in _axes_ranks(self.shape, [self.names.index(n)
+                                                    for n in names]):
                 made = dist.new_group(list(members))
                 if self.rank in members:
                     ranks, group = members, made
@@ -188,22 +199,30 @@ def _axes_ranks(shape: tuple[int, ...], axes: list[int]):
         yield tuple(group)
 
 
-def build_mesh(spec: MeshSpec | None = None) -> Mesh:
-    """The mesh of this rank over the default process group's ranks (one
-    rank when no group is initialised). Every rank of the group must call
-    it, with the same ``spec``: each axis's groups are made collectively."""
+def world_and_rank() -> tuple[int, int]:
+    """The default process group's size and this rank (1, 0 without
+    one)."""
     import torch.distributed as dist
 
-    spec = spec or MeshSpec()
     if dist.is_available() and dist.is_initialized():
-        world, rank = dist.get_world_size(), dist.get_rank()
-    else:
-        world, rank = 1, 0
-    sizes = spec.resolve(world)
-    shape = tuple(sizes[a] for a in AXES)
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def mesh_over(names: tuple[str, ...], sizes: dict[str, int]) -> Mesh:
+    """This rank's mesh with the axes ``names`` of ``sizes``, the ranks
+    laid out row-major over them. Every rank must call it: each axis's
+    groups are made collectively."""
+    import torch.distributed as dist
+
+    world, rank = world_and_rank()
+    shape = tuple(sizes[a] for a in names)
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {dict(sizes)} needs {math.prod(shape)} "
+                         f"ranks, have {world}")
     coords = np.unravel_index(rank, shape)
     axes = {}
-    for i, name in enumerate(AXES):
+    for i, name in enumerate(names):
         mine = None
         for ranks in _axes_ranks(shape, [i]):
             group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
@@ -211,7 +230,66 @@ def build_mesh(spec: MeshSpec | None = None) -> Mesh:
                 mine = (ranks, group)
         axes[name] = AxisGroup(name, shape[i], int(coords[i]), mine[0],
                                mine[1])
-    return Mesh(sizes, rank, axes)
+    return Mesh(sizes, rank, axes, names)
+
+
+def build_mesh(spec: MeshSpec | None = None) -> Mesh:
+    """The mesh of this rank over the default process group's ranks (one
+    rank when no group is initialised). Every rank of the group must call
+    it, with the same ``spec``: each axis's groups are made collectively."""
+    spec = spec or MeshSpec()
+    return mesh_over(AXES, spec.resolve(world_and_rank()[0]))
+
+
+# ---- slices ---------------------------------------------------------------
+
+
+def num_slices() -> int:
+    """The slices this process's world spans: ``DTG_NUM_SLICES`` where a
+    launcher set it, else 1. The ranks of a slice are contiguous."""
+    n = int(os.environ.get("DTG_NUM_SLICES", "1"))
+    if n < 1:
+        raise ValueError(f"DTG_NUM_SLICES must be >= 1, got {n}")
+    return n
+
+
+def valid_slice_counts(sizes: dict[str, int],
+                       dcn_axis: str = "data") -> list[int]:
+    """Slice counts a ``dcn_axis`` of this size can span: its divisors."""
+    if dcn_axis not in AXES:
+        raise ValueError(f"dcn_axis must be one of {AXES}, got {dcn_axis!r}")
+    n = sizes[dcn_axis]
+    return [k for k in range(1, n + 1) if n % k == 0]
+
+
+def hybrid_device_array(sizes: dict[str, int], ranks, n_slices: int,
+                        dcn_axis: str = "data") -> np.ndarray:
+    """Ranks laid out over the five axes for ``n_slices`` slices of
+    contiguous ``ranks``: ``dcn_axis`` factors as (slice, within a slice)
+    with the slice OUTERMOST and every other axis inside a slice, so only
+    ``dcn_axis``'s outer factor crosses slices. Returns the rank array of
+    shape ``[sizes[a] for a in AXES]``."""
+    if dcn_axis not in AXES:
+        raise ValueError(f"dcn_axis must be one of {AXES}, got {dcn_axis!r}")
+    if sizes[dcn_axis] % n_slices:
+        raise ValueError(
+            f"{n_slices} slices need axis {dcn_axis!r} divisible by the "
+            f"slice count, got {sizes[dcn_axis]} — either resize "
+            f"{dcn_axis!r} or pick another dcn_axis (axis {dcn_axis!r} "
+            f"supports slice counts {valid_slice_counts(sizes, dcn_axis)}; "
+            "see valid_slice_counts())")
+    ranks = np.asarray(list(ranks))
+    per = len(ranks) // n_slices
+    if per * n_slices != len(ranks):
+        raise ValueError(f"{len(ranks)} ranks do not split into "
+                         f"{n_slices} slices")
+    inner = dict(sizes, **{dcn_axis: sizes[dcn_axis] // n_slices})
+    inner_shape = [inner[a] for a in AXES]
+    if math.prod(inner_shape) != per:
+        raise ValueError(f"a slice of {per} ranks cannot hold {inner}")
+    blocks = [ranks[i * per:(i + 1) * per].reshape(inner_shape)
+              for i in range(n_slices)]
+    return np.concatenate(blocks, axis=AXES.index(dcn_axis))
 
 
 def single_device_mesh() -> Mesh:

@@ -21,9 +21,9 @@ so the transfer of batch N+1 runs while step N computes.
 A batch is a tensor or numpy array, or a dict / list / tuple of them
 (nested). The iterator drops its own reference to a batch before it
 yields it: nothing here reads a yielded batch again, so the consumer may
-write into it. The reference's per-fetch deadline (``max_host_wait_s``)
-raises its watchdog's ``DataStallError`` and comes with the watchdog
-(ROADMAP Queue 1 item 11); the worst fetch is recorded here.
+write into it. ``max_host_wait_s`` bounds one upstream fetch: a slower one
+raises the watchdog's :class:`~..utils.watchdog.DataStallError` (a
+recoverable ``RuntimeError``), and the worst fetch is recorded either way.
 """
 
 from __future__ import annotations
@@ -39,6 +39,9 @@ import torch
 
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
+)
+from distributed_tensorflow_guide_tpu_torch.utils.watchdog import (
+    DataStallError,
 )
 
 
@@ -135,13 +138,21 @@ class DevicePrefetchIterator:
 
     The refill runs on every ``__next__``: pop the head, then top the
     buffer up, so the next copies are issued before the consumer launches
-    its step.
+    its step. ``max_host_wait_s``: a fetch from ``source`` slower than this
+    raises :class:`~..utils.watchdog.DataStallError` (fail-fast: the error
+    preempts the batches already buffered); it catches slow fetches that
+    return, where the loop's ``data_deadline_s`` catches ones that hang.
     """
 
     def __init__(self, source: Iterable, *, device=None, depth: int = 2,
-                 put_fn: Callable[[Any], Any] | None = None):
+                 put_fn: Callable[[Any], Any] | None = None,
+                 max_host_wait_s: float | None = None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        if max_host_wait_s is not None and max_host_wait_s <= 0:
+            raise ValueError(
+                f"max_host_wait_s must be > 0, got {max_host_wait_s}")
+        self.max_host_wait_s = max_host_wait_s
         self._src = iter(source)
         self.depth = depth
         self.stats = PrefetchStats()
@@ -182,6 +193,13 @@ class DevicePrefetchIterator:
             self.stats.host_wait_s += t1 - t0
             self.stats.max_host_wait_s = max(self.stats.max_host_wait_s,
                                              t1 - t0)
+            if (self.max_host_wait_s is not None
+                    and t1 - t0 > self.max_host_wait_s):
+                raise DataStallError(
+                    f"data iterator stalled: one fetch took "
+                    f"{t1 - t0:.2f}s > max_host_wait_s="
+                    f"{self.max_host_wait_s:g}s "
+                    f"(after {self.stats.batches} batches)")
             self._buf.append(self._put(host_batch))
             self.stats.put_s += time.perf_counter() - t1
             self.stats.peak_ahead = max(self.stats.peak_ahead,

@@ -202,18 +202,25 @@ class MultiProcessRunner:
                 value.update({k: z[k] for k in value.pop("__npz__")})
         return ProcessResult(rank, proc.returncode, stdout, stderr, value)
 
-    def join(self) -> list[ProcessResult]:
+    def kill(self, rank: int) -> None:
+        """SIGKILL one rank (no barriers, no atexit: a real crash); the
+        others see it through :meth:`join`'s failure grace."""
+        self._procs[rank].kill()
+
+    def join(self, raise_on_error: bool = True, *,
+             failure_grace: float = 10.0) -> list[ProcessResult]:
         """Supervise until every rank exits, the deadline hits, or a
-        failure's grace period (10 s) ends; then collect each rank's
-        output. Raises :class:`MultiProcessError` unless every rank
-        exited 0."""
+        failure's grace period ends (a peer blocked on a dead rank is
+        killed then); then collect each rank's output. Raises
+        :class:`MultiProcessError` unless every rank exited 0 (with
+        ``raise_on_error=False`` the results come back either way)."""
         timed_out = supervise(self._procs, timeout=self.timeout,
-                              failure_grace=10.0)
+                              failure_grace=failure_grace)
         results = [self._collect(r, p, out, err) for r, (p, (out, err))
                    in enumerate(zip(self._procs, self._files))]
         self._tmp.cleanup()
         self._procs, self._files = [], []
-        if timed_out or any(not r.ok for r in results):
+        if raise_on_error and (timed_out or any(not r.ok for r in results)):
             bad = [r for r in results if not r.ok]
             detail = "\n".join(
                 f"--- rank {r.rank} (exit {r.returncode}) ---\n"

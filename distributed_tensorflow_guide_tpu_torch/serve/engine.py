@@ -57,6 +57,34 @@ streams stay bitwise the solo one-shot generator's (which, one request
 at a time, never overflows). ``health()["moe"]`` holds the per-expert
 load and overflow summed over launches and layers and the stall counts.
 
+Serving under fire: the position-derived keys make every recovery path
+bitwise-safe.
+
+* A failed launch (an injected ``serve_step_exception`` or a real one) is
+  retried through ``retry_with_backoff``: the tick's inputs are rebuilt
+  from host state, so the re-run IS the original tick.
+* ``step_deadline_s`` arms a watchdog around each launch attempt: a hung
+  step becomes a retriable :class:`WatchdogTimeout` instead of a silent
+  stall. The interrupt lands between bytecodes, so a host blocked in C
+  (a graph replay whose queue is full, the readback's sync) takes it
+  when that call returns (``utils/watchdog.py``).
+* ``chaos=`` (a ``testing.chaos.FaultSchedule``) applies the serve fault
+  kinds at their ticks: launch failures, client abandons, arrival bursts
+  (``burst_factory``), pool pressure (blocks held away for a few ticks,
+  forcing evictions) and snapshot damage.
+* :meth:`ServeEngine.save_snapshot` writes all HOST state (the
+  scheduler's continuation view of every live request, emitted tokens,
+  terminal statuses, counters) as one JSON blob through
+  ``train/checkpoint.py`` (manifest, CRC, ladder). A fresh engine's
+  :meth:`ServeEngine.restore_latest_snapshot` takes the newest valid one;
+  the pool is never saved: residents re-enter as queued continuations and
+  re-prefill through the same captured chunk and decode graphs, and every
+  stream continues bitwise the uninterrupted engine's. On the card a
+  continuation re-prefills only its prompt and feeds the tokens it had
+  emitted back through decode steps (the scheduler's ``"replay"``): a
+  prefill chunk sums attention in another order than the decode step
+  that first wrote those rows, and its bits would move later tokens.
+
 The host side (:class:`~.scheduler.Scheduler`, the block pool, the
 prefix index) is the JAX package's, copied.
 """
@@ -64,6 +92,7 @@ prefix index) is the JAX package's, copied.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -99,21 +128,27 @@ from distributed_tensorflow_guide_tpu_torch.serve.scheduler import (
     Request,
     Scheduler,
 )
+from distributed_tensorflow_guide_tpu_torch.utils.watchdog import (
+    Watchdog,
+    WatchdogTimeout,
+)
 
 __all__ = ["Event", "Request", "ServeEngine", "EngineOverloaded",
-           "adapter_bank_shapes", "build_step_fns", "init_adapter_bank",
-           "paged_cache_pool", "paged_config"]
+           "WatchdogTimeout", "adapter_bank_shapes", "build_step_fns",
+           "init_adapter_bank", "paged_cache_pool", "paged_config"]
 
 # ServeEngine knobs of the JAX engine that this package does not serve
 # yet, and the ROADMAP item (Queue 1) that brings each
 _DEFERRED = {
-    "chaos": "item 11 (chaos and resilience)",
-    "snapshot_dir": "item 11 (engine snapshots)",
     "host_blocks": "item 10 (host spill tier)",
     "persist_cache": "item 10 (warm cache persistence)",
-    "step_deadline_s": "item 11 (watchdog)",
     "online_tune": "item 16 (autotune)",
 }
+
+# pool-pressure chaos faults allocate under this reserved owner id (real
+# rids are non-negative) and release after this many engine ticks
+_CHAOS_RID = -7
+_PRESSURE_HOLD_TICKS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,6 +395,18 @@ class ServeEngine:
     copied into the engine's model view; ``Request.adapter`` picks a
     request's row. ``engine.adapters`` holds the live banks: write new
     adapter weights into them in place (:meth:`load_adapter_bank`).
+
+    Resilience (see the module docstring): ``chaos`` a
+    ``testing.chaos.FaultSchedule`` whose serve kinds fire at engine
+    ticks, ``burst_factory(n, now[, tenant]) -> [Request]`` for its
+    arrival bursts, ``step_deadline_s`` a watchdog deadline on each
+    launch attempt (it must cover a first call's capture),
+    ``snapshot_dir`` / ``snapshot_keep`` where :meth:`save_snapshot`
+    writes and how many snapshots it keeps. A preempted or restored
+    stream rebuilds its cache by feeding its emitted tokens back through
+    decode steps on the card, where a prefill chunk would write their rows
+    with other bits, and by re-prefilling them on the CPU, as the JAX
+    engine does (:class:`~.scheduler.Scheduler`'s ``continuations``).
     """
 
     def __init__(self, cfg: TransformerConfig, model: Transformer, *,
@@ -369,7 +416,10 @@ class ServeEngine:
                  retry_attempts: int = 3, retry_base_delay_s: float = 0.05,
                  prefix_cache: bool = False, tenant_quotas=None,
                  drr_quantum: int | None = None, recorder=None,
-                 adapters=None, device=None, **deferred):
+                 adapters=None, chaos=None, burst_factory=None,
+                 step_deadline_s: float | None = None,
+                 snapshot_dir=None, snapshot_keep: int = 3, device=None,
+                 **deferred):
         for knob, value in deferred.items():
             if knob not in _DEFERRED:
                 raise TypeError(f"unexpected keyword argument {knob!r}")
@@ -407,6 +457,8 @@ class ServeEngine:
             max_queue=max_queue, prefix_cache=prefix_cache,
             tenant_quotas=tenant_quotas, drr_quantum=drr_quantum,
             recorder=self.rec)
+        if self.device.type == "cuda":
+            self.sched.continuations = "replay"
         self.pool = paged_cache_pool(self.model)
         self._trash_row = table_row(
             [], self.fns.n_blk, self.sched.pool.trash_block)
@@ -422,11 +474,27 @@ class ServeEngine:
             self._moe_stall_ticks = 0
         self.retry_attempts = retry_attempts
         self.retry_base_delay_s = retry_base_delay_s
+        self.chaos = chaos
+        self.burst_factory = burst_factory
+        self._injected_exc = 0  # pending chaos launch failures
+        self._pressure_holds: list[tuple[float, list[int]]] = []
         # every failed launch attempt (retried-and-recovered ones included)
         self.launch_failures = 0
         self._tick = 0
         self._ttft_ewma: float | None = None  # predicted-TTFT shed gate
         self.last_tick_s = 0.0
+        self._step_deadline_s = step_deadline_s
+        self._watchdog = (Watchdog(name="serve-engine", recorder=self.rec)
+                          if step_deadline_s else None)
+        self.snapshot_dir = snapshot_dir
+        self._ckpt = None
+        self._last_snap = -1
+        if snapshot_dir is not None:
+            from distributed_tensorflow_guide_tpu_torch.train.checkpoint \
+                import Checkpointer
+
+            self._ckpt = Checkpointer(snapshot_dir, max_to_keep=snapshot_keep,
+                                      recorder=self.rec)
 
     # ---- intake ----------------------------------------------------------
 
@@ -493,15 +561,21 @@ class ServeEngine:
     # ---- the tick --------------------------------------------------------
 
     def step(self, now: float = 0.0) -> tuple[list[Event], str]:
-        """One engine tick: sweep lifecycle (cancellations / deadlines),
-        admit arrived requests, launch (at most) one step, apply its
-        results. Returns (events, kind) with kind in {"prefill",
-        "decode", "idle"}."""
+        """One engine tick: apply due chaos faults, sweep lifecycle
+        (cancellations / deadlines), admit arrived requests, launch (at
+        most) one step, apply its results. Returns (events, kind) with
+        kind in {"prefill", "decode", "idle"}."""
         tick = self._tick
         self._tick += 1
         rec = self.rec
         if rec.enabled:
             self.sched.now = now  # timestamps scheduler decisions
+        if self.chaos is not None:
+            if rec.enabled:
+                self.chaos.recorder = rec
+                self.chaos.obs_now = now
+            self._apply_chaos(tick, now)
+        self._release_pressure(tick)
         events = [Event(now, *t) for t in self.sched.sweep(now)]
         self.sched.admit(now)
         kind, arg = self.sched.plan()
@@ -565,15 +639,33 @@ class ServeEngine:
                          t=now)
 
     def _launch(self, fn, tag: str):
-        """One guarded step launch, retried through ``retry_with_backoff``:
-        every launch input is rebuilt from host state (a captured step
-        copies it into its static buffer again and replays) and the
-        sampling seeds are position-derived, so a retried launch re-runs
-        the same tick bitwise."""
+        """One guarded step launch: a per-attempt watchdog deadline (with
+        ``step_deadline_s``) inside ``retry_with_backoff``. Every launch
+        input is rebuilt from host state (a captured step copies it into
+        its static buffer again and replays) and the sampling seeds are
+        position-derived, so a retried launch re-runs the same tick
+        bitwise. An injected chaos failure fires before the step runs,
+        with the pool untouched."""
 
         def attempt():
             try:
-                return fn()
+                if self._injected_exc:
+                    self._injected_exc -= 1
+                    from distributed_tensorflow_guide_tpu_torch.testing \
+                        .chaos import ChaosInjectedError
+                    raise ChaosInjectedError(
+                        f"chaos: injected serve step exception ({tag})")
+                wd = self._watchdog
+                if wd is None:
+                    return fn()
+                wd.arm(tag, self._step_deadline_s)
+                try:
+                    return fn()
+                except KeyboardInterrupt:
+                    wd.check()  # the trip as the clean, retriable error
+                    raise
+                finally:
+                    wd.disarm()
             except Exception:
                 self.launch_failures += 1
                 raise
@@ -654,6 +746,80 @@ class ServeEngine:
             self._moe_stall_ticks += 1
         return events
 
+    # ---- chaos application (testing.chaos serve kinds) -------------------
+
+    def _apply_chaos(self, tick: int, now: float) -> None:
+        from distributed_tensorflow_guide_tpu_torch.testing.chaos import (
+            corrupt_checkpoint,
+        )
+        for f in self.chaos.take_serve(tick):
+            if f.kind == "serve_step_exception":
+                self._injected_exc += 1
+            elif f.kind == "client_abandon":
+                rid = self._abandon_target(int(f.param))
+                if rid is not None:
+                    self.cancel(rid)
+            elif f.kind == "arrival_burst":
+                if self.burst_factory is None:
+                    raise ValueError(
+                        "arrival_burst fault needs "
+                        "ServeEngine(burst_factory=...)")
+                reqs = (self.burst_factory(int(f.param), now)
+                        if f.tenant is None
+                        else self.burst_factory(int(f.param), now,
+                                                int(f.tenant)))
+                for req in reqs:
+                    try:
+                        self.submit(req)
+                    except EngineOverloaded:
+                        pass  # the gate shedding the burst IS the scenario
+            elif f.kind == "pool_pressure":
+                self._grab_pressure(tick, int(f.param))
+            else:  # snapshot_truncate / snapshot_corrupt
+                if self.snapshot_dir is None:
+                    raise ValueError(
+                        f"{f.kind} fault needs ServeEngine("
+                        "snapshot_dir=...)")
+                self._ckpt.wait()  # commit pending async saves first
+                try:
+                    corrupt_checkpoint(
+                        self.snapshot_dir,
+                        mode=("truncate" if f.kind == "snapshot_truncate"
+                              else "flip"))
+                except FileNotFoundError:
+                    pass  # no committed snapshot yet: nothing to damage
+
+    def _abandon_target(self, idx: int) -> int | None:
+        live = sorted(
+            {s.rid for s in self.sched.slots if s is not None}
+            | {r.rid for r in self.sched.queue})
+        if not live:
+            return None
+        return live[idx % len(live)]
+
+    def _grab_pressure(self, tick: int, nblocks: int) -> None:
+        """A co-tenant spike: blocks vanish from the pool for a few ticks
+        under the reserved chaos owner, forcing evictions and re-prefills
+        of residents; :meth:`_release_pressure` (or the end of
+        :meth:`run`) gives them back."""
+        pool = self.sched.pool
+        n = min(nblocks, pool.free_blocks)
+        if n <= 0:
+            return
+        blocks = pool.alloc(_CHAOS_RID, n)
+        if blocks:
+            self._pressure_holds.append(
+                (tick + _PRESSURE_HOLD_TICKS, blocks))
+
+    def _release_pressure(self, tick: float) -> None:
+        keep = []
+        for release_at, blocks in self._pressure_holds:
+            if tick >= release_at:
+                self.sched.pool.free(_CHAOS_RID, blocks)
+            else:
+                keep.append((release_at, blocks))
+        self._pressure_holds = keep
+
     # ---- drain -----------------------------------------------------------
 
     def run(self, max_ticks: int | None = None) -> list[Event]:
@@ -664,11 +830,14 @@ class ServeEngine:
             evs, kind = self.step(now=float("inf"))
             events.extend(evs)
             if kind == "idle":
+                if self._pressure_holds:
+                    continue  # chaos holds blocks; they release by tick
                 raise RuntimeError(
                     "engine deadlock: work queued but nothing schedulable")
             ticks += 1
             if max_ticks is not None and ticks >= max_ticks:
                 break
+        self._release_pressure(float("inf"))
         return events
 
     def completions(self) -> dict[int, list[int]]:
@@ -708,7 +877,72 @@ class ServeEngine:
             }} if self.fns.moe else {}),
         }
 
+    # ---- snapshot / restore ----------------------------------------------
+
+    def save_snapshot(self, *, async_: bool = False) -> int | None:
+        """Write ALL host-side serving state (the scheduler's continuation
+        view of every live request, emitted tokens, terminal statuses,
+        counters) as one uint8 JSON blob through the checkpointer, whose
+        manifest's size and CRC cover it (``snapshot_truncate`` /
+        ``snapshot_corrupt`` are both caught at restore). The pool is NOT
+        saved. Returns the snapshot's label (the tick, or one past the
+        last label), or None if the save was skipped."""
+        if self._ckpt is None:
+            raise ValueError("ServeEngine(snapshot_dir=...) not configured")
+        state = {"sched": self.sched.snapshot_state(),
+                 "tick": self._tick,
+                 "steps": dict(self.steps)}
+        blob = np.frombuffer(json.dumps(state).encode("utf-8"),
+                             dtype=np.uint8).copy()
+        label = max(self._tick, self._last_snap + 1)
+        if not self._ckpt.save(label, {"blob": blob}, async_=async_):
+            return None
+        self._last_snap = label
+        if self.rec.enabled:
+            self.rec.emit(
+                "snapshot.save", cat="serve", actor="engine",
+                payload={"label": int(label),
+                         "requests": len(state["sched"]["requests"]),
+                         "async": bool(async_)})
+        return label
+
+    def restore_latest_snapshot(self) -> int | None:
+        """Restore the newest VALID snapshot (a truncated or CRC-corrupt
+        one is skipped for the next older) into THIS engine, which must
+        be fresh. The pool stays zeroed; every formerly-resident request
+        re-enters as a queued continuation and re-prefills through the
+        normal admission (and the captured steps), so each stream
+        continues bitwise the uninterrupted run's. Returns the restored
+        label, or None when no valid snapshot exists."""
+        if self._ckpt is None:
+            raise ValueError("ServeEngine(snapshot_dir=...) not configured")
+        got = self._ckpt.restore_latest_valid(None)
+        if got is None:
+            if self.rec.enabled:
+                self.rec.emit("snapshot.restore_miss", cat="serve",
+                              actor="engine", payload={})
+            return None
+        tree, label = got
+        state = json.loads(
+            np.asarray(tree["blob"], np.uint8).tobytes().decode("utf-8"))
+        self.sched.restore_state(state["sched"])
+        self._tick = int(state["tick"])
+        for k, v in state["steps"].items():
+            self.steps[k] = int(v)
+        self._last_snap = label
+        if self.rec.enabled:
+            self.rec.emit(
+                "snapshot.restore", cat="serve", actor="engine",
+                payload={"label": int(label),
+                         "requests": len(state["sched"]["requests"])})
+        return label
+
     def close(self) -> None:
-        """Drop the prefix cache's block references, so the scheduler's
+        """Release background resources (watchdog thread, checkpointer)
+        and drop the prefix cache's block references, so the scheduler's
         ``check_leaks()`` audits clean after shutdown."""
         self.sched.release_prefix_cache()
+        if self._watchdog is not None:
+            self._watchdog.close()
+        if self._ckpt is not None:
+            self._ckpt.close()

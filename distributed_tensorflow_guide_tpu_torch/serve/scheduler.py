@@ -31,6 +31,20 @@ serialize every live request as a *continuation* — the exact transform
 ``_preempt`` applies — which is why engine restore re-prefills and
 still lands on the same streams bitwise.
 
+Continuations (the ``continuations`` attribute): ``"prefill"`` (the JAX
+package's) re-prefills the residency's prompt plus every token it
+emitted, in chunks; ``"replay"`` re-prefills only the residency's prompt, with the
+chunk boundaries it had, and feeds the emitted tokens back one decode
+step at a time (``Request.replay``: the samples are discarded, the k/v
+written), so every cache row is rebuilt by the kernel that first wrote
+it. Both give the uninterrupted stream where the chunk and the decode
+step give a row the same bits (the CPU's plain versions); on the card
+the K6 chunk and split regimes sum in other orders, so only ``"replay"``
+keeps a preempted or restored stream bitwise there. A scheduler starts
+with ``"prefill"``; the engine, which knows its device, sets ``"replay"``
+on the card, and on the CPU the schedule then equals the JAX package's
+step for step.
+
 Prefix sharing & tenancy (PR 12): with ``prefix_cache=True`` admission
 consults the radix :class:`~.prefix_index.PrefixIndex` and CLAIMS the
 longest cached prefix by ref-bump (``pool.share``) instead of
@@ -115,6 +129,9 @@ class Request:
     deadline_s: float | None = None
     tenant: int = 0  # fair-share / quota accounting unit
     adapter: int = 0  # LoRA adapter id (0 = base model)
+    # a continuation's emitted tokens, fed back through decode steps after
+    # ``prompt`` is prefilled (``continuations="replay"``)
+    replay: tuple = ()
 
 
 @dataclasses.dataclass
@@ -134,6 +151,8 @@ class _Slot:
     adapter: int = 0
     prefix_len: int = 0  # cache positions claimed from the prefix index
     max_blocks: int = 0  # worst-case footprint (quota commitment)
+    replayed: tuple = ()  # the residency's replay tokens, all of them
+    replay: list = dataclasses.field(default_factory=list)  # still to feed
 
 
 class Scheduler:
@@ -156,6 +175,8 @@ class Scheduler:
                 f"block_size {block_size} must divide max_len {max_len}")
         if drr_quantum is not None and drr_quantum < 1:
             raise ValueError(f"drr_quantum must be >= 1, got {drr_quantum}")
+        # "prefill" or "replay" (module docstring): the engine sets it
+        self.continuations = "prefill"
         self.slots: list[_Slot | None] = [None] * slots
         self.pool = BlockPool(num_blocks, block_size)
         self.block_size = block_size
@@ -338,8 +359,8 @@ class Scheduler:
                     continue
                 if not self._quota_allows(tenant, req):
                     continue
-                cost = self.max_request_blocks(len(req.prompt),
-                                               req.max_new_tokens)
+                cost = self.max_request_blocks(
+                    len(req.prompt), len(req.replay) + req.max_new_tokens)
                 self._deficit[tenant] = (self._deficit.get(tenant, 0)
                                          + self.drr_quantum)
                 if self._deficit[tenant] < cost:
@@ -369,7 +390,8 @@ class Scheduler:
                     chunk_cursor=prefix_len // self.prefill_chunk,
                     written=prefix_len, admitted_seq=self._seq,
                     tenant=int(req.tenant), adapter=int(req.adapter),
-                    prefix_len=prefix_len, max_blocks=cost)
+                    prefix_len=prefix_len, max_blocks=cost,
+                    replayed=tuple(req.replay), replay=list(req.replay))
                 if record is not None:
                     del self._spilled[req.rid]
                     resumed = self.slots[s]
@@ -613,7 +635,8 @@ class Scheduler:
         cheap state to rebuild and its partial chunks are not all
         block-aligned.  Returns False (caller frees destructively) when
         the hierarchy is off or the store cannot take the copies."""
-        if self.store is None or slot.phase != DECODE or slot.written < 1:
+        if (self.store is None or slot.phase != DECODE or slot.written < 1
+                or slot.replay):
             return False
         n_keep = blocks_for(slot.written, self.block_size)
         keep = slot.blocks[:n_keep]
@@ -963,16 +986,12 @@ class Scheduler:
         # sampling keys make the re-run emit exactly the tokens it would
         # have produced uninterrupted, so preemption never forks the
         # stream. Goes to the FRONT of the queue (it was already served).
-        cont_prompt = slot.prompt
-        if slot.emitted_here:
-            tail = self.emitted[slot.rid][-slot.emitted_here:]
-            cont_prompt = np.concatenate(
-                [slot.prompt, np.asarray(tail, np.int32)])
+        cont_prompt, replay = self._continuation(slot)
         self.queue.insert(0, Request(
             rid=slot.rid, prompt=cont_prompt,
             max_new_tokens=slot.budget, rng=slot.rng,
             arrival=float("-inf"),
-            tenant=slot.tenant, adapter=slot.adapter))
+            tenant=slot.tenant, adapter=slot.adapter, replay=replay))
         self.slots[i] = None
         self.preemptions += 1
         self._tc(slot.tenant)["preempted"] += 1
@@ -982,6 +1001,21 @@ class Scheduler:
                                    "emitted": slot.emitted_here,
                                    "spilled": spilled,
                                    "tenant": slot.tenant}, t=self.now)
+
+    def _continuation(self, slot: _Slot, mode: str | None = None
+                      ) -> tuple[np.ndarray, tuple]:
+        """A resident's continuation as (prompt, replay): its residency's
+        prompt and every token it fed or emitted since, either all to
+        prefill (``"prefill"``) or the tokens to feed back through decode
+        steps (``"replay"``)."""
+        tail = list(slot.replayed)
+        if slot.emitted_here:
+            tail += self.emitted[slot.rid][-slot.emitted_here:]
+        if (mode or self.continuations) == "replay":
+            return slot.prompt, tuple(int(t) for t in tail)
+        if not tail:
+            return slot.prompt, ()
+        return np.concatenate([slot.prompt, np.asarray(tail, np.int32)]), ()
 
     # ---- fleet tier: stream migration (PR 18) ----------------------------
 
@@ -1022,11 +1056,7 @@ class Scheduler:
         record: dict | None = None
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
-                cont_prompt = s.prompt
-                if s.emitted_here:
-                    tail = self.emitted[rid][-s.emitted_here:]
-                    cont_prompt = np.concatenate(
-                        [s.prompt, np.asarray(tail, np.int32)])
+                cont_prompt, _ = self._continuation(s, "prefill")
                 self.pool.free(rid, s.blocks)
                 self.slots[i] = None
                 # migration IS preemption from this tenant's viewpoint:
@@ -1049,7 +1079,9 @@ class Scheduler:
                     self.queue.pop(j)
                     record = {
                         "rid": rid,
-                        "prompt": np.asarray(r.prompt, np.int32),
+                        "prompt": np.concatenate([
+                            np.asarray(r.prompt, np.int32),
+                            np.asarray(r.replay, np.int32)]),
                         "budget": int(r.max_new_tokens), "rng": r.rng,
                         "arrival": float(r.arrival),
                         "tenant": int(r.tenant),
@@ -1198,6 +1230,9 @@ class Scheduler:
         s.written = len(s.prompt)
         s.phase = DECODE
         s.pending = int(token)
+        replaying = bool(s.replay)
+        if replaying:  # a continuation's first token is known: feed it
+            s.pending = int(s.replay.pop(0))
         if self.prefix is not None:
             # cache the FULL prompt blocks (all their positions hold true
             # prompt KV, written by deterministic chunk-aligned prefill —
@@ -1209,11 +1244,16 @@ class Scheduler:
                     s.prompt[:n_full * self.block_size],
                     s.blocks[:n_full], adapter=int(s.adapter),
                     pool=self.pool)
+        if replaying:  # the sample is discarded
+            return []
         return self._emit(slot_idx, int(token))
 
     def apply_decode(self, slot_idx: int, token: int) -> list[tuple]:
         s = self.slots[slot_idx]
         s.written += 1  # the step wrote pending's k/v at `written`
+        if s.replay:  # replaying an emitted token: discard the sample
+            s.pending = int(s.replay.pop(0))
+            return []
         s.pending = int(token)
         return self._emit(slot_idx, int(token))
 
@@ -1319,20 +1359,18 @@ class Scheduler:
         in admission order then the queue in order; plus the emitted /
         terminal maps and counters. The block pool and device cache are
         deliberately NOT captured — restore re-prefills each
-        continuation, and position-derived sampling keys make the re-run
-        land on the same stream bitwise."""
+        continuation (in this scheduler's ``continuations`` form, whose
+        ``replay`` tokens ride in each entry), and position-derived
+        sampling keys make the re-run land on the same stream bitwise."""
         requests = []
         live = sorted((s for s in self.slots if s is not None),
                       key=lambda s: s.admitted_seq)
         for s in live:
-            prompt = s.prompt
-            if s.emitted_here:
-                tail = self.emitted[s.rid][-s.emitted_here:]
-                prompt = np.concatenate(
-                    [s.prompt, np.asarray(tail, np.int32)])
+            prompt, replay = self._continuation(s)
             requests.append({
                 "rid": int(s.rid),
                 "prompt": [int(t) for t in prompt],
+                "replay": list(replay),
                 "budget": int(s.budget),
                 "rng": [int(x) for x in np.asarray(s.rng).ravel()],
                 "arrival": float("-inf"),  # already served once
@@ -1343,6 +1381,7 @@ class Scheduler:
             requests.append({
                 "rid": int(r.rid),
                 "prompt": [int(t) for t in np.asarray(r.prompt)],
+                "replay": [int(t) for t in r.replay],
                 "budget": int(r.max_new_tokens),
                 "rng": [int(x) for x in np.asarray(r.rng).ravel()],
                 "arrival": float(r.arrival),
@@ -1408,7 +1447,8 @@ class Scheduler:
                     rng=np.asarray(r["rng"], np.uint32),
                     arrival=float(r["arrival"]),
                     tenant=int(r.get("tenant", 0)),
-                    adapter=int(r.get("adapter", 0)))
+                    adapter=int(r.get("adapter", 0)),
+                    replay=tuple(int(t) for t in r.get("replay", ())))
             for r in snap["requests"]
         ]
         self.emitted = {int(k): [int(t) for t in v]

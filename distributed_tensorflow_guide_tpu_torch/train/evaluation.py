@@ -55,26 +55,54 @@ class Evaluator:
 
 
 class EvalHook(BaseHook):
-    """Held-out evaluation once, at the end of the run; ``latest`` holds
-    the metrics. (The JAX package's hook can also evaluate every N steps
-    and skips the end pass after a preemption stop; the port has no
-    caller of the first yet, and its loop no preemption hook, ROADMAP
-    Queue 1 item 11.)"""
+    """Periodic + end-of-run held-out evaluation inside the train loop.
 
-    def __init__(self, evaluator: Evaluator):
+    Runs the evaluator every ``every_steps`` completed steps (0: only at
+    the end) and once at ``end``, skipped if the final step already
+    evaluated, or if the loop stopped for preemption (a multi-batch pass
+    must not eat the SIGTERM grace window the preemption save needs).
+    Every rank runs the pass; the chief logs. ``latest`` holds the most
+    recent metrics and ``history`` every ``(step, metrics)``. With a
+    ``PreemptionHook`` in the same loop, list it FIRST, so that its
+    end-phase drain saves before any end-of-run evaluation.
+    """
+
+    def __init__(self, evaluator: Evaluator, every_steps: int = 0, *,
+                 name: str = "eval"):
+        if every_steps < 0:
+            raise ValueError("every_steps must be >= 0 (0 = end-of-run only)")
         self.evaluator = evaluator
+        self.every_steps = every_steps
+        self.name = name
         self.latest: dict[str, float] | None = None
+        self.history: list[tuple[int, dict[str, float]]] = []
         self._loop = None
+        self._last_eval_step = -1
 
     def begin(self, loop) -> None:
         self._loop = loop
         self.latest = None
+        self.history = []
+        self._last_eval_step = -1
 
-    def end(self, step: int) -> None:
+    def _evaluate(self, done: int) -> None:
         mets = self.evaluator.run(self._loop.state)
         self.latest = mets
+        self.history.append((done, mets))
+        self._last_eval_step = done
         if is_chief():
             body = " ".join(f"{k}={v:.4f}" for k, v in mets.items()
                             if k != "eval_batches")
-            log.info("eval step=%d %s (%d batches)", step, body,
-                     int(mets["eval_batches"]))
+            log.info("eval[%s] step=%d %s (%d batches)", self.name, done,
+                     body, int(mets["eval_batches"]))
+
+    def after_step(self, step: int, metrics) -> None:
+        done = step + 1  # completed-step count, as checkpoint labels
+        if self.every_steps and done % self.every_steps == 0:
+            self._evaluate(done)
+
+    def end(self, step: int) -> None:
+        if getattr(self._loop, "stop_reason", None) == "preemption":
+            return  # the grace window belongs to the preemption save
+        if step != self._last_eval_step:
+            self._evaluate(step)

@@ -21,6 +21,17 @@ none for ``StopAtStepHook(n)`` with k dividing n). A short tail pack goes
 to ``tail_step_fn`` (a one-step sibling of ``step_fn``), one call a
 straggler, or is dropped with a warning. ``dispatch_stats`` counts calls
 and optimizer steps apart.
+
+Deadlines (``utils/watchdog.py``): ``data_deadline_s`` bounds one fetch
+from the data iterator, ``step_deadline_s`` one step call and its hook
+fan-out. A call returns once its work is queued, so a wedged card shows
+at the next blocking read, which the step guard covers. A trip dumps
+every thread's stack and arrives as a recoverable
+:class:`~..utils.watchdog.WatchdogTimeout` (``watchdog_action=
+"interrupt"``) or exits the process (``"kill"``), whose supervisor
+restarts it. An interrupt lands between bytecodes: a host blocked inside
+``torch.cuda.synchronize()`` or a graph replay takes it when the call
+returns (``utils/watchdog.py`` states the limit).
 """
 
 from __future__ import annotations
@@ -65,6 +76,10 @@ class TrainLoop:
         device=None,
         steps_per_call: int = 1,
         tail_step_fn: StepFn | None = None,
+        step_deadline_s: float | None = None,
+        data_deadline_s: float | None = None,
+        watchdog_action: Any = "interrupt",
+        watchdog_diag_path: Any = None,
     ):
         if steps_per_call < 1:
             raise ValueError(
@@ -77,6 +92,10 @@ class TrainLoop:
         self.hooks = list(hooks)
         self.step = start_step
         self.device = resolve_device(device)
+        self.step_deadline_s = step_deadline_s
+        self.data_deadline_s = data_deadline_s
+        self.watchdog_action = watchdog_action
+        self.watchdog_diag_path = watchdog_diag_path
         self._stop = False
         self.stop_reason: str | None = None
         self._last_return: float | None = None
@@ -86,7 +105,10 @@ class TrainLoop:
         self.dispatch_stats = DispatchStats()
 
     def request_stop(self, reason: str = "hook") -> None:
-        """Hook-callable stop signal; the first reason wins."""
+        """Hook-callable stop signal; the first reason wins.
+        ``PreemptionHook`` passes "preemption", so that end-phase hooks
+        (``EvalHook``) skip work the SIGTERM grace window cannot pay for;
+        every rank must pass the same reason."""
         if not self._stop:
             self.stop_reason = reason
         self._stop = True
@@ -158,40 +180,73 @@ class TrainLoop:
 
     def run(self) -> Any:
         """Run to completion; returns the final state. ``end`` hooks fire
-        only on clean completion; a hook's ``cleanup()`` runs on both
-        paths."""
+        only on clean completion (a crashed step may have left the state
+        half-updated, and an end-of-run checkpoint of it would overwrite
+        the last good one); a hook's ``cleanup()`` runs on both paths."""
         self._last_return = None
+        wd = None
+        if self.step_deadline_s or self.data_deadline_s:
+            from distributed_tensorflow_guide_tpu_torch.utils.watchdog import (
+                Watchdog,
+            )
+
+            wd = Watchdog(name="train-loop", action=self.watchdog_action,
+                          diag_path=self.watchdog_diag_path,
+                          recorder=self.rec)
         rec = self.rec
         try:
-            for h in self.hooks:
-                h.begin(self)
-            it: Iterator = iter(self.data)
-            while not self._stop:
-                if rec.enabled:
-                    self._span("span.begin", "data_wait")
-                try:
-                    batch = to_device(next(it), self.device)
-                except StopIteration:
-                    break
-                finally:
+            try:
+                # begin() inside the try: if a later hook's begin raises,
+                # cleanup() still runs for the hooks already begun
+                for h in self.hooks:
+                    h.begin(self)
+                it: Iterator = iter(self.data)
+                while not self._stop:
+                    if wd and self.data_deadline_s:
+                        wd.arm("data iterator", self.data_deadline_s)
                     if rec.enabled:
-                        self._span("span.end", "data_wait")
-                if rec.enabled:
-                    self._span("span.begin", "dispatch")
-                try:
-                    if self.steps_per_call > 1:
-                        self._run_packed(batch)
-                    else:
-                        self._after_step(self._dispatch(self.step_fn,
-                                                        batch))
-                finally:
+                        self._span("span.begin", "data_wait")
+                    try:
+                        batch = to_device(next(it), self.device)
+                    except StopIteration:
+                        break
+                    finally:
+                        if rec.enabled:
+                            self._span("span.end", "data_wait")
+                        if wd:
+                            wd.disarm()
+                            wd.check()
+                    if wd and self.step_deadline_s:
+                        wd.arm("train step", self.step_deadline_s)
                     if rec.enabled:
-                        self._span("span.end", "dispatch")
-            for h in self.hooks:
-                h.end(self.step)
-        finally:
-            for h in self.hooks:
-                cleanup = getattr(h, "cleanup", None)
-                if cleanup is not None:
-                    cleanup()
-        return self.state
+                        self._span("span.begin", "dispatch")
+                    try:
+                        if self.steps_per_call > 1:
+                            self._run_packed(batch)
+                        else:
+                            self._after_step(self._dispatch(self.step_fn,
+                                                            batch))
+                    finally:
+                        if rec.enabled:
+                            self._span("span.end", "dispatch")
+                    if wd:
+                        wd.disarm()
+                        wd.check()
+                for h in self.hooks:
+                    h.end(self.step)
+            finally:
+                if wd is not None:
+                    wd.close()
+                for h in self.hooks:
+                    cleanup = getattr(h, "cleanup", None)
+                    if cleanup is not None:
+                        cleanup()
+            return self.state
+        except KeyboardInterrupt:
+            # an "interrupt" trip arrives as KeyboardInterrupt wherever
+            # the main thread is, possibly inside the cleanup above:
+            # check() re-raises it as the clean WatchdogTimeout; a real
+            # Ctrl-C (no trip recorded) re-raises untouched
+            if wd is not None:
+                wd.check()
+            raise

@@ -1207,3 +1207,120 @@ def test_moe_engine_equals_its_solo_one_shot_on_the_card():
     for i, p in enumerate(prompts):
         out = one(model, p[None], torch.tensor([0, 50 + i]).numpy())
         assert out[0, len(p):].tolist() == got[i], i
+
+
+# ---- checkpoints and engine snapshots on the card -----------------------------
+
+
+def _card_tensors(state):
+    return ([t for t in state.model.state_dict().values()]
+            + [v for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v)])
+
+
+@pytest.mark.gpu
+def test_async_save_of_cuda_state_survives_an_in_place_step(tmp_path):
+    """``save(async_=True)`` copies the CUDA state to pinned host memory
+    before it returns: the in-place Adam step run right after changes
+    nothing that was saved, and the restore (onto ``cuda:0``, in place)
+    gives the state at save time bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+
+    _, state, step = _train_lm(1)
+    packs = _packs(3, 1)
+    state, _ = step(state, {"tokens": packs[0]["tokens"][0]})
+    at_save = [t.clone() for t in _card_tensors(state)]
+    ckpt = Checkpointer(tmp_path / "ck")
+    ckpt.save(1, state, async_=True)
+    state, _ = step(state, {"tokens": packs[1]["tokens"][0]})
+    torch.cuda.synchronize()
+    assert not all(torch.equal(a, b)
+                   for a, b in zip(at_save, _card_tensors(state)))
+    ckpt.wait()
+    ptrs = [t.data_ptr() for t in _card_tensors(state)]
+    ckpt.restore(state)
+    assert [t.data_ptr() for t in _card_tensors(state)] == ptrs
+    for a, b in zip(at_save, _card_tensors(state)):
+        assert b.is_cuda and torch.equal(a, b)
+    ckpt.close()
+
+
+@pytest.mark.gpu
+def test_restore_into_a_captured_multistep_continues_bitwise(tmp_path):
+    """A k-step call captured as a CUDA graph: save after the first call,
+    run on, restore in place and replay the graph (no recapture) over the
+    rest of the stream: bitwise the uninterrupted captured run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+
+    k = 2
+    packs = _packs(4, k, seed=6)
+    _, ref, ref_step = _train_lm(k)
+    for p in packs:
+        ref, _ = ref_step(ref, p)
+    _, run, step = _train_lm(k)
+    run, _ = step(run, packs[0])
+    ckpt = Checkpointer(tmp_path / "ck")
+    ckpt.save(run.step, run)
+    run, _ = step(run, packs[1])
+    run, _ = step(run, packs[2])
+    restored, at = ckpt.restore_latest_valid(run)
+    assert at == k and restored is run
+    for p in packs[1:]:
+        run, _ = step(run, p)
+    assert step.captures == 1 and run.step == ref.step
+    for a, b in zip(_card_tensors(ref), _card_tensors(run)):
+        assert torch.equal(a, b)
+    ckpt.close()
+
+
+@pytest.mark.gpu
+def test_engine_snapshot_restore_is_bitwise_on_the_card(tmp_path):
+    """The captured engine killed after a snapshot and a fresh one
+    restored from it: the residents re-prefill through the captured
+    chunk and decode graphs and every stream is the uninterrupted
+    engine's, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        Request,
+        ServeEngine,
+    )
+
+    cfg, model = _small_lm()
+    gen = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (5, 17, 40, 70, 9, 33)]
+    kw = dict(slots=4, num_blocks=65, block_size=16, prefill_chunk=32,
+              temperature=0.8, top_k=10)
+    want = _engine_streams(ServeEngine(cfg, model, **kw), prompts, 12)
+
+    def fresh():
+        eng = ServeEngine(cfg, model, snapshot_dir=str(tmp_path / "s"),
+                          **kw)
+        return eng
+
+    eng = fresh()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=12,
+                           rng=torch.tensor([0, 50 + i]).numpy()))
+    for _ in range(9):
+        eng.step()
+    label = eng.save_snapshot(async_=True)
+    for _ in range(4):
+        eng.step()
+    eng.close()
+    eng2 = fresh()
+    assert eng2.restore_latest_snapshot() == label
+    eng2.run()
+    eng2.sched.pool.check_leaks()
+    assert eng2.completions() == want
+    assert eng2.fns.captures == {"decode": 1, "prefill": 1}
+    eng2.close()

@@ -252,7 +252,7 @@ def test_recorder_sees_the_request_lifecycle(model):
     assert kinds.count("req.done") == len(PROMPTS)
 
 
-def test_submit_validation_and_deferred_knobs(model):
+def test_submit_validation_and_deferred_knobs(model, tmp_path):
     eng = ServeEngine(TCFG, model, device="cpu", slots=2, num_blocks=5,
                       block_size=8, prefill_chunk=8)
     with pytest.raises(ValueError, match="out of vocabulary"):
@@ -264,10 +264,19 @@ def test_submit_validation_and_deferred_knobs(model):
     with pytest.raises(ValueError, match="adapter"):
         eng.submit(Request(rid=2, prompt=np.array([1, 2], np.int32),
                            max_new_tokens=2, rng=_key(2), adapter=1))
-    for knob in ("chaos", "snapshot_dir", "host_blocks", "persist_cache",
-                 "step_deadline_s", "online_tune"):
+    for knob in ("host_blocks", "persist_cache", "online_tune"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServeEngine(TCFG, model, device="cpu", **ROOMY, **{knob: 1})
+    # the resilience knobs are served now: each builds an engine
+    from distributed_tensorflow_guide_tpu_torch.testing.chaos import (
+        FaultSchedule,
+    )
+    for knob, value in (("chaos", FaultSchedule()),
+                        ("snapshot_dir", str(tmp_path / "snap")),
+                        ("step_deadline_s", 5.0)):
+        eng = ServeEngine(TCFG, model, device="cpu", **ROOMY,
+                          **{knob: value})
+        eng.close()
     # adapters are served now: a bank without lora_rank is refused, as
     # the JAX engine refuses it
     with pytest.raises(ValueError, match="adapters"):

@@ -1334,6 +1334,440 @@ def moe_lm_job(weights: str) -> dict:
 # ---- the launcher test's script ----------------------------------------------
 
 
+# ---- checkpoint, recovery and chaos jobs ---------------------------------------
+# (tests/test_torch_checkpoint.py, test_torch_elastic.py, test_torch_chaos.py)
+
+# the supervised runs' tiny LM: 2 layers, d = 64, Adam; a batch is one
+# stream position's tokens and a float ``scale`` of 1.0 that multiplies
+# the loss, so a poisoned (NaN) batch NaNs the loss
+RL_GEOM = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=64,
+               d_ff=128, max_len=16, causal=True)
+
+
+def rl_state(seed: int = 0):
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.models import (
+        transformer as ttf,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    model = ttf.Transformer(ttf.TransformerConfig(
+        **RL_GEOM, dtype=torch.float32)).init_weights(seed)
+    return TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+
+
+def rl_step(state):
+    """The DP step of ``state``'s model over the scaled LM loss."""
+    from distributed_tensorflow_guide_tpu_torch.models import (
+        transformer as ttf,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+
+    base = ttf.make_lm_loss_fn(state.model, fused_ce=False)
+
+    def loss_fn(module, batch):
+        loss, mets = base(module, batch)
+        return loss * batch["scale"].mean(), mets
+
+    return DataParallel(device="cpu").make_train_step(loss_fn)
+
+
+def rl_batch(pos: int, poison: bool = False) -> dict:
+    toks = np.random.RandomState(pos).randint(0, 64, (2, 16))
+    return {"tokens": toks.astype(np.int64),
+            "scale": np.full((1,), np.nan if poison else 1.0, np.float32)}
+
+
+def rl_data(start: int):
+    return (rl_batch(p) for p in range(start, 10_000))
+
+
+def rl_oracle(positions):
+    """The uninterrupted run over the stream ``positions``."""
+    import torch
+
+    state = rl_state()
+    step = rl_step(state)
+    for p in positions:
+        state, _ = step(state, {k: torch.as_tensor(v)
+                                for k, v in rl_batch(p).items()})
+    return state
+
+
+def rl_equal(a, b) -> bool:
+    """Parameters, Adam moments and step bitwise equal."""
+    import torch
+
+    if a.step != b.step:
+        return False
+    for x, y in zip(a.model.state_dict().values(),
+                    b.model.state_dict().values()):
+        if not torch.equal(x, y):
+            return False
+    for sa, sb in zip(a.optimizer.state.values(),
+                      b.optimizer.state.values()):
+        if sa.keys() != sb.keys() or not all(
+                torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    return True
+
+
+CK_STEPS = 3  # the FSDP job: steps before the save
+
+
+def ckpt_fsdp_job(ckpt_dir: str) -> dict:
+    """FSDP shards saved by every rank (``sharded=True``) and a replicated
+    DP state saved by rank 0, each restored in place into a fresh model of
+    another seed: the restored tensors equal the saved ones bitwise, and
+    one more step from the restore equals one more step from the
+    original."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import mnist_cnn
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.fsdp import FSDP
+    from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+        Checkpointer,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    mesh = build_mesh(MeshSpec(data=2))
+    rank = dist.get_rank()
+    per = FSDP_B // 2
+    batches = [{k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
+               for b in fsdp_batches()]
+    out: dict = {"rank": rank}
+    for tag in ("fsdp", "dp"):
+        strategy = (FSDP(mesh, min_shard_size=FSDP_MIN_SHARD, device="cpu")
+                    if tag == "fsdp" else DataParallel(mesh, device="cpu"))
+
+        def build(seed):
+            model = mnist_cnn.MNISTCNN().init_weights(seed)
+            if tag == "fsdp":
+                model = strategy.shard(model)
+            return TrainState(model, torch.optim.Adam(model.parameters(),
+                                                      lr=1e-3))
+
+        state = build(0)
+        step = strategy.make_train_step(mnist_cnn.make_loss_fn(state.model))
+        for b in batches[:CK_STEPS]:
+            state, _ = step(state, b)
+        ckpt = Checkpointer(os.path.join(ckpt_dir, tag),
+                            sharded=tag == "fsdp")
+        ckpt.save(CK_STEPS, state)
+        saved = {n: t.clone() for n, t in state.model.state_dict().items()}
+        moments = [t.clone() for st in state.optimizer.state.values()
+                   for t in st.values()]
+        state, _ = step(state, batches[CK_STEPS])
+        after = {n: t.clone() for n, t in state.model.state_dict().items()}
+
+        fresh = build(1)
+        # one step first, so the restore writes into live Adam state
+        fresh_step = strategy.make_train_step(
+            mnist_cnn.make_loss_fn(fresh.model))
+        fresh, _ = fresh_step(fresh, batches[0])
+        ptrs = [t.data_ptr() for t in fresh.model.state_dict().values()]
+        restored, at = ckpt.restore_latest_valid(fresh)
+        out[f"{tag}/restored_step"] = at
+        out[f"{tag}/same_object"] = restored is fresh
+        out[f"{tag}/in_place"] = ptrs == [
+            t.data_ptr() for t in fresh.model.state_dict().values()]
+        out[f"{tag}/params_equal"] = all(
+            torch.equal(saved[n], t)
+            for n, t in fresh.model.state_dict().items())
+        out[f"{tag}/moments_equal"] = all(
+            torch.equal(a, b) for a, b in zip(
+                moments, [t for st in fresh.optimizer.state.values()
+                          for t in st.values()]))
+        fresh, _ = fresh_step(fresh, batches[CK_STEPS])
+        out[f"{tag}/continued_equal"] = all(
+            torch.equal(after[n], t)
+            for n, t in fresh.model.state_dict().items())
+        out[f"{tag}/files"] = sorted(os.listdir(
+            os.path.join(ckpt_dir, tag, str(CK_STEPS))))
+        ckpt.close()
+    return out
+
+
+# the multiprocess crash-and-resume job: tests/test_elastic.py's problem
+MP_TOTAL = 12
+MP_CKPT_EVERY = 4
+MP_CRASH_AFTER = 7  # after the first checkpoint (4), before the next (8)
+MP_LR = 0.05
+
+
+def mp_elastic_problem():
+    rng = np.random.RandomState(3)
+    gx = rng.randn(8, 4).astype(np.float32)
+    gw = np.arange(4, dtype=np.float32)
+    return gx, gx @ gw
+
+
+def elastic_dp_job(ckpt_dir: str, crash_after: int) -> dict:
+    """2-rank DP least squares under ``CheckpointHook``: with
+    ``crash_after >= 0`` the ranks exit abruptly after that step (the
+    step-4 checkpoint durable); otherwise they resume from the newest
+    checkpoint and finish."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+        Checkpointer,
+        CheckpointHook,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.hooks import (
+        BaseHook,
+        StopAtStepHook,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    mesh = build_mesh(MeshSpec(data=2))
+    dp = DataParallel(mesh, device="cpu")
+    gx, gy = mp_elastic_problem()
+    per = len(gx) // dist.get_world_size()
+    lo = dist.get_rank() * per
+
+    def make_batch(s):
+        f = 1.0 + s / 10.0
+        return {"x": gx[lo:lo + per] * f, "y": gy[lo:lo + per] * f}
+
+    def loss_fn(module, batch):
+        pred = batch["x"] @ module.weight[0]
+        return ((pred - batch["y"]) ** 2).mean(), {}
+
+    model = torch.nn.Linear(4, 1, bias=False)
+    with torch.no_grad():
+        model.weight.zero_()
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=MP_LR))
+    ckpt = Checkpointer(ckpt_dir, max_to_keep=2)
+    start = ckpt.latest_step() or 0
+    if start:
+        state = ckpt.restore(state)
+
+    class CrashHook(BaseHook):
+        def after_step(self, step, metrics):
+            if crash_after >= 0 and step + 1 == crash_after:
+                ckpt.wait()
+                print("CRASHING", flush=True)
+                os._exit(1)  # abrupt, like a kill: no atexit barriers
+
+    loop = TrainLoop(
+        dp.make_train_step(loss_fn), state,
+        (make_batch(s) for s in range(start, 10_000)),
+        hooks=[CheckpointHook(ckpt, MP_CKPT_EVERY), CrashHook(),
+               StopAtStepHook(MP_TOTAL)],
+        start_step=start, device="cpu")
+    final = loop.run()
+    ckpt.close()
+    return {"resumed_from": start, "steps_done": loop.step,
+            "w": final.model.weight[0].detach().numpy().tolist()}
+
+
+def kill_mid_save_job(ckpt_dir: str, spin_after_save: bool) -> dict:
+    """A big state that async-saves at step 4; with ``spin_after_save``
+    the process then holds still, so the parent's SIGKILL can land
+    mid-write; otherwise it resumes from the newest valid checkpoint and
+    finishes 8 steps."""
+    import pathlib
+    import time
+
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.train.checkpoint import (
+        Checkpointer,
+        CheckpointHook,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.hooks import (
+        BaseHook,
+        StopAtStepHook,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
+
+    big = np.zeros((2 << 20,), np.float32)  # 8 MiB: a save that takes time
+
+    def step_fn(state, batch):
+        return {"w": state["w"] + 1.0, "pad": big}, {}
+
+    ckpt = Checkpointer(ckpt_dir, max_to_keep=3)
+    cleaned = list(ckpt.cleaned_on_start)
+    init = {"w": torch.zeros(()), "pad": big}
+    restored = ckpt.restore_latest_valid(init)
+    state, start = restored if restored else (init, 0)
+
+    class SpinAfterSave(BaseHook):
+        def after_step(self, step, metrics):
+            if spin_after_save and step + 1 == 4:
+                pathlib.Path(ckpt_dir, "saved_marker").touch()
+                time.sleep(600)  # hold still; the parent kills us here
+
+    loop = TrainLoop(
+        step_fn, state, iter(lambda: {"x": 0.0}, 1),
+        hooks=[CheckpointHook(ckpt, 4, async_save=True), SpinAfterSave(),
+               StopAtStepHook(8)],
+        start_step=start, device="cpu")
+    final = loop.run()
+    ckpt.close()
+    return {"resumed_from": start, "w": float(final["w"]),
+            "cleaned": cleaned}
+
+
+# ---- the 4-rank job of tests/test_torch_multislice.py --------------------------
+
+MS_DIM = 6
+MS_K, MS_BATCH, MS_MU, MS_OLR, MS_ILR, MS_ROUNDS = 3, 64, 0.9, 0.7, 0.05, 3
+
+
+def ms_problem(seed: int = 0, n: int = 128):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, MS_DIM).astype(np.float32)
+    w_true = rng.randn(MS_DIM, 1).astype(np.float32)
+    return x, x @ w_true
+
+
+def ms_w0(seed: int = 0) -> np.ndarray:
+    """tests/test_multislice.py's initial (DIM, 1) weights."""
+    rng = np.random.RandomState(100 + seed)
+    return rng.randn(MS_DIM, 1).astype(np.float32) * 0.1
+
+
+def ms_superbatch(x, y, k: int, world_batch: int, seed: int = 7) -> dict:
+    idx = np.random.RandomState(seed).randint(0, len(x), k * world_batch)
+    return {"x": x[idx].reshape(k, world_batch, MS_DIM),
+            "y": y[idx].reshape(k, world_batch, 1)}
+
+
+def _ms_state(momentum: float = 0.0):
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    from distributed_tensorflow_guide_tpu_torch import bridge
+
+    model = torch.nn.Linear(MS_DIM, 1, bias=False)
+    model.load_state_dict(bridge.regression_from_flax({"w": ms_w0()}))
+    return TrainState(model, torch.optim.SGD(model.parameters(), lr=MS_ILR,
+                                             momentum=momentum))
+
+
+def _ms_loss(module, batch):
+    pred = batch["x"] @ module.weight.t()
+    return ((pred - batch["y"]) ** 2).mean(), {}
+
+
+def multislice_job() -> dict:
+    """Two slices of two ranks: the two-tier mesh's layout, sync_period=1
+    against DataParallel over the four ranks, ``MS_ROUNDS`` outer rounds
+    at sync_period ``MS_K`` with Nesterov momentum, the collectives a
+    round, ``outer_float_bytes``."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.collectives import (
+        collectives as cc,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.multislice import (
+        MultiSliceLocalSGD,
+        two_tier_mesh,
+    )
+
+    rank = dist.get_rank()
+    out: dict = {"rank": rank}
+    mesh = two_tier_mesh(MeshSpec(), n_slices=2)
+    out["names"] = list(mesh.names)
+    out["shape"] = list(mesh.shape)
+    out["dcn_index"] = mesh.axis("dcn").index
+    out["data_index"] = mesh.axis("data").index
+    out["slice_ranks"] = list(mesh.axis("data").ranks)
+    try:
+        two_tier_mesh(MeshSpec(), n_slices=3)
+    except ValueError as e:
+        out["three_slices_error"] = str(e)
+    flat = build_mesh(MeshSpec(data=4))
+    try:
+        MultiSliceLocalSGD(flat, 1, device="cpu")
+    except ValueError as e:
+        out["flat_mesh_error"] = str(e)
+
+    x, y = ms_problem()
+    # sync_period 1, outer_lr 1, no momentum: sync DP over four ranks
+    ms = MultiSliceLocalSGD(mesh, 1, device="cpu")
+    dp = DataParallel(flat, device="cpu")
+    tt = ms.replicate(ms.init(_ms_state()))
+    sd = _ms_state()
+    step_ms, step_dp = ms.make_train_step(_ms_loss), dp.make_train_step(
+        _ms_loss)
+    losses = []
+    for i in range(5):
+        sb = ms_superbatch(x, y, 1, 64, seed=7 + i)
+        tt, m_ms = step_ms(tt, ms.shard_batch(sb))
+        rows = ms.shard_batch(sb, leading_time_axis=True)
+        sd, m_dp = step_dp(sd, {k: v[0] for k, v in rows.items()})
+        losses.append([float(m_ms["loss"]), float(m_dp["loss"])])
+    out["p1_losses"] = np.asarray(losses)
+    out["p1_w_ms"] = tt.inner.model.weight.detach().numpy()
+    out["p1_w_dp"] = sd.model.weight.detach().numpy()
+
+    # the outer rounds the parent holds to the reference's two-tier step
+    ms = MultiSliceLocalSGD(mesh, MS_K, outer_lr=MS_OLR,
+                            outer_momentum=MS_MU, device="cpu")
+    tt = ms.replicate(ms.init(_ms_state(momentum=0.9)))
+    step = ms.make_train_step(_ms_loss)
+    round_losses = []
+    for r in range(MS_ROUNDS):
+        tt, m = step(tt, ms.shard_batch(
+            ms_superbatch(x, y, MS_K, MS_BATCH, seed=11 + r)))
+        round_losses.append(float(m["loss"]))
+    out["rounds_w"] = tt.inner.model.weight.detach().numpy()
+    out["rounds_momentum"] = tt.outer_momentum["weight"].numpy()
+    out["rounds_losses"] = np.asarray(round_losses)
+    out["rounds_step"] = tt.inner.step
+    out["float_bytes_momentum"] = ms.outer_float_bytes(tt)
+    out["float_bytes_plain"] = MultiSliceLocalSGD(
+        mesh, 1, device="cpu").outer_float_bytes(
+            ms.init(_ms_state()))
+
+    def calls(k, outer="on"):
+        strat = MultiSliceLocalSGD(mesh, k, outer=outer, device="cpu")
+        st = strat.replicate(strat.init(_ms_state()))
+        with cc.trace_comm() as rec:
+            strat.make_train_step(_ms_loss)(st, strat.shard_batch(
+                ms_superbatch(x, y, k, 64)))
+        return dict(rec.calls)
+
+    out["calls_k1"], out["calls_k4"] = calls(1), calls(4)
+    out["calls_off"] = calls(4, outer="off")
+    return out
+
+
 def _launch_main() -> int:
     import argparse
 
