@@ -288,7 +288,48 @@ and check them.
     ``sync_period=2``, outer Nesterov momentum; the reference's linear
     regression), slice 1 lost after round 3 and back at round 6; the same
     supervisor on the CPU beside it: the same three generations, the
-    stream accounting exactly once, final parameters within 1e-6.
+    stream accounting exactly once, final parameters within 1e-6;
+34. the host spill tier: 16 sampled requests of 200-400 tokens (96 new)
+    through phase 4's engine (8 slots, block 16, captured steps) on a
+    97-block pool with 1024 host blocks, bf16 and then int8: preempted
+    decoding residents spill and swap back in, every stream bitwise the
+    same requests' on a 513-block pool, ``spill_d2h_bytes`` and
+    ``spill_h2d_bytes`` exactly blocks x ``kv_block_bytes``, the pool
+    leaves' addresses and the graphs' captures unchanged; the fused d2h
+    and h2d of 8 and 64 blocks timed (each ended by a synchronize); one
+    resident preempted by hand and timed until it emits again, resumed by
+    swap-in and rebuilt by ``"replay"``; a warm restart: 4 requests
+    sharing a 256-token prefix on a ``persist_cache`` engine, a snapshot,
+    a fresh engine restored from it, and the prefix served again with a
+    new suffix: zero prefix tokens prefilled again (one suffix chunk), its
+    16 blocks swapped in from the host tier, the stream bitwise a cold
+    engine's, TTFT warm against cold;
+35. the fleet: ``FleetScheduler`` with 2 replicas of 4 slots on the card
+    sharing the model, 12 sampled requests of 64-256 tokens (half share a
+    128-token prefix), every stream bitwise one uninterrupted 4-slot
+    engine's, none dropped, the tenant counters a disjoint sum: (a)
+    colocated with prefix routing, (b) disaggregated prefill / decode
+    (every stream migrates with its KV; ``migration_bytes`` the closed
+    form and the decode replica's h2d bytes), (c) the first
+    ``random_fleet`` storm from ``--seed`` with a crash, a stall and a
+    torn handoff, plus a ``slice_loss`` and ``slice_return``: the torn
+    record adopted once, ``torch.cuda.memory_allocated`` after the storm
+    within one replica pool of before it, the ticks from the crash until
+    each of its streams emits again; (d) a fleet snapshot at a third of
+    the tokens restored into a fresh fleet; then one
+    ``make_kv_block_transfer`` of 8 bf16 blocks between 2 gloo ranks
+    sharing the card: the blocks arrive bitwise and ``CommTrace`` counts
+    the closed form's bytes;
+36. the metrics plane: a ``Registry`` over phase 34's engine health,
+    pool, prefix and host-store stats, phase 35's storm fleet and phase
+    27's MoE census; phase 34's event stream as a Chrome trace (one
+    complete span per prefill chunk and per slot of each decode tick),
+    its TTFT breakdown, ``obs.cli`` over its dump; ``reconcile`` of one
+    captured decode replay (CUDA events) against a closed-form cost and
+    the H100 roofline; phase 7's GPT-2 steps under ``MetricsHook`` and
+    ``TensorBoardHook`` (logging every 4th step): parameters bitwise the
+    hook-free run's, the TensorBoard file's losses exactly the loop's,
+    the hooks' ms a step.
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -312,6 +353,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import glob
 import hashlib
 import json
 import math
@@ -433,6 +475,11 @@ from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     Request,
     ServeEngine,
     init_adapter_bank,
+)
+from distributed_tensorflow_guide_tpu_torch.serve.fleet import FleetScheduler
+from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
+    kv_block_bytes,
+    kv_migration_bytes,
 )
 from distributed_tensorflow_guide_tpu_torch.utils.watchdog import Watchdog
 
@@ -3598,7 +3645,8 @@ def _moe_serve(cfg, model, prompts, seed, *, temperature, top_k,
     if label == "moe greedy":
         stats["decode_replay_profile"] = profile_replay(
             eng.fns.decode.step.graph)
-    moe = eng.health()["moe"]
+    health = eng.health()
+    moe = health["moe"]
     eng.close()
     routed = (sum(len(p) for p in prompts)
               + len(prompts) * (MOE_NEW - 1) + moe["stall_slot_ticks"])
@@ -3621,7 +3669,8 @@ def _moe_serve(cfg, model, prompts, seed, *, temperature, top_k,
             differ.append(i)
     tf = [moe_teacher_forced(model, prompts[r], got[r], top_k) for r in got]
     over = [o for t in tf for o in t["over"]]
-    return {"stats": stats, "moe": moe, "engine_equals_solo_one_shot":
+    return {"stats": stats, "moe": moe, "health": health,
+            "engine_equals_solo_one_shot":
             not differ, "differ": differ,
             "max_logit_gap_teacher_forced": max(t["max_gap"] for t in tf),
             "tokens_past_margin": len(over),
@@ -3629,8 +3678,10 @@ def _moe_serve(cfg, model, prompts, seed, *, temperature, top_k,
             "k5": k5, "k6": k6}
 
 
-def check_moe_serving(dense_cfg, dense_model, seed, kind) -> dict:
-    """Phase 27. Returns K5's and K6's launches by regime."""
+def check_moe_serving(dense_cfg, dense_model, seed, kind,
+                      keep: dict | None = None) -> dict:
+    """Phase 27. Returns K5's and K6's launches by regime; leaves the
+    greedy engine's health (its census) in ``keep`` for phase 36."""
     t0 = time.perf_counter()
     rng = np.random.RandomState(seed + 27)
     prompts = [rng.randint(0, 50257, rng.randint(*Q_PROMPTS))
@@ -3663,6 +3714,9 @@ def check_moe_serving(dense_cfg, dense_model, seed, kind) -> dict:
     torch.cuda.empty_cache()
     counts = {"decode_attention": {"split": 0, "chunk": 0},
               "paged_decode_attention": {"split": 0, "chunk": 0}}
+    healths = {name: r.pop("health") for name, r in runs.items()}
+    if keep is not None:
+        keep["moe_health"] = healths["greedy"]
     for r in runs.values():
         for regime in ("split", "chunk"):
             counts["decode_attention"][regime] += r["k5"][regime]
@@ -4734,6 +4788,761 @@ def check_elastic_world(seed, kind) -> None:
              f"CPU run's by {gap} (limit {ELASTIC_TOL})")
 
 
+# ---- phases 34-36: the serving fleet and the metrics plane ------------------
+
+# phase 34: 16 sampled requests of 200-400 tokens, 96 new each, through
+# 8 slots; 96 usable blocks of 16 hold the padded prompts of about 4
+# residents, so decode growth preempts decoding residents (5 times at
+# --seed 0), and 1024 host blocks take every demotion
+SPILL_REQS, SPILL_PROMPTS, SPILL_NEW = 16, (200, 401), 96
+SPILL_BLOCKS, SPILL_HOST_BLOCKS = 97, 1024
+SPILL_CHUNK = 128
+WARM_PREFIX, WARM_REQS = 256, 4
+# phase 35: 2 replicas of 4 slots on the one card, 12 sampled requests of
+# 64-256 tokens (half share a 128-token prefix), 32 new each
+FLEET_SLOTS, FLEET_BLOCKS = 4, 257
+FLEET_REQS, FLEET_PROMPTS, FLEET_NEW = 12, (64, 257), 32
+FLEET_SHARED = 128
+KV_XFER_BLOCKS = 8
+# phase 36: hooked GPT-2 steps (phase 7's configuration), the hooks
+# logging every 4th step (each logged step reads the loss: one wait for
+# the card)
+HOOK_STEPS, HOOK_EVERY = 8, 4
+
+
+def _spill_engine(cfg, model, *, num_blocks, recorder=None, **kw):
+    """Phase 34's engine: 8 slots, block 16, 128-token chunks, sampled
+    (temperature 0.8, top-k 20), captured steps."""
+    return ServeEngine(cfg, model, slots=8, block_size=16,
+                       num_blocks=num_blocks, prefill_chunk=SPILL_CHUNK,
+                       temperature=0.8, top_k=20, recorder=recorder,
+                       device=model.device, **kw)
+
+
+def _drive_clock(eng) -> dict:
+    """Drain ``eng`` on the host clock (events carry real seconds): tick
+    seconds by kind and each request's TTFT from its submit."""
+    ticks, ttft = {"decode": [], "prefill": []}, {}
+    t0 = time.perf_counter()
+    while eng.sched.has_queued or eng.sched.has_resident:
+        events, kind = eng.step(now=time.perf_counter() - t0)
+        if kind == "idle":
+            fail("engine idle with work queued")
+        ticks[kind].append(eng.last_tick_s)
+        for e in events:
+            if e.first:
+                ttft[e.rid] = time.perf_counter() - t0
+    return {"ticks": ticks, "ttft": ttft}
+
+
+def _spill_gates(what, eng, block_bytes) -> dict:
+    """The spill counters of a drained engine, held to the closed form."""
+    h = eng.health()
+    out = {k: h[k] for k in ("preemptions", "spill_out_blocks",
+                             "spill_in_blocks", "spill_d2h_bytes",
+                             "spill_h2d_bytes", "spill_prefetched_blocks",
+                             "spill_resumes", "swapin_tokens_saved")}
+    out["block_bytes"] = block_bytes
+    if (h["spill_resumes"] < 1 or h["spill_d2h_bytes"]
+            != block_bytes * h["spill_out_blocks"]
+            or h["spill_h2d_bytes"] != block_bytes * h["spill_in_blocks"]):
+        fail(f"{what}: spill counters {out} (closed form {block_bytes} "
+             "bytes a block)")
+    eng.sched.check_leaks()
+    if eng.store.live_blocks():
+        fail(f"{what}: {eng.store.live_blocks()} host blocks left")
+    return out
+
+
+def _transfer_ms(eng, n: int) -> dict:
+    """One fused d2h and one fused h2d of ``n`` pool blocks (the same
+    blocks written back), each ended by a synchronize: median ms of 5
+    after a warm-up, and GB/s."""
+    blocks = list(range(1, n + 1))
+    dev = eng.device
+    d2h, h2d = [], []
+    for i in range(6):
+        _sync(dev)
+        t0 = time.perf_counter()
+        payloads = eng.kv.d2h(blocks)  # synchronises before it returns
+        t1 = time.perf_counter()
+        eng.kv.h2d(blocks, payloads)
+        _sync(dev)
+        t2 = time.perf_counter()
+        if i:
+            d2h.append(t1 - t0)
+            h2d.append(t2 - t1)
+    nbytes = n * eng.kv.block_bytes
+    return {"blocks": n, "bytes": nbytes,
+            "d2h_ms": _median_ms(d2h), "h2d_ms": _median_ms(h2d),
+            "d2h_gb_s": nbytes / float(np.median(d2h)) / 1e9,
+            "h2d_gb_s": nbytes / float(np.median(h2d)) / 1e9}
+
+
+def _resume_ms(cfg, model, prompts, seed, want, *, store: bool) -> dict:
+    """Serve ``prompts`` on a roomy pool, preempt one decoding resident
+    by hand, and time from the preemption until it emits again: resumed
+    by swap-in (``store``: the preemption demotes its blocks) or rebuilt
+    by ``"replay"``. Every stream must still be the uninterrupted one."""
+    eng = _spill_engine(cfg, model, num_blocks=513,
+                        host_blocks=SPILL_HOST_BLOCKS if store else 0)
+    _submit(eng, prompts, seed, SPILL_NEW)
+    sd = eng.sched
+    while not (sd.slots and all(s is not None and s.phase == "decode"
+                                and s.emitted_here >= 8
+                                for s in sd.slots)):
+        eng.step()
+    i = max(range(len(sd.slots)), key=lambda j: sd.slots[j].admitted_seq)
+    rid = sd.slots[i].rid
+    n0 = len(sd.emitted[rid])
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    sd._preempt(i)
+    ticks = 0
+    while len(sd.emitted[rid]) == n0:
+        eng.step()
+        ticks += 1
+    ms = 1e3 * (time.perf_counter() - t0)
+    eng.run()
+    if eng.completions() != {r: want[r] for r in eng.completions()}:
+        fail(f"resume by {'swap-in' if store else 'replay'}: a stream "
+             "differs from the uninterrupted engine's")
+    out = {"ms_until_it_emits_again": ms, "ticks": ticks,
+           "spill_resumes": sd.spill_resumes, "steps": _n_steps(eng)}
+    eng.close()
+    eng.sched.check_leaks()
+    if (sd.spill_resumes == 1) != store:
+        fail(f"resume: {sd.spill_resumes} spill resumes, store {store}")
+    return out
+
+
+def _warm_restart(cfg, model, seed, root) -> tuple[dict, int, dict]:
+    """Requests sharing a 256-token prefix on a ``persist_cache`` engine;
+    snapshot, close, restore a fresh engine and serve the prefix again
+    (with a new suffix): its prefix comes back from the host tier by
+    swap-in, zero prefix tokens are prefilled again, and its stream
+    equals a cold engine's. Returns (numbers, engine steps, the warm
+    engine's prefix-index stats)."""
+    rng = np.random.RandomState(seed + 34)
+    prefix = rng.randint(0, 50257, WARM_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.randint(
+        0, 50257, rng.randint(16, 65)).astype(np.int32)])
+        for _ in range(WARM_REQS + 1)]
+    kw = dict(prefix_cache=True, host_blocks=256, persist_cache=True,
+              snapshot_dir=f"{root}/warm")
+    eng = _spill_engine(cfg, model, num_blocks=513, **kw)
+    _submit(eng, prompts[:WARM_REQS], seed, SPILL_NEW)
+    _drive_clock(eng)
+    nodes = eng.sched.prefix.size
+    label = eng.save_snapshot()
+    steps = _n_steps(eng)
+    eng.close()
+
+    def repeat(e):
+        e.submit(Request(rid=100, prompt=prompts[-1],
+                         max_new_tokens=SPILL_NEW,
+                         rng=np.array([seed, 100], np.uint32)))
+        p0, saved0 = e.steps["prefill"], e.sched.prefill_tokens_saved
+        run = _drive_clock(e)
+        return (run["ttft"][100], e.steps["prefill"] - p0,
+                e.sched.prefill_tokens_saved - saved0,
+                e.completions()[100])
+
+    warm = _spill_engine(cfg, model, num_blocks=513, **kw)
+    if warm.restore_latest_snapshot() != label:
+        fail("warm restart: the restore took another snapshot")
+    restored = warm.sched.prefix.size
+    at_restore = _n_steps(warm)
+    in0 = warm.sched.spill_in_blocks
+    warm_ttft, warm_chunks, saved, warm_toks = repeat(warm)
+    swapped = warm.sched.spill_in_blocks - in0
+    prefix_stats = warm.sched.prefix.stats()
+    steps += _n_steps(warm) - at_restore
+    warm.close()
+    warm.sched.check_leaks()
+    cold = _spill_engine(cfg, model, num_blocks=513)
+    cold_ttft, cold_chunks, _, cold_toks = repeat(cold)
+    steps += _n_steps(cold)
+    cold.close()
+    suffix_chunks = -(-len(prompts[-1]) // SPILL_CHUNK) - \
+        WARM_PREFIX // SPILL_CHUNK
+    out = {"prefix_tokens": WARM_PREFIX, "trie_nodes_saved": nodes,
+           "trie_nodes_restored": restored,
+           "blocks_swapped_in": swapped,
+           "prefill_chunks_warm": warm_chunks,
+           "prefill_chunks_cold": cold_chunks,
+           "prefix_tokens_prefilled_again": WARM_PREFIX - saved,
+           "ttft_ms_warm": 1e3 * warm_ttft, "ttft_ms_cold": 1e3 * cold_ttft,
+           "bitwise_equal_cold": warm_toks == cold_toks}
+    if (saved != WARM_PREFIX or warm_chunks != suffix_chunks
+            or restored != nodes or swapped != WARM_PREFIX // 16
+            or warm_toks != cold_toks):
+        fail(f"warm restart: {out}")
+    return out, steps, prefix_stats
+
+
+def check_spill_tier(cfg, model, seed, kind, keep: dict) -> dict:
+    """Phase 34. Returns K6's launches by regime; leaves the bf16 spill
+    engine's health, stats and event stream in ``keep`` for phase 36."""
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    prompts = _snap_prompts(seed + 34, SPILL_REQS, SPILL_PROMPTS)
+    counts = {"split": 0, "chunk": 0}
+
+    def add(what, steps):
+        for r, n in _k6(what, steps, L).items():
+            counts[r] += n
+
+    out = {"requests": SPILL_REQS, "prompt_lengths": list(SPILL_PROMPTS),
+           "new_tokens": SPILL_NEW, "slots": 8, "block_size": 16,
+           "num_blocks": SPILL_BLOCKS, "host_blocks": SPILL_HOST_BLOCKS}
+    root = tempfile.mkdtemp(prefix="dtg_phase34_")
+    try:
+        for kv in (None, "int8"):
+            c = dataclasses.replace(cfg, kv_dtype=kv)
+            name = kv or "bf16"
+            roomy = _spill_engine(c, model, num_blocks=513)
+            _submit(roomy, prompts, seed, SPILL_NEW)
+            DA.reset_launch_counts()
+            _drive_clock(roomy)
+            add(f"spill {name} roomy", _n_steps(roomy))
+            want = roomy.completions()
+            if roomy.sched.preemptions:
+                fail(f"spill {name}: the roomy pool preempted")
+            roomy.close()
+            rec = obs_events.FlightRecorder(capacity=1 << 16) \
+                if kv is None else None
+            eng = _spill_engine(c, model, num_blocks=SPILL_BLOCKS,
+                                host_blocks=SPILL_HOST_BLOCKS, recorder=rec)
+            ptrs = [t.data_ptr() for t in eng.kv.leaves]
+            _submit(eng, prompts, seed, SPILL_NEW)
+            DA.reset_launch_counts()
+            run = _drive_clock(eng)
+            add(f"spill {name}", _n_steps(eng))
+            check_captures(eng.fns, 1)
+            if [t.data_ptr() for t in eng.kv.leaves] != ptrs:
+                fail(f"spill {name}: a pool leaf moved")
+            if eng.completions() != want:
+                fail(f"spill {name}: a stream differs from the roomy "
+                     "pool's")
+            stats = _spill_gates(f"spill {name}", eng,
+                                 kv_block_bytes(c, 16))
+            stats["decode_step_ms"] = _median_ms(run["ticks"]["decode"])
+            stats["bitwise_equal_roomy_pool"] = True
+            stats["transfers"] = [_transfer_ms(eng, n) for n in (8, 64)]
+            out[f"{name}_pool"] = stats
+            if kv is None:
+                keep.update(health=eng.health(),
+                            pool=eng.sched.pool.stats(),
+                            store=eng.store.stats(),
+                            events=rec.events(), steps=dict(eng.steps),
+                            dump=f"{root}/dump.json")
+                rec.dump(keep["dump"])
+                out["resume"] = {}
+                for how, store in (("swap_in", True), ("replay", False)):
+                    DA.reset_launch_counts()
+                    r = _resume_ms(c, model, prompts, seed, want,
+                                   store=store)
+                    add(f"resume by {how}", r["steps"])
+                    out["resume"][how] = r
+            eng.close()
+        DA.reset_launch_counts()
+        out["warm_restart"], steps, keep["prefix"] = _warm_restart(
+            cfg, model, seed, root)
+        add("warm restart", steps)
+        with open(keep["dump"]) as f:
+            keep["dump_text"] = f.read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"spill tier on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"K6 launches by regime (phase 34's drains): "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
+class _FleetRun:
+    """A fleet driven tick by tick on the host clock: every engine object
+    it ever held (a crash replaces one) for K6's count, and the ticks
+    from each crash until each of its streams emits again."""
+
+    def __init__(self, fl):
+        self.fl, self.seen, self.ticks = fl, list(fl.engines), 0
+        self.recovery, self._waiting = [], {}
+
+    def step(self):
+        fl = self.fl
+        owners = {rid: e["owner"] for rid, e in fl._ledger.items()
+                  if not e["done"]}
+        crashes = fl.replica_crashes
+        evs, kind = fl.step(now=float("inf"))
+        self.ticks += 1
+        for e in fl.engines:
+            if all(e is not s for s in self.seen):
+                self.seen.append(e)
+        if fl.replica_crashes > crashes:
+            dead = {t["replica"] for t in fl.timeline
+                    if t["kind"] == "replica_crash"
+                    and t["tick"] == fl._tick - 1}
+            for rid, owner in owners.items():
+                if owner in dead:
+                    self._waiting[rid] = self.ticks
+        for e in evs:
+            if e.rid in self._waiting and e.status == "ok":
+                self.recovery.append(self.ticks - self._waiting.pop(e.rid))
+        return evs, kind
+
+    def run(self):
+        idle = 0
+        while self.fl._has_work():
+            _, kind = self.step()
+            idle = idle + 1 if kind == "idle" else 0
+            if idle > 64:
+                fail("fleet idle with work queued")
+
+    def steps(self) -> int:
+        return sum(_n_steps(e) for e in self.seen)
+
+
+def _fleet(cfg, model, **kw):
+    return FleetScheduler(cfg, model, replicas=["cuda:0", "cuda:0"]
+                          if model.device.type == "cuda" else 2,
+                          slots=FLEET_SLOTS, num_blocks=FLEET_BLOCKS,
+                          block_size=16, prefill_chunk=SPILL_CHUNK,
+                          temperature=0.8, top_k=20, device=model.device,
+                          **kw)
+
+
+def _fleet_submit(fl, prompts, seed):
+    for i, p in enumerate(prompts):
+        fl.submit(Request(rid=i, prompt=p, max_new_tokens=FLEET_NEW,
+                          rng=np.array([seed, i], np.uint32),
+                          tenant=i % 3))
+
+
+def _fleet_gates(what, fl, want) -> dict:
+    """Every stream the uninterrupted engine's, none dropped, the tenant
+    counters a disjoint sum, both tiers of every replica leak-free."""
+    got = fl.completions()
+    h = fl.health()
+    tenants = h["tenants"]
+    out = {"completed": h["completed"], "migrations": h["migrations"],
+           "replica_crashes": h["replica_crashes"],
+           "replica_stalls": h["replica_stalls"],
+           "migration_dups_dropped": h["migration_dups_dropped"],
+           "replicas_shed": h["replicas_shed"],
+           "prefix_route_hits": h["prefix_route_hits"],
+           "replica_faults": h["replica_faults"],
+           "tenants": {t: {k: c[k] for k in ("submitted", "done",
+                                             "preempted")}
+                       for t, c in tenants.items()},
+           "bitwise_equal_single_engine": got == want}
+    if got != want:
+        differ = sorted(r for r in want if got.get(r) != want[r])
+        fail(f"fleet {what}: streams {differ} differ from the single "
+             "engine's")
+    if (any(c["submitted"] != c["done"] for c in tenants.values())
+            or sum(c["submitted"] for c in tenants.values()) != len(want)
+            or h["completed"] != len(want) or h["replica_faults"]):
+        fail(f"fleet {what}: {out}")
+    fl.check_leaks()
+    for e in fl.engines:
+        caps = e.fns.captures
+        if any(n > 1 for n in caps.values()):
+            fail(f"fleet {what}: a replica captured {caps}")
+    return out
+
+
+def _storm(seed) -> FaultSchedule:
+    """The first seeded ``random_fleet`` storm from ``seed`` on with a
+    crash, a stall and a torn handoff, the torn one armed before a later
+    crash or stall re-anchors streams (so its duplicate is made)."""
+    s = seed
+    while True:
+        fc = FaultSchedule.random_fleet(s, max_position=24, replicas=2,
+                                        n_faults=4, min_position=3)
+        kinds = {f.kind for f in fc.pending}
+        torn = [f.position for f in fc.pending
+                if f.kind == "migration_torn"]
+        later = [f.position for f in fc.pending
+                 if f.kind in ("replica_crash", "replica_stall")]
+        if len(kinds) == 3 and min(torn) <= max(later):
+            return fc
+        s += 1
+
+
+def kv_transfer_rank(seed: int) -> dict:
+    """Phase 35's transfer, one of two ranks sharing the card over gloo:
+    8 GPT-2 124M bf16 blocks from slice 0 to slice 1, one ppermute."""
+    from distributed_tensorflow_guide_tpu_torch.parallel.multislice import (
+        make_kv_block_transfer,
+        two_tier_mesh,
+    )
+
+    dev = resolve_device(None)
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    mesh = two_tier_mesh(MeshSpec(), n_slices=2)
+    xfer = make_kv_block_transfer(mesh)
+    nbytes = kv_block_bytes(cfg, 16)
+    payload = torch.from_numpy(np.random.RandomState(seed + 35).randint(
+        0, 256, (KV_XFER_BLOCKS, nbytes)).astype(np.uint8)).to(dev)
+    me = mesh.axis("dcn").index
+    send = payload if me == 0 else torch.zeros_like(payload)
+    xfer(send)  # warm-up: connections and pinned staging
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with cc.trace_comm() as rec:
+            got = xfer(send)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"dcn_index": me, "ms": ms,
+            "bytes": dict(rec.bytes), "wire": dict(rec.wire),
+            "arrived_bitwise": bool(torch.equal(got, payload)),
+            "closed_form": kv_migration_bytes(KV_XFER_BLOCKS, cfg, 16)}
+
+
+def check_fleet(cfg, model, seed, kind, keep: dict) -> dict:
+    """Phase 35. Returns K6's launches by regime; leaves the storm fleet's
+    health in ``keep`` for phase 36."""
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    dev = model.device
+    rng = np.random.RandomState(seed + 35)
+    shared = rng.randint(0, 50257, FLEET_SHARED).astype(np.int32)
+    prompts = []
+    for i in range(FLEET_REQS):
+        p = rng.randint(0, 50257, rng.randint(*FLEET_PROMPTS)).astype(
+            np.int32)
+        if i % 2:
+            p = np.concatenate([shared, p[:64]])
+        prompts.append(p)
+    tokens = FLEET_REQS * FLEET_NEW
+    counts = {"split": 0, "chunk": 0}
+
+    def add(what, steps):
+        for r, n in _k6(what, steps, L).items():
+            counts[r] += n
+
+    # the uninterrupted single engine: same slots, block size and chunk
+    single = ServeEngine(cfg, model, slots=FLEET_SLOTS, block_size=16,
+                         num_blocks=FLEET_BLOCKS, prefill_chunk=SPILL_CHUNK,
+                         temperature=0.8, top_k=20, device=dev)
+    _submit(single, prompts, seed, FLEET_NEW)
+    DA.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    single.run()
+    _sync(dev)
+    single_s = time.perf_counter() - t0
+    add("fleet reference engine", _n_steps(single))
+    want = single.completions()
+    single.close()
+    out = {"replicas": 2, "slots": FLEET_SLOTS, "requests": FLEET_REQS,
+           "new_tokens": FLEET_NEW, "single_engine_tokens_per_s":
+               tokens / single_s}
+    root = tempfile.mkdtemp(prefix="dtg_phase35_")
+    try:
+        # (a) colocated, prefix routing
+        fl = _fleet(cfg, model, prefix_cache=True)
+        _fleet_submit(fl, prompts, seed)
+        run = _FleetRun(fl)
+        DA.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        run.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        add("fleet colocated", run.steps())
+        out["colocated"] = _fleet_gates("colocated", fl, want)
+        out["colocated"]["tokens_per_s"] = tokens / wall
+        fl.close()
+
+        # (b) disaggregated prefill / decode, migration with the KV
+        rec = obs_events.FlightRecorder(capacity=1 << 16)
+        fl = _fleet(cfg, model, roles="disagg", recorder=rec)
+        _fleet_submit(fl, prompts, seed)
+        run = _FleetRun(fl)
+        DA.reset_launch_counts()
+        run.run()
+        add("fleet disagg", run.steps())
+        stats = _fleet_gates("disagg", fl, want)
+        blocks = sum(e.payload["blocks"] for e in rec.events()
+                     if e.kind == "fleet.migrate")
+        decode_h2d = sum(r["spill_h2d_bytes"]
+                         for r in fl.health()["replicas"]
+                         if r["role"] == "decode")
+        closed = kv_migration_bytes(blocks, cfg, 16)
+        stats.update(
+            migration_bytes=fl.migration_bytes, migrated_blocks=blocks,
+            closed_form_bytes=closed, decode_replica_h2d_bytes=decode_h2d,
+            migration_ms_a_record=1e3 * fl.migration_secs / fl.migrations,
+            migration_gb_s=fl.migration_bytes / fl.migration_secs / 1e9)
+        out["disagg"] = stats
+        if (fl.migrations != FLEET_REQS or fl.migration_bytes != closed
+                or decode_h2d != closed):
+            fail(f"fleet disagg: {stats}")
+        fl.close()
+
+        # (c) a seeded storm: crash, stall, torn handoff, slice loss
+        fc = _storm(seed)
+        schedule = [(f.kind, f.position, f.param) for f in fc.pending]
+        torn = sum(k == "migration_torn" for k, _, _ in schedule)
+        world = FaultSchedule([Fault("slice_loss", 8, 1.0),
+                               Fault("slice_return", 14, 1.0)])
+        fl = _fleet(cfg, model, fleet_chaos=fc, world_chaos=world)
+        _fleet_submit(fl, prompts, seed)
+        run = _FleetRun(fl)
+        DA.reset_launch_counts()
+        first = min(f.position for f in fc.pending
+                    if f.kind == "replica_crash")
+        while fl._tick < first:
+            run.step()
+        _sync(dev)
+        mem0 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        run.run()
+        _sync(dev)
+        mem1 = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        add("fleet storm", run.steps())
+        stats = _fleet_gates("storm", fl, want)
+        pool_bytes = FLEET_BLOCKS * kv_block_bytes(cfg, 16)
+        stats.update(schedule=schedule, world=[["slice_loss", 8],
+                                               ["slice_return", 14]],
+                     ticks_from_crash_to_emit=run.recovery,
+                     memory_allocated_before=mem0,
+                     memory_allocated_after=mem1,
+                     replica_pool_bytes=pool_bytes)
+        out["storm"] = stats
+        keep["fleet_health"] = fl.health()
+        crashes = sum(k == "replica_crash" for k, _, _ in schedule)
+        if (fc.pending or world.pending or stats["replica_crashes"]
+                != crashes or stats["replica_stalls"] < 1
+                or stats["migration_dups_dropped"] < 1
+                or stats["migration_dups_dropped"]
+                != torn - fl._torn_pending
+                or not run.recovery or mem1 - mem0 >= pool_bytes):
+            fail(f"fleet storm: {stats}")
+        fl.close()
+
+        # (d) a fleet snapshot mid-run, restored into a fresh fleet
+        fl = _fleet(cfg, model, snapshot_dir=f"{root}/fleet")
+        _fleet_submit(fl, prompts, seed)
+        run = _FleetRun(fl)
+        DA.reset_launch_counts()
+        emitted = 0
+        while emitted < tokens // 3:
+            evs, _ = run.step()
+            emitted += sum(e.status == "ok" for e in evs)
+        t0 = time.perf_counter()
+        label = fl.save_snapshot()
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        steps1 = run.steps()
+        fl.close()
+        fl2 = _fleet(cfg, model, snapshot_dir=f"{root}/fleet")
+        if fl2.restore_latest_snapshot() != label:
+            fail("fleet restore: another snapshot came back")
+        run2 = _FleetRun(fl2)
+        at_restore = run2.steps()
+        run2.run()
+        add("fleet restore", steps1 + run2.steps() - at_restore)
+        stats = _fleet_gates("restore", fl2, want)
+        stats.update(label=label, save_ms=save_ms,
+                     tokens_at_snapshot=emitted)
+        out["restore"] = stats
+        fl2.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # one make_kv_block_transfer between two gloo ranks sharing the card
+    if dev.type == "cuda":
+        res = [r.result for r in run_multiprocess(
+            "chip_smoke:kv_transfer_rank", 2, [seed], timeout=300)]
+        recv = next(r for r in res if r["dcn_index"] == 1)
+        send = next(r for r in res if r["dcn_index"] == 0)
+        out["kv_block_transfer"] = {
+            "blocks": KV_XFER_BLOCKS, "bytes": send["closed_form"],
+            "sender_ms": send["ms"], "receiver_ms": recv["ms"],
+            "trace_bytes": send["bytes"], "trace_wire": send["wire"],
+            "arrived_bitwise": recv["arrived_bitwise"]}
+        if (not recv["arrived_bitwise"] or send["bytes"]
+                != {"ppermute[dcn]": send["closed_form"]}
+                or send["wire"] != {"ppermute[dcn]": send["closed_form"]}):
+            fail(f"kv block transfer: {out['kv_block_transfer']}")
+    print(f"fleet on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"K6 launches by regime (phase 35's drains): "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
+def _decode_cost(eng) -> dict:
+    """Closed-form cost of one decode step of ``eng`` at its residents'
+    lengths: bf16 weights read once, the KV rows each slot attends read
+    once, 2 x parameters x slots FLOPs."""
+    cfg = eng.fns.cfg
+    params = sum(p.numel() for p in eng.model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in eng.model.parameters())
+    row = cfg.num_layers * 2 * cfg.num_heads * cfg.head_dim * 2
+    kv = sum(s.written for s in eng.sched.slots if s is not None) * row
+    return {"flops": 2.0 * params * eng.num_slots,
+            "hbm_bytes_read": float(weight_bytes + kv),
+            "hbm_bytes_written": float(eng.num_slots * row)}
+
+
+def check_metrics_plane(cfg, seed, kind, keep: dict) -> dict:
+    """Phase 36. Returns the K1-K3 launches of its hooked and hook-free
+    GPT-2 steps."""
+    from distributed_tensorflow_guide_tpu_torch.obs import (
+        metrics as obs_metrics,
+    )
+    from distributed_tensorflow_guide_tpu_torch.obs import recon, tracing
+    from distributed_tensorflow_guide_tpu_torch.train.hooks import (
+        MetricsHook,
+        TensorBoardHook,
+    )
+    from distributed_tensorflow_guide_tpu_torch.utils.tb_writer import (
+        SummaryWriter,
+        read_scalars,
+    )
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    out = {}
+    # the registry over phases 34, 35 and 27
+    reg = obs_metrics.Registry()
+    obs_metrics.absorb_engine(reg, keep["health"])
+    obs_metrics.absorb_pool(reg, keep["pool"])
+    obs_metrics.absorb_spill_store(reg, keep["store"])
+    obs_metrics.absorb_prefix(reg, keep["prefix"])
+    obs_metrics.absorb_fleet(reg, keep["fleet_health"])
+    # only phase 27's census: its other counters would overwrite phase
+    # 34's under the same unlabeled names
+    obs_metrics.absorb_engine(reg, {"moe": keep["moe_health"]["moe"]})
+    text = reg.to_prometheus()
+    snap = reg.snapshot()
+    out["exposition_lines"] = len(text.splitlines())
+    moe = [k for k in snap if k.startswith("dtg_moe_expert_load_total")]
+    if (not moe or snap["dtg_serve_spill_resumes_total"] < 1
+            or snap["dtg_fleet_replica_crashes_total"] < 1):
+        fail(f"metrics: the registry misses a series ({len(snap)} "
+             "series)")
+    # phase 34's event stream as a Chrome trace
+    events = keep["events"]
+    trace = tracing.to_chrome_trace(events)
+    json.loads(json.dumps(trace))
+    xs = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    launches = {k: [e for e in events if e.kind == f"{k}.launch"]
+                for k in ("prefill", "decode")}
+    x_prefill = sum(e["name"].startswith("prefill ") for e in xs)
+    x_decode = sum(e["name"].startswith("decode ") for e in xs)
+    want_decode = sum(len(e.payload["slots"]) for e in launches["decode"])
+    out["chrome_trace"] = {"events": len(trace["traceEvents"]),
+                           "complete_spans_prefill": x_prefill,
+                           "complete_spans_decode": x_decode}
+    if (len(launches["prefill"]) != keep["steps"]["prefill"]
+            or len(launches["decode"]) != keep["steps"]["decode"]
+            or x_prefill != len(launches["prefill"])
+            or x_decode != want_decode):
+        fail(f"chrome trace: {out['chrome_trace']}, steps {keep['steps']}")
+    bk = tracing.ttft_breakdown(events)
+    out["ttft_breakdown_ms_median"] = {
+        k: 1e3 * float(np.median([v[k] for v in bk.values()]))
+        for k in ("queue_wait_s", "prefill_s", "first_decode_s")}
+    root = tempfile.mkdtemp(prefix="dtg_phase36_")
+    try:
+        dump = f"{root}/dump.json"
+        with open(dump, "w") as f:
+            f.write(keep["dump_text"])
+        cli = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_tensorflow_guide_tpu_torch.obs.cli", dump,
+             "--chrome", f"{root}/trace.json"],
+            capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        out["obs_cli_rc"] = cli.returncode
+        if cli.returncode:
+            fail(f"obs cli: rc {cli.returncode}: {cli.stderr[-2000:]}")
+
+        # reconcile one captured decode replay
+        model = Transformer(cfg).init_weights(seed).to(dev)
+        eng = _spill_engine(cfg, model, num_blocks=513)
+        _submit(eng, _snap_prompts(seed + 36, 8, SPILL_PROMPTS), seed,
+                SPILL_NEW)
+        while not all(s is not None and s.phase == "decode"
+                      for s in eng.sched.slots):
+            eng.step()
+        eng.step()
+        cost = _decode_cost(eng)
+        ms = decode_replay_ms(eng) if dev.type == "cuda" else 1.0
+        rec = recon.reconcile(cost, ms / 1e3, recon.Roofline.from_env())
+        out["reconcile_decode_replay"] = {"cost": cost, **rec}
+        eng.close()
+        del eng, model
+        torch.cuda.empty_cache()
+
+        # MetricsHook + TensorBoardHook over phase 7's steps
+        B, S = TRAIN_B, TRAIN_S
+        tokens = np.random.RandomState(seed + 36).randint(
+            0, 50257, (B, S)).astype(np.int64)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+        FA.reset_launch_counts()
+
+        def train(hooks):
+            model = Transformer(cfg).init_weights(seed).to(dev)
+            state = TrainState(model, torch.optim.Adam(model.parameters(),
+                                                       lr=1e-3))
+            step = DataParallel(device=dev).make_train_step(
+                make_lm_loss_fn(model))
+            losses = _Losses()
+            _sync(dev)
+            t0 = time.perf_counter()
+            TrainLoop(step, state, iter(lambda: batch, None),
+                      hooks=[StopAtStepHook(HOOK_STEPS), losses, *hooks],
+                      device=dev).run()
+            _sync(dev)
+            ms = 1e3 * (time.perf_counter() - t0) / HOOK_STEPS
+            return model, [x.item() for x in losses.losses], ms
+
+        plain, losses, _ = train([])
+        reg = obs_metrics.Registry()
+        with SummaryWriter(f"{root}/metrics") as w:
+            hooked, hooked_losses, hooked_ms = train(
+                [MetricsHook(reg, every_steps=HOOK_EVERY, writer=w),
+                 TensorBoardHook(f"{root}/tb", every_steps=HOOK_EVERY)])
+        same = all(torch.equal(a, b) for a, b in zip(
+            plain.state_dict().values(), hooked.state_dict().values()))
+        del plain, hooked
+        _, _, plain_ms = train([])  # the hook-free time, after the hooked
+        (tb_file,) = glob.glob(f"{root}/tb/events.out.tfevents.*")
+        rows = read_scalars(tb_file)
+        (m_file,) = glob.glob(f"{root}/metrics/events.out.tfevents.*")
+        m_rows = read_scalars(m_file)
+        out["hooks"] = {
+            "steps": HOOK_STEPS, "hook_free_ms_a_step": plain_ms,
+            "hooked_ms_a_step": hooked_ms,
+            "hooks_ms_a_step": hooked_ms - plain_ms,
+            "tb_losses": [r[1]["loss"] for r in rows],
+            "metrics_rows": [s for s, _ in m_rows],
+            "steps_total": reg.snapshot()["dtg_train_steps_total"],
+            "params_bitwise_equal_hook_free": same}
+        logged = list(range(0, HOOK_STEPS, HOOK_EVERY))
+        if ([s for s, _ in rows] != logged or out["hooks"]["tb_losses"]
+                != [losses[s] for s in logged]):
+            fail(f"TensorBoard losses {rows} != the loop's {losses}")
+        if hooked_losses != losses or not same:
+            fail("hooked training differs from the hook-free run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {n: FA.LAUNCHES[n] for n in K1_K3}
+    if launches != {n: 3 * HOOK_STEPS * cfg.num_layers for n in K1_K3}:
+        fail(f"phase 36 flash launches {launches}")
+    print(f"metrics plane on {kind}: " + json.dumps(out)
+          + f" | phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4787,8 +5596,10 @@ def main() -> int:
         for regime, n in counts.items():
             by_regime[name][regime] += n
     # phases 25 (quantised serving) and 27 (MoE serving, against this
-    # model's engine) on this model too
-    for phase in (check_quantised_serving, check_moe_serving):
+    # model's engine) on this model too; phase 36 reads 27's census
+    keep = {}
+    for phase in (check_quantised_serving,
+                  functools.partial(check_moe_serving, keep=keep)):
         for name, counts in phase(cfg, model, args.seed, kind).items():
             for regime, n in counts.items():
                 by_regime[name][regime] += n
@@ -4847,6 +5658,20 @@ def main() -> int:
         launches[n] += c
     check_elastic_world(args.seed, kind)
     print(f"phases 30-33: {time.perf_counter() - t_resil:.1f} s", flush=True)
+    # phases 34-36: the spill tier and the warm restart, the fleet, the
+    # metrics plane; their K6 and K1-K3 launches join the line
+    t_fleet = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = Transformer(cfg).init_weights(args.seed).to("cuda")
+    for phase in (check_spill_tier, check_fleet):
+        for regime, n in phase(cfg, model, args.seed, kind, keep).items():
+            launches[f"paged_decode_attention.{regime}"] += n
+    del model
+    torch.cuda.empty_cache()
+    for n, c in check_metrics_plane(cfg, args.seed, kind, keep).items():
+        launches[n] += c
+    print(f"phases 34-36: {time.perf_counter() - t_fleet:.1f} s",
+          flush=True)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

@@ -616,3 +616,67 @@ def two_tier_to_flax(state_dict: Mapping, momentum: Mapping, to_flax
                      ) -> tuple[dict, dict]:
     """The inverse of :func:`two_tier_from_flax`."""
     return to_flax(state_dict), to_flax(momentum)
+
+
+# ---- the serving fleet: per-replica weights and KV payloads -----------------
+
+
+def fleet_params_to_flax(state_dict: Mapping, cfg, replicas: int
+                         ) -> list[dict]:
+    """The JAX ``FleetScheduler``'s per-replica ``params`` list, every
+    replica holding the same weights: :func:`params_to_flax` of one
+    state dict, once a replica (the port's fleet shares one model)."""
+    return [params_to_flax(state_dict, cfg) for _ in range(replicas)]
+
+
+def _flax_layer_order(num_layers: int) -> list[int]:
+    """Layers in ``jax.tree.leaves`` order: the pool's keys ``block_0``,
+    ``block_1``, ... sorted as strings (``block_10`` before ``block_2``)."""
+    return sorted(range(num_layers), key=lambda i: f"block_{i}")
+
+
+def _kv_row_views(cfg, dense: bool) -> tuple[int, bool]:
+    per = 4 if cfg.kv_dtype == "int8" else 2
+    # only a float pool on the JAX engine's dense path keeps its rows
+    # (bs, H, hd); its kernel path and every int8 pool hold (H, bs, hd)
+    return per, dense and cfg.kv_dtype != "int8"
+
+
+def kv_payload_from_flax(payload, cfg, *, dense: bool = True
+                         ) -> list[np.ndarray]:
+    """One spilled or migrated block from the JAX engine's layout to the
+    port's: the JAX payload is ``jax.tree.leaves`` of its pool, one array
+    per leaf (layers in :func:`_flax_layer_order`; per layer
+    ``cached_key``, ``cached_value`` and, for int8, ``key_scale``,
+    ``value_scale``), with float K/V rows ``(bs, H, hd)`` on its dense
+    path (``dense``: the JAX engine off the TPU) and ``(H, bs, hd)``
+    otherwise; the port's is per layer ``k``, ``v``[, ``ks``, ``vs``],
+    rows ``(H, bs, hd)`` (``serve/engine.pool_leaves``)."""
+    per, swap = _kv_row_views(cfg, dense)
+    by_layer = {}
+    for j, layer in enumerate(_flax_layer_order(cfg.num_layers)):
+        by_layer[layer] = [np.asarray(a) for a in
+                           payload[j * per:(j + 1) * per]]
+    out = []
+    for layer in range(cfg.num_layers):
+        leaves = by_layer[layer]
+        if swap:
+            leaves[:2] = [np.ascontiguousarray(a.transpose(1, 0, 2))
+                          for a in leaves[:2]]
+        out.extend(leaves)
+    return out
+
+
+def kv_payload_to_flax(payload, cfg, *, dense: bool = True
+                       ) -> list[np.ndarray]:
+    """The inverse of :func:`kv_payload_from_flax`."""
+    per, swap = _kv_row_views(cfg, dense)
+    out = []
+    for layer in _flax_layer_order(cfg.num_layers):
+        leaves = [np.asarray(a) for a in
+                  payload[layer * per:(layer + 1) * per]]
+        if swap:
+            leaves[:2] = [np.ascontiguousarray(a.transpose(1, 0, 2))
+                          for a in leaves[:2]]
+        out.extend(leaves)
+    return out

@@ -242,3 +242,33 @@ class MultiSliceLocalSGD:
             return TwoTierState(state, momentum), mets
 
         return step
+
+
+def make_kv_block_transfer(mesh: Mesh, *, src_slice: int = 0,
+                           dst_slice: int = 1):
+    """The disaggregated prefill -> decode KV handoff as a collective:
+    ``xfer(buf)`` ships a ``(blocks, payload)`` buffer from the rank of
+    slice ``src_slice`` to the rank of slice ``dst_slice`` at the same
+    place inside its slice, as ONE send / receive pair on the ``dcn``
+    process group (a single-hop ``ppermute``: a migration has one
+    producer and one consumer, so no ring). The receiver gets the
+    sender's buffer; every other rank gets zeros. It runs under gloo on
+    the CPU (and when ranks share one card, staged through pinned host
+    memory) and under NCCL where each rank has its own card, and
+    :class:`~..collectives.collectives.CommTrace` counts it as
+    ``ppermute[dcn]``, so its bytes can be held to the migration closed
+    form (``serve/paged_cache.kv_migration_bytes``). The fleet itself
+    moves KV through the host (``serve/fleet.py``), as the JAX package's
+    does; this is the device-to-device path a fleet spread over slices
+    would take. Every rank must call ``xfer``."""
+    n = mesh.axis(DCN_AXIS).size
+    if n < 2:
+        raise ValueError(
+            f"kv block transfer needs >= 2 slices on {DCN_AXIS!r}, "
+            f"got {n}")
+    perm = [(src_slice % n, dst_slice % n)]
+
+    def xfer(buf: torch.Tensor) -> torch.Tensor:
+        return cc.ppermute(buf, DCN_AXIS, perm, mesh=mesh)
+
+    return xfer

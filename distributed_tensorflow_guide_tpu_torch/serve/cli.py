@@ -6,8 +6,11 @@
 Builds a small randomly initialised model (a scheduling demo, not a
 quality demo), submits a staggered mix of prompts, streams every token
 event as it is emitted, then prints the per-request completions and the
-pool/scheduler counters. Runs on the first CUDA card; ``--device cpu``
-runs the same path on the CPU (the kernels' plain versions).
+pool/scheduler counters. ``--host-blocks N`` puts a host spill tier of N
+blocks under each pool; ``--fleet N [--fleet-roles disagg]`` serves
+through an N-replica ``FleetScheduler`` (every replica on the same
+device, sharing the model). Runs on the first CUDA card; ``--device
+cpu`` runs the same path on the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -35,6 +38,20 @@ def main(argv=None) -> None:
                     help="serve the mix multi-LoRA: requests cycle "
                          "through 3 adapters (0 = base) inside the "
                          "shared decode step")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    help="host spill tier of N blocks under each pool: "
+                         "preemption and prefix eviction demote to host "
+                         "RAM and swap back in (watch spill_* in "
+                         "health())")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through an N-replica FleetScheduler "
+                         "(global admission/DRR/routing over N stock "
+                         "engines) instead of a single engine; watch "
+                         "the per-replica healths and fleet counters")
+    ap.add_argument("--fleet-roles", choices=["colocated", "disagg"],
+                    default="colocated",
+                    help="with --fleet: 'disagg' splits prefill/decode "
+                         "roles and ships KV blocks at the phase flip")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     args = ap.parse_args(argv)
@@ -72,13 +89,20 @@ def main(argv=None) -> None:
             delta[0] = 0.0  # adapter 0 is the base model
             bank[name] = delta
     model = Transformer(cfg).init_weights(args.seed).to(device)
-    eng = ServeEngine(cfg, model, slots=args.slots,
-                      num_blocks=args.num_blocks,
-                      block_size=args.block_size,
-                      prefill_chunk=args.prefill_chunk,
-                      temperature=args.temperature, top_k=args.top_k,
-                      prefix_cache=args.prefix_cache, adapters=bank,
-                      device=device)
+    kw = dict(slots=args.slots, num_blocks=args.num_blocks,
+              block_size=args.block_size, prefill_chunk=args.prefill_chunk,
+              temperature=args.temperature, top_k=args.top_k,
+              prefix_cache=args.prefix_cache, adapters=bank,
+              host_blocks=args.host_blocks, device=device)
+    if args.fleet:
+        from distributed_tensorflow_guide_tpu_torch.serve.fleet import (
+            FleetScheduler,
+        )
+
+        eng = FleetScheduler(cfg, model, replicas=args.fleet,
+                             roles=args.fleet_roles, **kw)
+    else:
+        eng = ServeEngine(cfg, model, **kw)
     rng = np.random.RandomState(args.seed)
     sys_prompt = (rng.randint(0, cfg.vocab_size, 16).astype(np.int32)
                   if args.prefix_cache else None)
@@ -100,10 +124,14 @@ def main(argv=None) -> None:
     print("--")
     for rid, toks in sorted(eng.completions().items()):
         print(f"req {rid}: {toks}")
-    print(f"device={device} steps={eng.steps} health={eng.health()}")
+    if args.fleet:
+        print(f"device={device} health={eng.health()}")
+    else:
+        print(f"device={device} steps={eng.steps} health={eng.health()}")
     eng.close()
-    # shutdown contract: every block accounted for, loudly
-    eng.sched.pool.check_leaks()
+    # shutdown contract: every block of every pool and host store
+    # accounted for, loudly
+    (eng.check_leaks if args.fleet else eng.sched.check_leaks)()
     print("pool.check_leaks(): clean")
 
 

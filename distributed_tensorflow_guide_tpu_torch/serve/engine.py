@@ -92,8 +92,14 @@ prefix index) is the JAX package's, copied.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import io
 import json
+import os
 import time
+import zipfile
+import zlib
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -119,7 +125,11 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
 )
 from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
+    BlockStore,
     table_row,
+)
+from distributed_tensorflow_guide_tpu_torch.serve.prefix_index import (
+    CACHE_RID,
 )
 from distributed_tensorflow_guide_tpu_torch.serve.scheduler import (
     DECODE,
@@ -137,11 +147,9 @@ __all__ = ["Event", "Request", "ServeEngine", "EngineOverloaded",
            "WatchdogTimeout", "adapter_bank_shapes", "build_step_fns",
            "init_adapter_bank", "paged_cache_pool", "paged_config"]
 
-# ServeEngine knobs of the JAX engine that this package does not serve
-# yet, and the ROADMAP item (Queue 1) that brings each
+# ServeEngine knob of the JAX engine that this package does not serve
+# yet, and the ROADMAP item (Queue 1) that brings it
 _DEFERRED = {
-    "host_blocks": "item 10 (host spill tier)",
-    "persist_cache": "item 10 (warm cache persistence)",
     "online_tune": "item 16 (autotune)",
 }
 
@@ -201,6 +209,148 @@ def init_adapter_bank(cfg: TransformerConfig, device=None) -> dict:
             for name, (shape, dtype) in adapter_bank_shapes(cfg).items()}
 
 
+def pool_leaves(pool: list[dict]) -> list[torch.Tensor]:
+    """The pool's leaves in payload order: per layer ``k``, ``v`` and,
+    for an int8 pool, the ``ks`` / ``vs`` scale rows."""
+    return [layer[name] for layer in pool
+            for name in ("k", "v", "ks", "vs") if name in layer]
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a pool leaf's rows travel as on the host: the
+    leaf's own, or the raw 16-bit pattern for bfloat16 (numpy has
+    none)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class KVMover:
+    """Moves whole pool blocks between the device pool and host payloads
+    (one numpy array per pool leaf, shaped like one block of it: the
+    :class:`~.paged_cache.BlockStore`'s unit).
+
+    :meth:`d2h` gathers any number of blocks with ONE ``index_select``
+    per leaf into one device staging buffer (leaf-major, each leaf's rows
+    contiguous) and brings it back with ONE copy into a pinned host
+    buffer; :meth:`h2d` packs the payloads into a pinned buffer, sends it
+    with ONE copy and writes each leaf with ONE ``index_copy_``. The
+    pool is written in place, so the captured step graphs, which hold its
+    addresses, read the swapped-in rows at their next replay. Both run on
+    the current stream, ordered with the steps; a d2h waits for its copy
+    before it reads the host buffer, and an h2d waits for the previous
+    one's copy before it refills the pinned buffer. On the CPU the
+    staging buffer is the host buffer and nothing is pinned. There is no
+    per-block fallback: a failed gather or scatter raises."""
+
+    def __init__(self, pool: list[dict], device: torch.device):
+        self.leaves = pool_leaves(pool)
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.row_shapes = [tuple(leaf.shape[1:]) for leaf in self.leaves]
+        self.row_bytes = [int(np.prod(sh)) * leaf.element_size()
+                          for sh, leaf in zip(self.row_shapes, self.leaves)]
+        self.np_dtypes = [_np_dtype(leaf.dtype) for leaf in self.leaves]
+        self.block_bytes = sum(self.row_bytes)
+        self._stage = None                   # device (or CPU) staging
+        self._pinned = {"d2h": None, "h2d": None}
+        self._h2d_done = None                # event of the last h2d copy
+
+    def signature(self) -> list:
+        """Per leaf ``[row shape, dtype]``: what a persisted payload must
+        match to be taken back."""
+        return [[list(sh), str(leaf.dtype)]
+                for sh, leaf in zip(self.row_shapes, self.leaves)]
+
+    def _layout(self, n: int) -> tuple[list[int], int]:
+        offs, at = [], 0
+        for rb in self.row_bytes:
+            offs.append(at)
+            at += -(-(n * rb) // 16) * 16  # 16-byte aligned segments
+        return offs, at
+
+    def _buffer(self, which: str, nbytes: int) -> torch.Tensor:
+        if which == "stage":
+            buf = self._stage
+            if buf is None or buf.numel() < nbytes:
+                buf = self._stage = torch.empty(
+                    nbytes, dtype=torch.uint8, device=self.device)
+            return buf
+        buf = self._pinned[which]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._pinned[which] = torch.empty(
+                nbytes, dtype=torch.uint8, pin_memory=True)
+        return buf
+
+    def _views(self, buf: torch.Tensor, offs: list[int], n: int):
+        return [buf[off:off + n * rb].view(leaf.dtype).view((n,) + sh)
+                for leaf, off, rb, sh in zip(self.leaves, offs,
+                                             self.row_bytes,
+                                             self.row_shapes)]
+
+    @torch.inference_mode()
+    def d2h(self, blocks: list[int]) -> list[list[np.ndarray]]:
+        """Copies of ``blocks``' rows, one payload per block."""
+        n = len(blocks)
+        if not n:
+            return []
+        offs, total = self._layout(n)
+        idx = torch.as_tensor(blocks, dtype=torch.int64).to(self.device)
+        stage = self._buffer("stage", total)
+        for leaf, view in zip(self.leaves, self._views(stage, offs, n)):
+            torch.index_select(leaf, 0, idx, out=view)
+        host = stage
+        if self.cuda:
+            host = self._buffer("d2h", total)
+            host[:total].copy_(stage[:total], non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        raw = host[:total].numpy()
+        return [[raw[off + j * rb:off + (j + 1) * rb].copy()
+                 .view(dt).reshape(sh)
+                 for off, rb, dt, sh in zip(offs, self.row_bytes,
+                                            self.np_dtypes,
+                                            self.row_shapes)]
+                for j in range(n)]
+
+    @torch.inference_mode()
+    def h2d(self, blocks: list[int],
+            payloads: list[list[np.ndarray]]) -> None:
+        """Write ``payloads[j]`` into pool block ``blocks[j]``, in
+        place."""
+        n = len(blocks)
+        if n != len(payloads):
+            raise ValueError(f"{n} blocks for {len(payloads)} payloads")
+        if not n:
+            return
+        offs, total = self._layout(n)
+        if self.cuda:
+            if self._h2d_done is not None:
+                self._h2d_done.synchronize()
+            host = self._buffer("h2d", total)
+        else:
+            host = self._buffer("stage", total)
+        raw = host[:total].numpy()
+        for i, (off, rb, sh) in enumerate(zip(offs, self.row_bytes,
+                                              self.row_shapes)):
+            for j, p in enumerate(payloads):
+                a = np.ascontiguousarray(p[i])
+                if a.nbytes != rb or tuple(a.shape) != sh:
+                    raise ValueError(
+                        f"payload leaf {i} is {a.shape} ({a.nbytes} "
+                        f"bytes), the pool's rows are {sh} ({rb} bytes)")
+                raw[off + j * rb:off + (j + 1) * rb] = a.view(
+                    np.uint8).reshape(-1)
+        stage = host
+        if self.cuda:
+            stage = self._buffer("stage", total)
+            stage[:total].copy_(host[:total], non_blocking=True)
+            self._h2d_done = torch.cuda.Event()
+            self._h2d_done.record()
+        idx = torch.as_tensor(blocks, dtype=torch.int64).to(self.device)
+        for leaf, view in zip(self.leaves, self._views(stage, offs, n)):
+            leaf.index_copy_(0, idx, view)
+
+
 class _Packed:
     """A step's host inputs as one int64 vector: ``fields`` are (name,
     shape, dtype) in order; :meth:`host` packs numpy arrays, :meth:`views`
@@ -247,6 +397,12 @@ class _Step:
     @property
     def captures(self) -> int:
         return 0 if self.step is None else self.step.captures
+
+    def release(self) -> None:
+        """Drop the captured graph (and its private memory pool) and the
+        model view, pool and buffers it was captured over."""
+        self.step = self.model = self.pool = None
+        self.stage = self.static = None
 
     @torch.inference_mode()
     def __call__(self, model, pool, *arrays):
@@ -418,7 +574,9 @@ class ServeEngine:
                  drr_quantum: int | None = None, recorder=None,
                  adapters=None, chaos=None, burst_factory=None,
                  step_deadline_s: float | None = None,
-                 snapshot_dir=None, snapshot_keep: int = 3, device=None,
+                 snapshot_dir=None, snapshot_keep: int = 3,
+                 host_blocks: int = 0, persist_cache: bool = False,
+                 continuations: str | None = None, device=None,
                  **deferred):
         for knob, value in deferred.items():
             if knob not in _DEFERRED:
@@ -433,6 +591,26 @@ class ServeEngine:
                              f"{self.device}")
         if cfg.weight_dtype == "fp8":
             precision.require_fp8(self.device)
+        if host_blocks < 0:
+            raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
+        if persist_cache:
+            if snapshot_dir is None:
+                raise ValueError(
+                    "persist_cache requires ServeEngine(snapshot_dir=...)")
+            if not prefix_cache:
+                raise ValueError(
+                    "persist_cache requires prefix_cache=True (the trie "
+                    "is what indexes the persisted blocks)")
+            if not host_blocks:
+                raise ValueError(
+                    "persist_cache requires host_blocks > 0 (restored "
+                    "cache contents land in the host tier)")
+        if continuations is None:
+            continuations = "replay" if self.device.type == "cuda" \
+                else "prefill"
+        if continuations not in ("prefill", "replay"):
+            raise ValueError(f"continuations must be 'prefill' or "
+                             f"'replay', got {continuations!r}")
         self.fns = build_step_fns(cfg, slots=slots, num_blocks=num_blocks,
                                   block_size=block_size,
                                   prefill_chunk=prefill_chunk,
@@ -451,15 +629,27 @@ class ServeEngine:
             self.adapters = None
         self.num_slots = slots
         self.rec = recorder if recorder is not None else obs_events.current()
+        self.pool = paged_cache_pool(self.model)
+        # the host spill tier: host_blocks > 0 puts a host-RAM store of
+        # that many blocks under the pool. Preemption and trie eviction
+        # then demote instead of destroy, and the scheduler swaps demoted
+        # blocks back in (prefetched ahead of admission) through the
+        # KVMover's fused copies, which write the pool in place and
+        # never touch the step graphs. 0 = off.
+        self.persist_cache = bool(persist_cache)
+        self.store = BlockStore(capacity=host_blocks) if host_blocks else None
+        self.kv = KVMover(self.pool, self.device)
         self.sched = Scheduler(
             slots=slots, num_blocks=num_blocks, block_size=block_size,
             prefill_chunk=prefill_chunk, max_len=self.fns.cfg.max_len,
             max_queue=max_queue, prefix_cache=prefix_cache,
             tenant_quotas=tenant_quotas, drr_quantum=drr_quantum,
+            host_store=self.store,
+            cache_io=(SimpleNamespace(d2h_many=self.kv.d2h,
+                                      h2d_many=self.kv.h2d)
+                      if self.store is not None else None),
             recorder=self.rec)
-        if self.device.type == "cuda":
-            self.sched.continuations = "replay"
-        self.pool = paged_cache_pool(self.model)
+        self.sched.continuations = continuations
         self._trash_row = table_row(
             [], self.fns.n_blk, self.sched.pool.trash_block)
         self.steps = {"decode": 0, "prefill": 0, "idle": 0}
@@ -558,6 +748,38 @@ class ServeEngine:
         boundary. Returns False for unknown/already-terminal rids."""
         return self.sched.cancel(rid)
 
+    # ---- stream export / adoption (the fleet's migration seam) -----------
+
+    def export_stream(self, rid: int, *, with_kv: bool = True) -> dict:
+        """Detach a live stream into a portable migration record for
+        another replica's :meth:`adopt_stream`. ``with_kv=True`` copies
+        the stream's written KV blocks to the host (one fused gather)
+        BEFORE the scheduler frees them, so a decode-phase stream resumes
+        at the target by swap-in; ``with_kv=False`` ships the
+        continuation alone, in the engine's continuations form (the
+        target rebuilds the cache: the same stream bitwise either way).
+        ``payload_bytes`` is what the transfer moves."""
+        keep = self.sched.migratable_blocks(rid) if with_kv else []
+        payloads = self.kv.d2h(keep) if keep else []
+        record = self.sched.detach_stream(rid)
+        record["payloads"] = payloads
+        record["payload_bytes"] = sum(
+            int(a.nbytes) for p in payloads for a in p)
+        return record
+
+    def adopt_stream(self, record: dict) -> None:
+        """Adopt a stream another replica exported. KV payloads land in
+        THIS engine's host spill store and the stream resumes by the
+        normal swap-in path at its next admission; ``submitted`` is never
+        recounted. A record of the other continuations form raises
+        (:meth:`~.scheduler.Scheduler.attach_stream`)."""
+        if record.get("payloads") and self.store is None:
+            raise RuntimeError(
+                "adopting KV payloads needs ServeEngine(host_blocks>0) "
+                "(the adoption landing pad); export with_kv=False to "
+                "rebuild the cache instead")
+        self.sched.attach_stream(record)
+
     # ---- the tick --------------------------------------------------------
 
     def step(self, now: float = 0.0) -> tuple[list[Event], str]:
@@ -577,6 +799,10 @@ class ServeEngine:
             self._apply_chaos(tick, now)
         self._release_pressure(tick)
         events = [Event(now, *t) for t in self.sched.sweep(now)]
+        if self.store is not None:
+            # queued spilled continuations' h2d copies land now, ahead of
+            # the admission that resumes them
+            self.sched.prefetch()
         self.sched.admit(now)
         kind, arg = self.sched.plan()
         launch = None
@@ -865,6 +1091,19 @@ class ServeEngine:
             "prefill_tokens_saved": sd.prefill_tokens_saved,
             "prefix_evictions": sd.prefix_evictions,
             "prefix_nodes": sd.prefix.size if sd.prefix is not None else 0,
+            "spill_out_blocks": sd.spill_out_blocks,
+            "spill_in_blocks": sd.spill_in_blocks,
+            "spill_d2h_bytes": sd.spill_d2h_bytes,
+            "spill_h2d_bytes": sd.spill_h2d_bytes,
+            "spill_prefetched_blocks": sd.spill_prefetched_blocks,
+            "spill_resumes": sd.spill_resumes,
+            "swapin_tokens_saved": sd.swapin_tokens_saved,
+            "migrated_out": sd.migrated_out,
+            "migrated_in": sd.migrated_in,
+            "host_blocks": (self.store.live_blocks()
+                            if self.store is not None else 0),
+            "host_bytes": (self.store.bytes_stored()
+                           if self.store is not None else 0),
             "tenants": {t: dict(c) for t, c in sorted(sd.tenants.items())},
             "last_tick_s": self.last_tick_s,
             "ticks": self._tick,
@@ -898,6 +1137,8 @@ class ServeEngine:
         if not self._ckpt.save(label, {"blob": blob}, async_=async_):
             return None
         self._last_snap = label
+        if self.persist_cache:
+            self._save_cache_contents(label)
         if self.rec.enabled:
             self.rec.emit(
                 "snapshot.save", cat="serve", actor="engine",
@@ -905,6 +1146,118 @@ class ServeEngine:
                          "requests": len(state["sched"]["requests"]),
                          "async": bool(async_)})
         return label
+
+    def _cache_file(self, label: int) -> str:
+        return os.path.join(str(self.snapshot_dir),
+                            f"cache_{int(label)}.npz")
+
+    def _save_cache_contents(self, label: int) -> int:
+        """Persist the prefix trie's PAYLOADS (device-resident blocks
+        copied to the host in one fused gather, spilled ones straight
+        from the host tier) next to snapshot ``label`` as one npz plus a
+        CRC sidecar (``cache_<label>.crc``): a restored engine takes them
+        into its host tier and re-prefills ZERO cached-prefix tokens.
+        Returns the number of nodes written."""
+        sd = self.sched
+        walked = list(sd.prefix.walk())
+        on_dev = [node.block for _, _, node in walked
+                  if node.block is not None]
+        copies = iter(self.kv.d2h(on_dev))
+        nodes, arrays = [], {}
+        for j, (adapter, path, node) in enumerate(walked):
+            payload = (next(copies) if node.block is not None
+                       else sd.store.get(node.host))
+            nodes.append({"adapter": int(adapter),
+                          "path": [int(t) for t in path]})
+            for k, a in enumerate(payload):
+                arrays[f"n{j}_l{k}"] = np.asarray(a)
+        meta = json.dumps({"version": 1, "label": int(label),
+                           "leaves": self.kv.signature(), "nodes": nodes})
+        path = self._cache_file(label)
+        buf = io.BytesIO()
+        np.savez(buf, meta=np.frombuffer(meta.encode("utf-8"), np.uint8),
+                 **arrays)
+        raw = buf.getvalue()
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(raw)
+        os.replace(tmp, path)
+        with open(path[:-4] + ".crc", "w") as f:
+            f.write(str(zlib.crc32(raw)))
+        # trim cache files alongside the checkpointer's max_to_keep
+        keep = {self._cache_file(st) for st in self._ckpt.all_steps()}
+        for old in glob.glob(os.path.join(str(self.snapshot_dir),
+                                          "cache_*.npz")):
+            if old not in keep:
+                for q in (old, old[:-4] + ".crc"):
+                    try:
+                        os.remove(q)
+                    except FileNotFoundError:
+                        pass
+        if self.rec.enabled:
+            self.rec.emit("snapshot.cache_save", cat="serve",
+                          actor="engine",
+                          payload={"label": int(label),
+                                   "nodes": len(nodes),
+                                   "bytes": len(raw)})
+        return len(nodes)
+
+    def _restore_cache_contents(self, label: int) -> int:
+        """Warm-restore the cache file of snapshot ``label`` into the
+        HOST tier: every node re-enters the trie as a spilled entry (no
+        device block held) and is promoted by swap-in when a claim wants
+        it. A missing file, a CRC mismatch, another pool's leaf signature
+        or a truncated payload restores a cold cache instead (the
+        continuations re-prefill; never a wrong token). Returns the
+        number of nodes restored."""
+        sd = self.sched
+        path = self._cache_file(label)
+        sig = self.kv.signature()
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+            with open(path[:-4] + ".crc") as f:
+                want = int(f.read().strip())
+            if zlib.crc32(raw) != want:
+                raise ValueError("cache file CRC mismatch")
+            data = np.load(io.BytesIO(raw))
+            meta = json.loads(bytes(data["meta"]).decode("utf-8"))
+            if meta.get("version") != 1 or meta["leaves"] != sig:
+                raise ValueError("cache file leaf signature mismatch")
+            payloads = []
+            for j in range(len(meta["nodes"])):
+                payload = [np.asarray(data[f"n{j}_l{k}"])
+                           for k in range(len(sig))]
+                for a, rb, (shape, _) in zip(payload, self.kv.row_bytes,
+                                             sig):
+                    if list(a.shape) != shape or a.nbytes != rb:
+                        raise ValueError(
+                            "cache file node payload shape mismatch")
+                payloads.append(payload)
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            if self.rec.enabled:
+                self.rec.emit("snapshot.cache_restore_miss", cat="serve",
+                              actor="engine",
+                              payload={"label": int(label),
+                                       "error": str(e)})
+            return 0
+        restored = 0
+        for nd, payload in zip(meta["nodes"], payloads):
+            h = sd.store.put(CACHE_RID, payload)
+            if h is None:
+                break  # host tier full: keep what fits
+            if sd.prefix.insert_spilled(nd["path"], h,
+                                        adapter=int(nd["adapter"])):
+                restored += 1
+            else:
+                sd.store.free(CACHE_RID, [h])
+        if self.rec.enabled:
+            self.rec.emit("snapshot.cache_restore", cat="serve",
+                          actor="engine",
+                          payload={"label": int(label),
+                                   "nodes": restored})
+        return restored
 
     def restore_latest_snapshot(self) -> int | None:
         """Restore the newest VALID snapshot (a truncated or CRC-corrupt
@@ -926,6 +1279,11 @@ class ServeEngine:
         state = json.loads(
             np.asarray(tree["blob"], np.uint8).tobytes().decode("utf-8"))
         self.sched.restore_state(state["sched"])
+        if self.persist_cache:
+            # warm the trie BEFORE the first admit, so every restored
+            # continuation claims its cached prefix and re-prefills only
+            # its suffix
+            self._restore_cache_contents(label)
         self._tick = int(state["tick"])
         for k, v in state["steps"].items():
             self.steps[k] = int(v)
@@ -939,10 +1297,22 @@ class ServeEngine:
 
     def close(self) -> None:
         """Release background resources (watchdog thread, checkpointer)
-        and drop the prefix cache's block references, so the scheduler's
+        and drop the prefix cache's block references, device AND host
+        tier, plus any banked spill records, so the scheduler's
         ``check_leaks()`` audits clean after shutdown."""
         self.sched.release_prefix_cache()
+        if self.store is not None:
+            self.sched.release_spill_store()
         if self._watchdog is not None:
             self._watchdog.close()
         if self._ckpt is not None:
             self._ckpt.close()
+        # the device side goes too: the graphs, the pool and the staging
+        # buffers (a fleet replaces a crashed replica's engine, and its
+        # pool must not outlive it on the card); a step a caller swapped
+        # in for its own has nothing of the engine's to release
+        for step in (self.fns.decode, self.fns.prefill,
+                     self.fns.decode_fn, self.fns.prefill_fn):
+            if isinstance(step, _Step):
+                step.release()
+        self.pool = self.kv = None

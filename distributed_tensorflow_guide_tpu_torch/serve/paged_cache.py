@@ -345,3 +345,22 @@ def table_row(blocks: list[int], blocks_per_seq: int,
     row = np.full((blocks_per_seq,), trash, np.int32)
     row[:len(blocks)] = np.asarray(blocks, np.int32)
     return row
+
+
+def kv_block_bytes(cfg, block_size: int) -> int:
+    """Bytes one pool block occupies as a host payload (the spill tier's
+    and a migration's unit): per layer the K and V rows, ``(H,
+    block_size, hd)`` each at the cache dtype, plus for an int8 cache
+    the two f32 scale rows ``(H, 1, block_size)``. At GPT-2 124M with
+    block size 16 a bf16 block is 12 x 2 x 12 x 16 x 64 x 2 = 589,824
+    bytes."""
+    item = torch.empty((), dtype=cfg.cache_dtype).element_size()
+    rows = 2 * cfg.num_heads * block_size * cfg.head_dim * item
+    if cfg.kv_dtype == "int8":
+        rows += 2 * cfg.num_heads * block_size * 4
+    return cfg.num_layers * rows
+
+
+def kv_migration_bytes(n_blocks: int, cfg, block_size: int) -> int:
+    """Bytes a migration of ``n_blocks`` written blocks moves."""
+    return n_blocks * kv_block_bytes(cfg, block_size)

@@ -398,6 +398,9 @@ class Scheduler:
                     resumed.phase = DECODE
                     resumed.written = int(record["written"])
                     resumed.pending = int(record["pending"])
+                    # the swapped-in rows already hold every replay token
+                    # (a mid-replay slot is never spilled): nothing to feed
+                    resumed.replay = []
                     self.spill_resumes += 1
                     self.swapin_tokens_saved += int(record["written"])
                     if self.rec.enabled:
@@ -633,8 +636,14 @@ class Scheduler:
         (phase DECODE, zero re-prefill) instead of re-prefilling.
         Only decode-phase victims qualify — a mid-prefill victim has
         cheap state to rebuild and its partial chunks are not all
-        block-aligned.  Returns False (caller frees destructively) when
-        the hierarchy is off or the store cannot take the copies."""
+        block-aligned.  A victim still feeding back its replay tokens is
+        refused too: a spill record holds written rows and one pending
+        token, not the rest of a replay, so the destructive preempt
+        takes it and its ``"replay"`` continuation (prompt re-prefilled
+        in its own chunks, every fed and emitted token fed back through
+        decode steps) rebuilds the same rows with the same kernels.
+        Returns False (caller frees destructively) when the hierarchy is
+        off or the store cannot take the copies."""
         if (self.store is None or slot.phase != DECODE or slot.written < 1
                 or slot.replay):
             return False
@@ -1002,8 +1011,7 @@ class Scheduler:
                                    "spilled": spilled,
                                    "tenant": slot.tenant}, t=self.now)
 
-    def _continuation(self, slot: _Slot, mode: str | None = None
-                      ) -> tuple[np.ndarray, tuple]:
+    def _continuation(self, slot: _Slot) -> tuple[np.ndarray, tuple]:
         """A resident's continuation as (prompt, replay): its residency's
         prompt and every token it fed or emitted since, either all to
         prefill (``"prefill"``) or the tokens to feed back through decode
@@ -1011,7 +1019,7 @@ class Scheduler:
         tail = list(slot.replayed)
         if slot.emitted_here:
             tail += self.emitted[slot.rid][-slot.emitted_here:]
-        if (mode or self.continuations) == "replay":
+        if self.continuations == "replay":
             return slot.prompt, tuple(int(t) for t in tail)
         if not tail:
             return slot.prompt, ()
@@ -1023,12 +1031,14 @@ class Scheduler:
         """Device blocks whose contents must travel for ``rid`` to resume
         by swap-in on another replica: the WRITTEN blocks of a resident
         decode-phase slot, in position order.  Empty for mid-prefill
-        residents and queued requests — their continuation re-prefills
-        at the target, which lands on the same stream bitwise anyway
-        (position-derived sampling keys)."""
+        residents, residents still feeding back replay tokens (as
+        :meth:`_demote_slot` refuses them) and queued requests — their
+        continuation rebuilds the cache at the target, which lands on
+        the same stream bitwise anyway (position-derived sampling
+        keys)."""
         for s in self.slots:
             if s is not None and s.rid == rid:
-                if s.phase != DECODE or s.written < 1:
+                if s.phase != DECODE or s.written < 1 or s.replay:
                     return []
                 return list(s.blocks[:blocks_for(s.written,
                                                  self.block_size)])
@@ -1039,16 +1049,21 @@ class Scheduler:
         ``_preempt`` continuation transform, except the continuation
         leaves this scheduler entirely instead of re-queueing here.
         Every local hold is released (pool blocks; a queued spilled
-        continuation drops its spill record — the target re-prefills);
-        the record carries everything :meth:`attach_stream` needs to
-        continue the stream bitwise elsewhere.  Emitted tokens and
+        continuation drops its spill record).  The record carries
+        everything :meth:`attach_stream` needs to continue the stream
+        bitwise elsewhere, in this scheduler's ``continuations`` form
+        (``record["form"]``): ``"prefill"`` puts every fed and emitted
+        token into ``prompt``, ``"replay"`` keeps the residency's prompt
+        and lists them in ``replay``, to be fed back through decode steps
+        by a target that rebuilds the cache.  Emitted tokens and
         lifecycle meta TRAVEL with the stream (popped here, installed
         there), so fleet-aggregated per-tenant counters stay a disjoint
         sum: ``submitted`` counted once at the source, the terminal
         status once at wherever the stream finishes.  KV payloads do NOT
-        travel here — the engine d2h-copies :meth:`migratable_blocks`
-        BEFORE calling this and attaches them to the returned record.
-        Raises KeyError for unknown or terminal rids."""
+        travel here — the engine copies :meth:`migratable_blocks` to the
+        host BEFORE calling this and attaches them to the returned
+        record; without them the target rebuilds the cache from the
+        continuation.  Raises KeyError for unknown or terminal rids."""
         if rid in self.finished:
             raise KeyError(
                 f"rid {rid} is terminal ({self.finished[rid]}); "
@@ -1056,7 +1071,7 @@ class Scheduler:
         record: dict | None = None
         for i, s in enumerate(self.slots):
             if s is not None and s.rid == rid:
-                cont_prompt, _ = self._continuation(s, "prefill")
+                cont_prompt, replay = self._continuation(s)
                 self.pool.free(rid, s.blocks)
                 self.slots[i] = None
                 # migration IS preemption from this tenant's viewpoint:
@@ -1064,6 +1079,7 @@ class Scheduler:
                 self._tc(s.tenant)["preempted"] += 1
                 record = {
                     "rid": rid, "prompt": cont_prompt,
+                    "replay": list(replay),
                     "budget": int(s.budget), "rng": s.rng,
                     "arrival": float("-inf"),  # already served once
                     "tenant": int(s.tenant), "adapter": int(s.adapter),
@@ -1077,11 +1093,14 @@ class Scheduler:
                     if self.store is not None:
                         self._drop_spill_record(rid)
                     self.queue.pop(j)
+                    prompt = np.asarray(r.prompt, np.int32)
+                    replay = [int(t) for t in r.replay]
+                    if self.continuations == "prefill" and replay:
+                        prompt = np.concatenate(
+                            [prompt, np.asarray(replay, np.int32)])
+                        replay = []
                     record = {
-                        "rid": rid,
-                        "prompt": np.concatenate([
-                            np.asarray(r.prompt, np.int32),
-                            np.asarray(r.replay, np.int32)]),
+                        "rid": rid, "prompt": prompt, "replay": replay,
                         "budget": int(r.max_new_tokens), "rng": r.rng,
                         "arrival": float(r.arrival),
                         "tenant": int(r.tenant),
@@ -1091,6 +1110,7 @@ class Scheduler:
                     break
         if record is None:
             raise KeyError(f"rid {rid} not live on this scheduler")
+        record["form"] = self.continuations
         record["emitted"] = list(self.emitted.pop(rid, []))
         record["first_emit"] = bool(self.first_emit.pop(rid, False))
         m = self.meta.pop(rid, None)
@@ -1113,18 +1133,22 @@ class Scheduler:
                             emitted=(), tenant: int = 0, adapter: int = 0,
                             first_emit: bool | None = None,
                             meta=None,
-                            arrival: float = float("-inf")) -> dict:
+                            arrival: float = float("-inf"),
+                            replay=None) -> dict:
         """Build an :meth:`attach_stream`-compatible record WITHOUT a
         source scheduler — the supervisor-side continuation transform
         for a replica that died with no orderly :meth:`detach_stream`.
+        ``budget`` is the remaining token budget and ``emitted`` the
+        stream's FULL emitted history (it travels with the record so
+        fleet-merged completions stay a disjoint sum).  The record's form
+        follows ``replay``: None makes a ``"prefill"`` record, whose
         ``prompt`` must already be the continuation prompt (the base
-        prompt at dispatch plus every token observed since), ``budget``
-        the remaining token budget, and ``emitted`` the stream's FULL
-        emitted history (it travels with the record so fleet-merged
-        completions stay a disjoint sum).  KV never survives a hard
-        crash, so the record carries no payloads: the adopter
-        re-prefills, which position-derived sampling keys make bitwise
-        identical to the uninterrupted stream."""
+        prompt at dispatch plus every token observed since); a sequence
+        makes a ``"replay"`` record, whose ``prompt`` is the base prompt
+        and ``replay`` the tokens to feed back after it.  KV never
+        survives a hard crash, so the record carries no payloads: the
+        adopter rebuilds the cache, which position-derived sampling keys
+        make bitwise identical to the uninterrupted stream."""
         if budget < 1:
             raise ValueError(
                 f"rid {rid}: a continuation needs budget >= 1, got "
@@ -1133,6 +1157,8 @@ class Scheduler:
         return {
             "rid": int(rid),
             "prompt": np.asarray(prompt, np.int32).reshape(-1),
+            "replay": [] if replay is None else [int(t) for t in replay],
+            "form": "prefill" if replay is None else "replay",
             "budget": int(budget),
             "rng": np.asarray(rng, np.uint32),
             "arrival": float(arrival),
@@ -1147,16 +1173,30 @@ class Scheduler:
 
     def attach_stream(self, record: dict) -> None:
         """Adopt a migrated stream: install its identity maps and queue
-        the continuation at the FRONT (it was already served elsewhere).
-        KV payloads (if any) are banked into the host spill store as a
-        spill record, so admission resumes the stream by swap-in — the
-        same bytes the source replica wrote, which is why the continued
-        stream is bitwise the uninterrupted one.  All-or-nothing: a full
-        store rolls back every put and raises RuntimeError with no state
-        change.  Deliberately bypasses :meth:`submit` — ``submitted``
-        was counted at the source and must never recount here (the
-        fleet-aggregation conservation pin)."""
+        the continuation at the FRONT (it was already served elsewhere),
+        its ``replay`` tokens as ``Request.replay``.  The record's form
+        (``record["form"]``, ``"prefill"`` when absent: the JAX engine's
+        records carry none) must be this scheduler's ``continuations``:
+        a ``"prefill"`` record would re-prefill emitted tokens on an
+        engine whose chunk and decode kernels give their rows other bits,
+        and a ``"replay"`` record would feed tokens back where the
+        scheduler prefills them, so a mismatch raises ValueError rather
+        than being converted.  KV payloads (if any) are banked into the
+        host spill store as a spill record, so admission resumes the
+        stream by swap-in — the same bytes the source replica wrote,
+        which is why the continued stream is bitwise the uninterrupted
+        one.  All-or-nothing: a full store rolls back every put and
+        raises RuntimeError with no state change.  Deliberately bypasses
+        :meth:`submit` — ``submitted`` was counted at the source and
+        must never recount here (the fleet-aggregation conservation
+        pin)."""
         rid = int(record["rid"])
+        form = record.get("form", "prefill")
+        if form != self.continuations:
+            raise ValueError(
+                f"rid {rid}: a {form!r} continuation record cannot be "
+                f"adopted by a scheduler whose continuations are "
+                f"{self.continuations!r}")
         if (rid in self.finished
                 or any(s is not None and s.rid == rid
                        for s in self.slots)
@@ -1199,7 +1239,8 @@ class Scheduler:
             rng=np.asarray(record["rng"], np.uint32),
             arrival=float(record.get("arrival", float("-inf"))),
             tenant=int(record.get("tenant", 0)),
-            adapter=int(record.get("adapter", 0))))
+            adapter=int(record.get("adapter", 0)),
+            replay=tuple(int(t) for t in record.get("replay", ()))))
         self.migrated_in += 1
         if self.rec.enabled:
             self.rec.emit("req.migrate_in", cat="serve",

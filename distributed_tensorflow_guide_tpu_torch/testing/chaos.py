@@ -12,8 +12,9 @@ of ``chip_smoke.py``).
 
 The schedules are pure data drawn from ``np.random.RandomState(seed)`` in
 the JAX package's order, so a seed gives the port the reference's faults,
-fault for fault. The fleet kinds are scheduled here and applied by the
-fleet, which the port does not have yet.
+fault for fault. The fleet kinds are scheduled here and applied by
+``serve/fleet.py``'s ``FleetScheduler`` (on the card, phase 35 of
+``chip_smoke.py``).
 
 Fault classes and where they fire:
 
@@ -82,8 +83,9 @@ fleet storm with :meth:`random_fleet`:
 ==================  =========================================================
 ``replica_crash``   replica ``param`` dies mid-tick with NO orderly
                     ``detach_stream`` (its KV and engine object are gone);
-                    the fleet reconstructs its residents from the fleet's
-                    own admission ledger and re-anchors them queue-front
+                    ``serve/fleet.py`` rebuilds its residents from the
+                    fleet's own admission ledger, in the replicas'
+                    continuation form, and re-anchors them queue-front
 ``replica_stall``   replica ``param`` wedges (the watchdog's tick-deadline
                     verdict, delivered deterministically); it is excluded
                     from routing while its streams re-anchor host-side,

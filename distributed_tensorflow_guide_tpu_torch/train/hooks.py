@@ -1,11 +1,11 @@
 """Training hooks — the MonitoredTrainingSession hook system.
 
-``StopAtStepHook``, ``LoggingHook``, ``StepCounterHook`` and
-``MetricsJSONLHook`` as in the JAX package. Hooks never touch the step;
-they see host-side step numbers and metric values (0-d tensors, read only
-when a hook logs them). Only the chief process writes. ``TensorBoardHook``
-and ``MetricsHook`` come with the metrics plane (ROADMAP Queue 1
-item 12).
+``StopAtStepHook``, ``LoggingHook``, ``StepCounterHook``,
+``MetricsJSONLHook``, ``TensorBoardHook`` and ``MetricsHook`` as in the
+JAX package. Hooks never touch the step; they see host-side step numbers
+and metric values (0-d tensors, read only when a hook logs them: on the
+card each read waits for the step that made the value). Only the chief
+process writes.
 """
 
 from __future__ import annotations
@@ -17,6 +17,10 @@ from pathlib import Path
 from typing import Any, Mapping, Protocol
 
 from distributed_tensorflow_guide_tpu_torch.core.dist import is_chief
+from distributed_tensorflow_guide_tpu_torch.obs.metrics import (
+    Registry,
+    absorb_dispatch,
+)
 
 log = logging.getLogger("dtg.train")
 
@@ -126,3 +130,87 @@ class MetricsJSONLHook(BaseHook):
         if self._fh:
             self._fh.close()
             self._fh = None
+
+
+class TensorBoardHook(BaseHook):
+    """Write scalar metrics as TensorBoard event files every
+    ``every_steps`` steps through the stdlib-only writer in
+    ``utils/tb_writer.py`` (no ``tensorboard`` package needed).
+    Chief-only. Metric values are read on the logging steps alone."""
+
+    def __init__(self, logdir, every_steps: int = 1):
+        self.logdir = logdir
+        self.every_steps = every_steps
+        self._writer = None
+
+    def begin(self, loop) -> None:
+        if self._writer is not None:  # elastic restart reuses hook instances
+            self._writer.close()
+            self._writer = None
+        if is_chief():
+            from distributed_tensorflow_guide_tpu_torch.utils.tb_writer \
+                import SummaryWriter
+
+            self._writer = SummaryWriter(self.logdir)
+
+    def after_step(self, step: int, metrics: Mapping[str, Any]) -> None:
+        if self._writer and step % self.every_steps == 0:
+            self._writer.scalars(
+                step, {k: float(v) for k, v in metrics.items()})
+
+    def end(self, step: int) -> None:
+        if self._writer:
+            self._writer.close()
+            self._writer = None
+
+
+class MetricsHook(BaseHook):
+    """Bridge from the loop to the obs metrics plane: every step bumps
+    ``dtg_train_steps_total``; every ``every_steps`` steps (and at the
+    end) the scalar metrics are mirrored into ``dtg_train_metric_<k>``
+    gauges, the loop's dispatch stats are absorbed, and (optionally) the
+    registry snapshot goes to a ``utils/tb_writer.SummaryWriter`` via
+    ``log_metrics``. Metric values are read on those steps only: the hook
+    adds no device wait to the steps between them (the JAX package's
+    hook reads every step's values)."""
+
+    def __init__(self, registry: Registry | None = None, *,
+                 every_steps: int = 10, writer=None):
+        self.registry = registry if registry is not None else Registry()
+        self.every_steps = every_steps
+        self.writer = writer
+        self._loop = None
+        self._last = None
+
+    def begin(self, loop) -> None:
+        self._loop = loop
+
+    def _mirror(self, metrics) -> None:
+        for k, v in metrics.items():
+            try:
+                fv = float(v)
+            except (TypeError, ValueError, RuntimeError):
+                continue  # not a scalar
+            self.registry.gauge(f"dtg_train_metric_{k}").set(fv)
+
+    def _publish(self, step: int) -> None:
+        stats = getattr(self._loop, "dispatch_stats", None)
+        if stats is not None:
+            absorb_dispatch(self.registry, stats)
+        if self.writer is not None and is_chief():
+            self.writer.log_metrics(self.registry.snapshot(), step)
+
+    def after_step(self, step: int, metrics) -> None:
+        self.registry.counter("dtg_train_steps_total",
+                              "optimizer steps observed by MetricsHook").inc()
+        self._last = metrics
+        if step % self.every_steps:
+            return
+        self._mirror(metrics)
+        self._publish(step)
+
+    def end(self, step: int) -> None:
+        if self._last is not None:
+            self._mirror(self._last)
+            self._last = None
+        self._publish(step)

@@ -1324,3 +1324,130 @@ def test_engine_snapshot_restore_is_bitwise_on_the_card(tmp_path):
     assert eng2.completions() == want
     assert eng2.fns.captures == {"decode": 1, "prefill": 1}
     eng2.close()
+
+
+@pytest.mark.gpu
+def test_fused_d2h_h2d_round_trip_of_an_int8_pool_in_place():
+    """The engine's KVMover on an int8 pool: one gather of 8 blocks (K/V
+    rows and their f32 scale rows) and one scatter of them into 8 other
+    blocks give those blocks bitwise, leave every other block alone, and
+    keep every pool leaf's storage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+        pool_leaves,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
+        kv_block_bytes,
+    )
+
+    cfg, model = _small_lm(kv_dtype="int8")
+    eng = ServeEngine(cfg, model, slots=4, num_blocks=65, block_size=16,
+                      prefill_chunk=32, host_blocks=16)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    leaves = pool_leaves(eng.pool)
+    for leaf in leaves:
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=gen, device="cuda"))
+    before = [t.clone() for t in leaves]
+    ptrs = [t.data_ptr() for t in leaves]
+    src, dst = list(range(1, 9)), list(range(40, 48))
+    payloads = eng.kv.d2h(src)
+    assert sum(a.nbytes for a in payloads[0]) == kv_block_bytes(cfg, 16)
+    eng.kv.h2d(dst, payloads)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in leaves] == ptrs
+    for t, old in zip(leaves, before):
+        assert torch.equal(t[dst], old[src])
+        keep = [b for b in range(t.shape[0]) if b not in dst]
+        assert torch.equal(t[keep], old[keep])
+    eng.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_swap_in_under_a_captured_decode_graph_is_bitwise(kv):
+    """A pool too small for its residents, with a host tier: preempted
+    streams spill and swap back in while the decode and prefill graphs
+    replay over the same pool (one capture each, no leaf moved), and
+    every stream equals a roomy pool's bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+        pool_leaves,
+    )
+
+    cfg, model = _small_lm(kv_dtype=kv)
+    gen = torch.Generator().manual_seed(13)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (40, 70, 33, 60)]
+    kw = dict(slots=4, block_size=16, prefill_chunk=32, temperature=0.8,
+              top_k=10)
+    want = _engine_streams(ServeEngine(cfg, model, num_blocks=65, **kw),
+                           prompts, 120)
+    eng = ServeEngine(cfg, model, num_blocks=21, host_blocks=64, **kw)
+    ptrs = [t.data_ptr() for t in pool_leaves(eng.pool)]
+    got = _engine_streams(eng, prompts, 120)
+    assert eng.sched.spill_resumes >= 1
+    assert eng.fns.captures == {"decode": 1, "prefill": 1}
+    assert [t.data_ptr() for t in pool_leaves(eng.pool)] == ptrs
+    assert got == want
+    eng.sched.check_leaks()
+    eng.close()
+
+
+@pytest.mark.gpu
+def test_two_replica_fleet_migration_is_bitwise_on_the_card():
+    """A disaggregated 2-replica fleet on one card: every stream prefills
+    on one replica, moves with its KV to the other, and equals the
+    uninterrupted single engine's stream bitwise; then a hard crash
+    mid-run rebuilds its streams by ``"replay"``, still bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        ServeEngine,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.fleet import (
+        FleetScheduler,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
+        kv_block_bytes,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.scheduler import (
+        Request,
+    )
+    from distributed_tensorflow_guide_tpu_torch.testing.chaos import (
+        Fault,
+        FaultSchedule,
+    )
+
+    cfg, model = _small_lm()
+    gen = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(0, 50257, (n,), generator=gen).numpy()
+               for n in (5, 17, 40, 70, 9, 33)]
+    kw = dict(slots=4, num_blocks=65, block_size=16, prefill_chunk=32,
+              temperature=0.8, top_k=10)
+    want = _engine_streams(ServeEngine(cfg, model, **kw), prompts, 12)
+    for fleet_kw in (dict(roles="disagg"),
+                     dict(fleet_chaos=FaultSchedule(
+                         [Fault("replica_crash", 4, 0.0)]))):
+        fl = FleetScheduler(cfg, model, replicas=["cuda:0", "cuda:0"],
+                            **kw, **fleet_kw)
+        assert fl.continuations == "replay"
+        for i, p in enumerate(prompts):
+            fl.submit(Request(rid=i, prompt=p, max_new_tokens=12,
+                              rng=torch.tensor([0, 50 + i]).numpy()))
+        fl.run()
+        assert fl.completions() == want
+        if "roles" in fleet_kw:
+            assert fl.migrations == len(prompts)
+            assert fl.migration_bytes % kv_block_bytes(cfg, 16) == 0
+        else:
+            assert fl.replica_crashes == 1
+        fl.check_leaks()
+        fl.close()

@@ -163,6 +163,41 @@ def test_outer_float_bytes_equal_the_references(ranks):
             optax.sgd(0.05, momentum=0.9)) == 48
 
 
+def test_kv_block_transfer_ships_the_blocks_bitwise(ranks):
+    """``make_kv_block_transfer``: slice 0's (blocks, payload) buffer
+    arrives bitwise at the rank of slice 1 at the same place inside its
+    slice, as one ``ppermute[dcn]`` whose wire bytes equal the migration
+    closed form of 8 blocks (the port's and the JAX package's)."""
+    import torch
+
+    from benchmarks.common import kv_migration_bytes as ref_bytes
+    from distributed_tensorflow_guide_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
+        kv_migration_bytes,
+    )
+
+    cfg = TransformerConfig(vocab_size=64, num_layers=2, num_heads=2,
+                            d_model=16, d_ff=32, max_len=64, causal=True,
+                            dtype=torch.float32)
+    n = W.MS_KV_BLOCKS
+    want = kv_migration_bytes(n, cfg, 8)
+    assert want == n * W.MS_KV_BLOCK_BYTES == ref_bytes(
+        n, 2, 2, 8, 8, activation_dtype_bytes=4)
+    for r, out in enumerate(ranks):
+        dcn, data = divmod(r, 2)
+        assert out["kv_calls"] == {"ppermute[dcn]": 1}
+        assert out["kv_bytes"] == {"ppermute[dcn]": want}
+        assert out["kv_wire"] == {"ppermute[dcn]": want if dcn == 0
+                                  else 0.0}
+        if dcn == 1:
+            np.testing.assert_array_equal(out["kv_got"],
+                                          W.ms_kv_payload(data))
+        else:
+            assert not out["kv_got"].any()
+
+
 def test_hybrid_device_array_and_slice_counts():
     sizes = {"data": 4, "model": 2, "pipe": 1, "context": 1, "expert": 1}
     arr = tmesh.hybrid_device_array(sizes, range(8), 2)

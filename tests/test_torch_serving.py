@@ -264,9 +264,26 @@ def test_submit_validation_and_deferred_knobs(model, tmp_path):
     with pytest.raises(ValueError, match="adapter"):
         eng.submit(Request(rid=2, prompt=np.array([1, 2], np.int32),
                            max_new_tokens=2, rng=_key(2), adapter=1))
-    for knob in ("host_blocks", "persist_cache", "online_tune"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(TCFG, model, device="cpu", **ROOMY, **{knob: 1})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(TCFG, model, device="cpu", **ROOMY, online_tune=1)
+    # the host spill tier and warm cache persistence are served now:
+    # each builds an engine, persist_cache with the snapshot directory and
+    # prefix cache it needs, and without them it is refused as the JAX
+    # engine refuses it
+    ServeEngine(TCFG, model, device="cpu", **ROOMY, host_blocks=1).close()
+    ServeEngine(TCFG, model, device="cpu", **ROOMY, host_blocks=4,
+                persist_cache=True, prefix_cache=True,
+                snapshot_dir=str(tmp_path / "warm")).close()
+    for kw, why in ((dict(host_blocks=4, prefix_cache=True),
+                     "snapshot_dir"),
+                    (dict(host_blocks=4, snapshot_dir=str(tmp_path / "w")),
+                     "prefix_cache"),
+                    (dict(prefix_cache=True,
+                          snapshot_dir=str(tmp_path / "w")),
+                     "host_blocks")):
+        with pytest.raises(ValueError, match=why):
+            ServeEngine(TCFG, model, device="cpu", **ROOMY,
+                        persist_cache=True, **kw)
     # the resilience knobs are served now: each builds an engine
     from distributed_tensorflow_guide_tpu_torch.testing.chaos import (
         FaultSchedule,

@@ -1765,7 +1765,36 @@ def multislice_job() -> dict:
 
     out["calls_k1"], out["calls_k4"] = calls(1), calls(4)
     out["calls_off"] = calls(4, outer="off")
+
+    # the disaggregated KV handoff: 8 blocks of the fleet tests' geometry
+    # from slice 0 to slice 1, one ppermute over dcn
+    from distributed_tensorflow_guide_tpu_torch.parallel.multislice import (
+        make_kv_block_transfer,
+    )
+
+    xfer = make_kv_block_transfer(mesh)
+    payload = torch.from_numpy(ms_kv_payload(mesh.axis("data").index))
+    sent = payload if mesh.axis("dcn").index == 0 else torch.zeros_like(
+        payload)
+    with cc.trace_comm() as rec:
+        got = xfer(sent)
+    out["kv_got"] = got.numpy()
+    out["kv_bytes"] = dict(rec.bytes)
+    out["kv_wire"] = dict(rec.wire)
+    out["kv_calls"] = dict(rec.calls)
     return out
+
+
+#: the KV transfer's blocks: 8, each one block of the fleet tests' pool
+#: (2 layers, 2 heads, block size 8, head dim 8, float32: 2,048 bytes)
+MS_KV_BLOCKS, MS_KV_BLOCK_BYTES = 8, 2048
+
+
+def ms_kv_payload(index: int) -> np.ndarray:
+    """The (blocks, payload bytes) buffer the rank at ``index`` of its
+    slice ships, made from a seed."""
+    return np.random.RandomState(40 + index).randint(
+        0, 256, (MS_KV_BLOCKS, MS_KV_BLOCK_BYTES)).astype(np.uint8)
 
 
 def _launch_main() -> int:
