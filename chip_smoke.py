@@ -329,7 +329,31 @@ and check them.
     the H100 roofline; phase 7's GPT-2 steps under ``MetricsHook`` and
     ``TensorBoardHook`` (logging every 4th step): parameters bitwise the
     hook-free run's, the TensorBoard file's losses exactly the loop's,
-    the hooks' ms a step.
+    the hooks' ms a step;
+37. the data plane: the phase reads its steps, batch, seed and profile
+    directory from ``RunConfig.from_argv`` and saves and loads the config
+    back equal; builds the native (C++) record loader with ``g++`` and
+    prints its seconds; trains ``ByteBPETokenizer`` (vocab 512) on the
+    repo's root ``*.md`` files in sorted order, cut to 192 KB, and
+    imports them as 1024-token records; holds ``NativeRecordLoader``
+    byte-equal to ``PyRecordLoader`` over two epochs (2 shards of the
+    token file; the augmented image file below); phase 7's GPT-2 step
+    (B=8, S=1024, flash) fed from those records through
+    ``DevicePrefetchIterator`` (depth 2, int32 widened on the card) for
+    20 steps, wrapping an epoch, under ``ProfilerHook`` (steps 10-12):
+    finite, falling losses, the Chrome trace names K1-K3; ``check_runs``
+    at rtol 0 over two 5-step runs from the same records and seed;
+    ResNet-50 (phase 11's step, B=256) fed 20 steps from 512 augmented
+    records (256x256 stored, 224 crop, flip; normalised on the card):
+    finite losses, the running statistics move; the loader's records/s;
+    ``save_memory_profile``; MNIST (phase 12's step) from IDX files (the
+    images gzipped) through ``import_mnist``, and BERT-base (phase 14's
+    step and warm-up) from a seeded ``label<TAB>text`` file of the
+    corpus's lines (in pieces of at most 512 bytes) through
+    ``import_labeled_text``, 10 steps each, every record count equal to
+    the importer's. Step ms (CUDA events around the step call) and
+    images/s stand beside phases 7's and 11's on their fixed batches,
+    with the host clock's ms a step after warm-up (input included).
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -354,6 +378,7 @@ import dataclasses
 import functools
 import gc
 import glob
+import gzip
 import hashlib
 import json
 import math
@@ -374,6 +399,7 @@ from distributed_tensorflow_guide_tpu_torch.collectives import (
     collectives as cc,
 )
 from distributed_tensorflow_guide_tpu_torch.core import precision
+from distributed_tensorflow_guide_tpu_torch.core.config import RunConfig
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
 )
@@ -381,7 +407,28 @@ from distributed_tensorflow_guide_tpu_torch.core.mesh import (
     MeshSpec,
     build_mesh,
 )
+from distributed_tensorflow_guide_tpu_torch.data import native_loader
 from distributed_tensorflow_guide_tpu_torch.data import synthetic
+from distributed_tensorflow_guide_tpu_torch.data.importers import (
+    MNIST_FIELDS,
+    import_mnist,
+    write_idx,
+)
+from distributed_tensorflow_guide_tpu_torch.data.native_loader import (
+    ImageAugment,
+    NativeRecordLoader,
+    PyRecordLoader,
+    make_fields,
+    record_bytes,
+    write_records,
+)
+from distributed_tensorflow_guide_tpu_torch.data.tokenizer import (
+    ByteBPETokenizer,
+    import_labeled_text,
+    import_text,
+    labeled_text_fields,
+    text_fields,
+)
 from distributed_tensorflow_guide_tpu_torch.models import mnist_cnn, resnet
 from distributed_tensorflow_guide_tpu_torch.models import generation as gen_mod
 from distributed_tensorflow_guide_tpu_torch.models import wide_deep
@@ -401,6 +448,7 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     router_logits,
 )
 from distributed_tensorflow_guide_tpu_torch.data.prefetch import (
+    DevicePrefetchIterator,
     pack_batches,
 )
 from distributed_tensorflow_guide_tpu_torch.ops import _build
@@ -468,8 +516,15 @@ from distributed_tensorflow_guide_tpu_torch.train.evaluation import (
 )
 from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
 from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+from distributed_tensorflow_guide_tpu_torch.utils.determinism import (
+    check_runs,
+)
 from distributed_tensorflow_guide_tpu_torch.utils.flop_accounting import (
     traced_matmul_flops,
+)
+from distributed_tensorflow_guide_tpu_torch.utils.profiling import (
+    ProfilerHook,
+    save_memory_profile,
 )
 from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     Request,
@@ -1947,8 +2002,8 @@ def profile_split(step, state, batch) -> dict:
 RESNET_B, RESNET_IMAGE = 256, 224
 
 
-def check_resnet50(seed: int, kind: str) -> None:
-    """Phase 11."""
+def check_resnet50(seed: int, kind: str) -> float:
+    """Phase 11. Returns its images/s on the fixed batch."""
     t0 = time.perf_counter()
     B, size, steps = RESNET_B, RESNET_IMAGE, 20
     dev = resolve_device(None)
@@ -2019,6 +2074,7 @@ def check_resnet50(seed: int, kind: str) -> None:
     if not fused_gap <= FUSED_BN_REL:
         fail(f"resnet50: fused BatchNorm logits off by {fused_gap} "
              f"(limit {FUSED_BN_REL})")
+    return images_per_s
 
 
 def check_mnist(seed: int, kind: str) -> None:
@@ -5543,6 +5599,351 @@ def check_metrics_plane(cfg, seed, kind, keep: dict) -> dict:
     return launches
 
 
+# ---- phase 37: the data plane ------------------------------------------------
+
+# the corpus: the repo's root Markdown files in sorted path order, cut to
+# their first 192 KB; the BPE's vocabulary; GPT-2's and BERT's sequences
+CORPUS_BYTES, BPE_VOCAB, DP_S, DP_BERT_S = 192 * 1024, 512, 1024, 128
+# ResNet-50's records: stored 256 x 256, cropped to 224 with a flip
+DP_IMAGES, DP_STORED = 512, 256
+# the determinism runs' steps; MNIST's records; MNIST and BERT steps
+DP_CHECK_STEPS, DP_MNIST_RECORDS, DP_FEW_STEPS = 5, 4096, 10
+
+
+def _dp_argv(seed: int, profile_dir: str) -> list:
+    """The phase's own run configuration, as a command line."""
+    return ["--steps", "20", "--global-batch", "8", "--seed", str(seed),
+            "--profile-dir", profile_dir]
+
+
+def _twin_equal(name, path, fields, bs, epochs=2, **kw) -> int:
+    """``NativeRecordLoader`` against ``PyRecordLoader`` over ``epochs``
+    epochs: byte-equal batches. Returns the batches compared."""
+    nat = NativeRecordLoader(path, fields, bs, **kw)
+    twin = PyRecordLoader(path, fields, bs, **kw)
+    n = epochs * nat.batches_per_epoch
+    for i in range(n):
+        a, b = nat.next_batch(), twin.next_batch()
+        for k in b:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                fail(f"{name}: native batch {i} field {k} differs from the "
+                     "Python twin's")
+    nat.close()
+    return n
+
+
+class _Wall(BaseHook):
+    """Host clock over steps ``[first, last)``, each end after a
+    synchronize: the time a step takes with its input (the CUDA events of
+    ``timed_run`` time the step call alone)."""
+
+    def __init__(self, first: int, last: int):
+        self.first, self.last, self.t = first, last, {}
+
+    def after_step(self, step, metrics):
+        if step + 1 in (self.first, self.last):
+            torch.cuda.synchronize()
+            self.t[step + 1] = time.perf_counter()
+
+    def ms_a_step(self) -> float:
+        return (1e3 * (self.t[self.last] - self.t[self.first])
+                / (self.last - self.first))
+
+
+def _widened(feed, widen: dict):
+    """The prefetched device batches with ``widen[name](tensor)`` applied
+    on the card, after the copy."""
+    for b in feed:
+        yield {k: widen[k](v) if k in widen else v for k, v in b.items()}
+
+
+def _corpus_bytes() -> bytes:
+    root = os.path.dirname(os.path.abspath(__file__))
+    data = b""
+    for path in sorted(glob.glob(os.path.join(root, "*.md"))):
+        with open(path, "rb") as fh:
+            data += fh.read()
+    return data[:CORPUS_BYTES]
+
+
+def _lm_from_records(cfg, rec, seed, steps, dev, hooks=()):
+    """``steps`` steps of phase 7's step, fed from the token records by
+    the native loader and ``DevicePrefetchIterator`` (depth 2), the int32
+    tokens widened on the card. Returns (losses, step ms each, peak bytes,
+    the loop, the prefetch stats, the loader's batches an epoch)."""
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    step = DataParallel().make_train_step(make_lm_loss_fn(model))
+    loader = NativeRecordLoader(rec, text_fields(DP_S), 8, seed=seed)
+    feed = DevicePrefetchIterator(loader, depth=2)
+    out = timed_run(step, state,
+                    _widened(feed, {"tokens": torch.Tensor.long}), steps,
+                    hooks)
+    per_epoch = loader.batches_per_epoch
+    loader.close()
+    return (*out, feed.stats, per_epoch)
+
+
+def check_data_plane(cfg, seed, kind, step7_ms, resnet_images_s) -> dict:
+    """Phase 37. Returns the K1-K3 launches of its record-fed GPT-2
+    steps."""
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    root = tempfile.mkdtemp(prefix="dtg_data_plane_")
+    out = {}
+    try:
+        # the phase reads its own steps, batch, seed and profile_dir
+        rc = RunConfig.from_argv(_dp_argv(seed, os.path.join(root,
+                                                             "profile")))
+        rc.save(os.path.join(root, "run.json"))
+        if RunConfig.load(os.path.join(root, "run.json")) != rc:
+            fail("RunConfig did not load back equal")
+        if rc.apply_platform() is not None:
+            fail("RunConfig: the phase's config selected the CPU")
+        B, steps = rc.global_batch, rc.steps
+        out["run_config"] = rc.to_dict()
+
+        # the build (g++), not the Python twin
+        t0 = time.perf_counter()
+        so = native_loader.build_native_lib()
+        out["loader_build_s"] = time.perf_counter() - t0
+        if native_loader.load_native_lib() is None:
+            fail("the native loader did not load")
+        out["loader_library"] = os.path.basename(so)
+
+        # GPT-2 124M from BPE records
+        corpus = os.path.join(root, "corpus.txt")
+        text = _corpus_bytes()
+        with open(corpus, "wb") as fh:
+            fh.write(text)
+        t0 = time.perf_counter()
+        tok = ByteBPETokenizer.train(text, BPE_VOCAB)
+        out["bpe"] = {"corpus_bytes": len(text), "vocab": tok.vocab_size,
+                      "merges": len(tok.merges),
+                      "train_s": time.perf_counter() - t0}
+        rec = os.path.join(root, "tokens.records")
+        t0 = time.perf_counter()
+        n_rec = import_text(corpus, rec, tok, DP_S)
+        out["bpe"].update(records=n_rec, import_s=time.perf_counter() - t0)
+        if n_rec < 2 * B:
+            fail(f"{n_rec} token records: too few for 2 shards of batch {B}")
+        twins = {f"tokens_shard{i}_of_2": _twin_equal(
+            "tokens", rec, text_fields(DP_S), B, seed=rc.seed, shard_id=i,
+            num_shards=2) for i in range(2)}
+        if cfg.resolve_attn_impl(DP_S) != "flash":
+            fail("attn_impl='auto' did not resolve to flash at S=1024")
+        FA.reset_launch_counts()
+        hook = ProfilerHook(rc.profile_dir, start_step=10, end_step=13)
+        wall = _Wall(2, hook.start_step)
+        curve, step_ms, peak, loop, pstats, per_epoch = _lm_from_records(
+            cfg, rec, rc.seed, steps, dev, [wall, hook])
+        dispatch = loop.dispatch_stats.as_dict()
+        del loop
+        torch.cuda.empty_cache()
+        traces = glob.glob(os.path.join(rc.profile_dir, "*.pt.trace.json"))
+        if len(traces) != 1:
+            fail(f"the profiler hook wrote {traces}, expected one trace")
+        with open(traces[0]) as fh:
+            trace_text = fh.read()
+        named = {k: f"{k}_sm90" in trace_text for k in K1_K3}
+        outside = [ms for i, ms in enumerate(step_ms)
+                   if i >= 2 and not hook.start_step <= i < hook.end_step]
+        out["gpt2"] = {
+            "B": B, "S": DP_S, "steps": steps, "loss_curve": curve,
+            "step_ms_each": step_ms,
+            "step_ms_median_after_2": float(np.median(step_ms[2:])),
+            "step_ms_median_after_2_outside_profile":
+                float(np.median(outside)),
+            "phase7_fixed_batch_step_ms": step7_ms,
+            "wall_ms_a_step_steps_2_to_9": wall.ms_a_step(),
+            "batches_per_epoch": per_epoch, "prefetch": pstats.as_dict(),
+            "dispatch": dispatch, "max_memory_allocated_bytes": peak,
+            "trace_bytes": len(trace_text), "trace_names_kernels": named}
+        check_falls("data plane gpt2", curve, 5)
+        if per_epoch >= steps:
+            fail(f"{steps} steps did not wrap an epoch of {per_epoch}")
+        if not all(named.values()):
+            fail(f"the profiler trace does not name every flash kernel: "
+                 f"{named}")
+
+        # determinism: two 5-step runs from the same records and seed
+        def five_steps(s):
+            losses = _lm_from_records(cfg, rec, s, DP_CHECK_STEPS, dev)[0]
+            torch.cuda.empty_cache()
+            return [{"loss": x} for x in losses]
+
+        rep = check_runs(five_steps, seed=rc.seed, rtol=0.0)
+        out["gpt2"]["check_runs"] = dataclasses.asdict(rep)
+        rep.raise_if_failed()
+        launches = {n: FA.LAUNCHES[n] for n in K1_K3}
+        want = (steps + 2 * DP_CHECK_STEPS) * cfg.num_layers
+        if launches != dict.fromkeys(K1_K3, want) or FA.fallback_stats():
+            fail(f"phase 37 flash launches {launches}, expected {want} each "
+                 f"(fallbacks {FA.fallback_stats()})")
+
+        # ResNet-50 from augmented records, then the allocator's snapshot
+        out["twin_batches_compared"] = twins
+        out["resnet50"] = _resnet_from_records(root, rc.seed,
+                                               resnet_images_s)
+        mem = os.path.join(root, "memory.pickle")
+        save_memory_profile(mem)
+        out["memory_profile_bytes"] = os.path.getsize(mem)
+        if not out["memory_profile_bytes"]:
+            fail("save_memory_profile wrote an empty file")
+
+        # MNIST and BERT-base from imported records
+        out["mnist"] = _mnist_from_records(root, rc.seed)
+        out["bert"] = _bert_from_records(root, rc.seed, text, tok)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"data plane on {kind}: " + json.dumps(out), flush=True)
+    return launches
+
+
+def _resnet_from_records(root, seed, fixed_images_s) -> dict:
+    """Phase 11's step fed from augmented image records, the native
+    loader first held to its twin over two epochs."""
+    B, steps, crop = RESNET_B, 20, RESNET_IMAGE
+    dev = resolve_device(None)
+    fields = make_fields({"image": (np.uint8, (DP_STORED, DP_STORED, 3)),
+                          "label": (np.int32, ())})
+    path = os.path.join(root, "images.records")
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    for lo in range(0, DP_IMAGES, 128):  # in bounded-memory chunks
+        n = min(128, DP_IMAGES - lo)
+        write_records(path, {
+            "image": rng.randint(0, 256, (n, DP_STORED, DP_STORED, 3),
+                                 dtype=np.uint8),
+            "label": rng.randint(0, 1000, n).astype(np.int32)},
+            fields, append=lo > 0)
+    write_s = time.perf_counter() - t0
+    aug = ImageAugment(in_shape=(DP_STORED, DP_STORED, 3),
+                       crop=(crop, crop), hflip=True)
+    twin_batches = _twin_equal("images", path, fields, B, seed=seed,
+                               augment=aug)
+    # the loader alone: six batches after the ring's first, host clock
+    loader = NativeRecordLoader(path, fields, B, seed=seed, augment=aug)
+    loader.next_batch()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        loader.next_batch()
+    records_s = 6 * B / (time.perf_counter() - t0)
+    loader.close()
+
+    torch.backends.cudnn.benchmark = True
+    model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16).to(
+        dev).init_weights(seed)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1,
+                                              momentum=0.9))
+    step = DataParallel().make_train_step_with_stats(
+        resnet.make_loss_fn(model))
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    loader = NativeRecordLoader(path, fields, B, seed=seed, augment=aug)
+    feed = DevicePrefetchIterator(loader, depth=2)
+    wall = _Wall(2, steps)
+    curve, step_ms, peak, loop = timed_run(
+        step, state, _widened(feed, {"image": lambda t: t.float() / 255.0}),
+        steps, [wall])
+    loader.close()
+    torch.backends.cudnn.benchmark = False
+    moved = sum(not torch.equal(b, stats0[n])
+                for n, b in model.named_buffers())
+    steady = float(np.median(step_ms[2:]))
+    out = {"B": B, "stored": DP_STORED, "crop": crop, "records": DP_IMAGES,
+           "record_bytes": record_bytes(fields), "write_s": write_s,
+           "twin_batches_compared": twin_batches,
+           "loader_records_per_s": records_s, "loss_curve": curve,
+           "step_ms_median_after_2": steady,
+           "images_per_s": B / (steady / 1e3),
+           "wall_images_per_s_steps_2_to_19": B / (wall.ms_a_step() / 1e3),
+           "phase11_fixed_batch_images_per_s": fixed_images_s,
+           "prefetch": feed.stats.as_dict(),
+           "dispatch": loop.dispatch_stats.as_dict(),
+           "running_stat_buffers_moved": moved,
+           "max_memory_allocated_bytes": peak}
+    del model, state, step, loop
+    torch.cuda.empty_cache()
+    if moved != len(stats0):
+        fail(f"resnet50 from records: {len(stats0) - moved} running "
+             "statistics did not move")
+    return out
+
+
+def _mnist_from_records(root, seed) -> dict:
+    """Phase 12's step fed from IDX files imported to records."""
+    B = 1024
+    dev = resolve_device(None)
+    raw = os.path.join(root, "mnist_idx")
+    os.makedirs(raw)
+    b = synthetic.synthetic_mnist(DP_MNIST_RECORDS, seed=seed).take(1)[0]
+    images = np.clip(b["image"][..., 0] * 64 + 128, 0, 255).astype(np.uint8)
+    plain = os.path.join(raw, "train-images-idx3-ubyte")
+    write_idx(plain, images)
+    with open(plain, "rb") as fh, open(plain + ".gz", "wb") as gz:
+        gz.write(gzip.compress(fh.read()))  # this one gzipped, as shipped
+    os.remove(plain)
+    write_idx(os.path.join(raw, "train-labels-idx1-ubyte"),
+              b["label"].astype(np.uint8))
+    rec = import_mnist(raw, os.path.join(root, "mnist"))
+    n = os.path.getsize(rec) // record_bytes(MNIST_FIELDS)
+    loader = NativeRecordLoader(rec, MNIST_FIELDS, B, seed=seed)
+    if not loader.num_records == n == DP_MNIST_RECORDS:
+        fail(f"mnist: {loader.num_records} records loaded, {n} in the file, "
+             f"{DP_MNIST_RECORDS} imported")
+    model = mnist_cnn.MNISTCNN().to(dev).init_weights(seed)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.05,
+                                              momentum=0.9))
+    feed = DevicePrefetchIterator(loader, depth=2)
+    curve, step_ms, _, _ = timed_run(
+        DataParallel().make_train_step(mnist_cnn.make_loss_fn(model)),
+        state, _widened(feed, {"image": lambda t: t.float() / 255.0}),
+        DP_FEW_STEPS)
+    loader.close()
+    return {"B": B, "records": n, "loss_curve": curve,
+            "step_ms_median_after_2": float(np.median(step_ms[2:])),
+            "prefetch": feed.stats.as_dict()}
+
+
+def _bert_from_records(root, seed, text: bytes, tok) -> dict:
+    """Phase 14's step, with its warm-up, fed from a seeded
+    ``label<TAB>text`` file of the corpus's lines (each cut into pieces of
+    at most 512 bytes) imported with the phase's tokenizer."""
+    B = 256
+    dev = resolve_device(None)
+    rng = np.random.RandomState(seed)
+    lines = [ln[i:i + 512].replace(b"\t", b" ")
+             for ln in text.splitlines() if ln.strip()
+             for i in range(0, len(ln), 512)]
+    tsv = os.path.join(root, "labeled.tsv")
+    with open(tsv, "wb") as fh:
+        for ln in lines:
+            fh.write(b"%d\t%s\n" % (rng.randint(0, 2), ln))
+    rec = os.path.join(root, "labeled.records")
+    n = import_labeled_text(tsv, rec, tok, DP_BERT_S)
+    loader = NativeRecordLoader(rec, labeled_text_fields(DP_BERT_S), B,
+                                seed=seed)
+    if not loader.num_records == n == len(lines):
+        fail(f"bert: {loader.num_records} records loaded, {n} imported, "
+             f"{len(lines)} lines")
+    cfg = bert_base(num_classes=2, dtype=torch.bfloat16)
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    feed = DevicePrefetchIterator(loader, depth=2)
+    curve, step_ms, _, _ = timed_run(
+        DataParallel().make_train_step(make_cls_loss_fn(model)),
+        TrainState(model, opt),
+        _widened(feed, {"tokens": torch.Tensor.long}), DP_FEW_STEPS,
+        [_Warmup(opt, BERT_WARMUP_STEPS)])
+    loader.close()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"B": B, "S": DP_BERT_S, "records": n, "loss_curve": curve,
+            "step_ms_median_after_2": float(np.median(step_ms[2:])),
+            "prefetch": feed.stats.as_dict()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5623,7 +6024,7 @@ def main() -> int:
     check_carry(results, gen)
     launches["flash_carry"] = check_sp(kind, args.seed)
     check_dp(kind, args.seed)
-    check_resnet50(args.seed, kind)
+    resnet_images_s = check_resnet50(args.seed, kind)
     torch.cuda.empty_cache()
     check_mnist(args.seed, kind)
     check_wide_deep(args.seed, kind)
@@ -5672,6 +6073,11 @@ def main() -> int:
         launches[n] += c
     print(f"phases 34-36: {time.perf_counter() - t_fleet:.1f} s",
           flush=True)
+    # phase 37: the data plane; its record-fed K1-K3 launches join the line
+    torch.cuda.empty_cache()
+    for n, c in check_data_plane(cfg, args.seed, kind, step7_ms,
+                                 resnet_images_s).items():
+        launches[n] += c
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

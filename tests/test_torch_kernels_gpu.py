@@ -1451,3 +1451,66 @@ def test_two_replica_fleet_migration_is_bitwise_on_the_card():
             assert fl.replica_crashes == 1
         fl.check_leaks()
         fl.close()
+
+
+@pytest.mark.gpu
+def test_record_fed_steps_through_the_prefetch_are_bitwise(tmp_path):
+    """A small GPT (flash, bf16) fed from token records by the native
+    loader through ``DevicePrefetchIterator`` on ``cuda:0`` (pinned copies
+    on a side stream, depth 2; int32 widened on the card) gives the same
+    losses and parameters, bitwise, as the same steps fed from
+    ``PyRecordLoader`` with synchronous copies: the side stream's event
+    ordering hands every step its own batch, complete."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from distributed_tensorflow_guide_tpu_torch.data.native_loader import (
+        NativeRecordLoader,
+        PyRecordLoader,
+        make_fields,
+        write_records,
+    )
+    from distributed_tensorflow_guide_tpu_torch.data.prefetch import (
+        DevicePrefetchIterator,
+    )
+    from distributed_tensorflow_guide_tpu_torch.train.hooks import BaseHook
+
+    S, B, steps = 256, 4, 6
+    cfg = TF.TransformerConfig(vocab_size=512, num_layers=2, num_heads=4,
+                               d_model=256, d_ff=1024, max_len=S,
+                               causal=True, dtype=torch.bfloat16,
+                               attn_impl="flash")
+    fields = make_fields({"tokens": (np.int32, (S,))})
+    path = tmp_path / "tokens.records"
+    write_records(path, {"tokens": np.random.RandomState(0).randint(
+        0, 512, (64, S)).astype(np.int32)}, fields)
+
+    def run(feed):
+        model = TF.Transformer(cfg).init_weights(0).to("cuda")
+        state = TrainState(model, torch.optim.Adam(model.parameters(),
+                                                   lr=1e-3))
+        step = DataParallel(device="cuda").make_train_step(
+            TF.make_lm_loss_fn(model))
+        losses = []
+
+        class Keep(BaseHook):
+            def after_step(self, s, metrics):
+                losses.append(metrics["loss"])
+
+        TrainLoop(step, state, feed, hooks=[StopAtStepHook(steps), Keep()],
+                  device="cuda").run()
+        torch.cuda.synchronize()
+        return [x.item() for x in losses], model.state_dict()
+
+    native = NativeRecordLoader(path, fields, B, seed=3, prefetch=2)
+    prefetch = DevicePrefetchIterator(native, device="cuda:0", depth=2)
+    got, got_sd = run({"tokens": b["tokens"].long()} for b in prefetch)
+    native.close()
+    twin = PyRecordLoader(path, fields, B, seed=3)
+    want, want_sd = run({"tokens": b["tokens"].astype(np.int64)}
+                        for b in twin)
+    assert prefetch.stats.batches >= steps
+    assert prefetch.stats.peak_ahead == 2
+    assert got == want
+    assert all(torch.equal(got_sd[n], want_sd[n]) for n in want_sd)

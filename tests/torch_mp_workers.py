@@ -1828,3 +1828,87 @@ def _launch_main() -> int:
 
 if __name__ == "__main__":
     sys.exit(_launch_main())
+
+
+# the determinism gate over DP topologies (tests/test_torch_aux.py) ---------
+
+TOPO_STEPS, TOPO_BATCH, TOPO_LR = 5, 32, 0.05
+# (mesh axes, accumulation steps, strategy): the data axis takes 4, 2 and 1
+# of the 4 ranks (a model axis of 4 / data replicates), 2 with two
+# accumulated microbatches, and FSDP over all 4
+TOPOLOGIES = ((dict(data=4), 1, "dp"), (dict(data=2, model=2), 1, "dp"),
+              (dict(data=2, model=2), 2, "dp"), (dict(data=1, model=4), 1,
+                                                  "dp"),
+              (dict(data=4), 1, "fsdp"))
+
+
+def _topology_train(topo, seed: int) -> list:
+    """The MNIST CNN, SGD with momentum, on this rank's data share of the
+    seeded synthetic MNIST batches: the per-step metrics."""
+    import torch
+
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+    from distributed_tensorflow_guide_tpu_torch.data.synthetic import (
+        synthetic_mnist,
+    )
+    from distributed_tensorflow_guide_tpu_torch.models import mnist_cnn
+    from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from distributed_tensorflow_guide_tpu_torch.parallel.fsdp import FSDP
+    from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
+
+    axes, accum, kind = topo
+    mesh = build_mesh(MeshSpec(**axes))
+    data = mesh.axis("data")
+    per = TOPO_BATCH // data.size
+    model = mnist_cnn.MNISTCNN().init_weights(seed)
+    if kind == "fsdp":
+        strategy = FSDP(mesh, min_shard_size=2 ** 10, device="cpu")
+        model = strategy.shard(model)
+        step = strategy.make_train_step(mnist_cnn.make_loss_fn(model))
+    else:
+        strategy = DataParallel(mesh, device="cpu")
+        step = strategy.make_train_step(mnist_cnn.make_loss_fn(model),
+                                        accum_steps=accum)
+    state = TrainState(model, torch.optim.SGD(model.parameters(),
+                                              lr=TOPO_LR, momentum=0.9))
+    out = []
+    for b in synthetic_mnist(TOPO_BATCH, seed=seed).take(TOPO_STEPS):
+        share = {k: v[data.index * per:(data.index + 1) * per]
+                 for k, v in b.items()}
+        state, mets = step(state, share)
+        out.append({k: float(v) for k, v in mets.items()})
+    return out
+
+
+def topology_job() -> dict:
+    """``check_topologies`` over the DP world sizes of ``TOPOLOGIES`` (the
+    metrics are means over the data axis, so every rank sees them), and
+    ``check_runs`` of the first topology at rtol 0."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.utils.determinism import (
+        check_runs,
+        check_topologies,
+    )
+
+    torch.set_num_threads(1)
+    losses = {}
+
+    def train(topo, seed):
+        out = _topology_train(topo, seed)
+        losses[repr(topo)] = [m["loss"] for m in out]
+        return out
+
+    rep = check_topologies(train, TOPOLOGIES, seed=0, rtol=1e-4)
+    again = check_runs(lambda s: _topology_train(TOPOLOGIES[0], s), seed=0,
+                       rtol=0.0)
+    return {"rank": dist.get_rank(), "ok": rep.ok,
+            "max_rel_diff": rep.max_rel_diff, "detail": rep.detail,
+            "runs_ok": again.ok, "runs_max_abs_diff": again.max_abs_diff,
+            "losses": losses}
