@@ -355,6 +355,24 @@ and check them.
     images/s stand beside phases 7's and 11's on their fixed batches,
     with the host clock's ms a step after warm-up (input included).
 
+38. the tuning table (``ops/autotune.py``; phases 1-37 run on a fresh
+    table in a temporary directory, online tuning off, and must leave it
+    unwritten): (a) the decode split of GPT-2 124M (H=12, hd=64), bf16 and
+    int8 caches: each keys candidate's K5 (B=8, S=1024, C=1) and K6 (B=8,
+    64 blocks of 16 a request) against ``split_attention_plain`` with the
+    same keys (``BF16_ATOL``), then the sweep of K5 + K6 (median of 20
+    a candidate), every candidate's ms and the chosen keys; (b) the
+    fused-CE chunk at the GPT-2 step's head (N=8192, d=768, V=50257, bf16,
+    forward and backward; median of 10), each chunk's f32 loss within
+    1e-5 of the default chunk's; (c) on a fresh table, ``ServeEngine(
+    online_tune=True)`` on GPT-2 124M serves 8 greedy requests of 10-32
+    tokens in 32-row chunks: at least one attempt, no failure, the time
+    within the budget, and every stream bitwise the one-shot's (B=1),
+    which makes no attempt; then 8 captured 4-step GPT-2 steps through
+    ``TrainLoop(online_tune=True)``, their losses within 1e-3 (first)
+    and 2e-2 (all) of the default chunk's; (d) a new process reloads the
+    table: every key hits with no attempt.
+
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
 package's ``int8_pmean`` bound), 3 steps whose losses stay within the
@@ -452,9 +470,11 @@ from distributed_tensorflow_guide_tpu_torch.data.prefetch import (
     pack_batches,
 )
 from distributed_tensorflow_guide_tpu_torch.ops import _build
+from distributed_tensorflow_guide_tpu_torch.ops import autotune
 from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 from distributed_tensorflow_guide_tpu_torch.ops import flash_attention as FA
 from distributed_tensorflow_guide_tpu_torch.ops.fused_ce import (
+    fused_cross_entropy,
     fused_next_token_loss,
     resolve_fused_ce,
 )
@@ -5944,6 +5964,227 @@ def _bert_from_records(root, seed, text: bytes, tok) -> dict:
             "prefetch": feed.stats.as_dict()}
 
 
+# ---- phase 38: the tuning table --------------------------------------------
+
+TUNE_ITERS = 20  # timed calls a candidate (median), after a warm-up
+TUNE_B, TUNE_S, TUNE_BS, TUNE_NBLK = 8, 1024, 16, 64  # phase 4's engine
+TUNE_CE = dict(n=8 * 1024, d=768, v=50257)  # the GPT-2 step's head
+TUNE_CE_REL = 1e-5  # a chunk's f32 loss against the default chunk's
+TUNE_TRAIN_STEPS = 8  # two captured 4-step calls
+# the captured GPT-2 steps at the tuned chunk against the default chunk:
+# the first loss (the same weights; only the LSE's summation order and
+# the GEMMs' column widths differ) and every later one (Adam carries the
+# rounding along)
+TUNE_LOSS0_ABS, TUNE_LOSS_ABS = 1e-3, 2e-2
+
+_RELOAD = r"""
+import json, sys
+import torch
+from distributed_tensorflow_guide_tpu_torch.ops import autotune
+keys = json.loads(sys.argv[1])
+autotune.set_online_tune(True)
+got = [autotune.ensure_tuned_online(k["kernel"], device="cuda",
+                                    dtype=getattr(torch, k["dtype"]),
+                                    **k["key"]) for k in keys]
+print(json.dumps({"values": got, **autotune.online_tune_stats()}))
+"""
+
+
+def _swept(kernel_key: str) -> dict:
+    """The detail the sweep recorded under ``kernel_key``'s entry."""
+    table = json.loads(autotune.table_path().read_text())
+    hits = [v for k, v in table.items() if k.startswith(kernel_key)]
+    if not hits:
+        fail(f"autotune: no table entry under {kernel_key}")
+    return hits[0]
+
+
+def check_autotune(cfg, seed, kind, smi) -> dict:
+    """Phase 38. Returns K6's launches by regime over the online engine's
+    drain."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    path = autotune.table_path()
+    if path.exists():
+        fail(f"autotune: phases 1-37 wrote the table {path}")
+    autotune.reset()
+    plat = autotune._platform(device=dev)
+    H, hd = cfg.num_heads, cfg.head_dim
+    out = {"card": smi, "platform": plat, "table": str(path)}
+
+    # (a) the decode split: each candidate against the plain split, then
+    # the sweep (K5 + K6 at the engine's shapes)
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        r = DA.make_split_runners(b=TUNE_B, h=H, s=TUNE_S, d=hd,
+                                  dtype=dtype, block_size=TUNE_BS,
+                                  n_blk=TUNE_NBLK, device=dev, seed=seed)
+        errs = {}
+        for keys in autotune.split_keys_candidates(hd, dtype, TUNE_BS):
+            errs[keys] = max(
+                (a().float() - b().float()).abs().max().item()
+                for a, b in ((lambda: r.k5(keys), lambda: r.k5_plain(keys)),
+                             (lambda: r.k6(keys), lambda: r.k6_plain(keys))))
+            if errs[keys] > BF16_ATOL:
+                fail(f"autotune: {name} keys {keys} differ from the plain "
+                     f"split by {errs[keys]} (tolerance {BF16_ATOL})")
+        del r
+        chosen = autotune.ensure_split_keys_tuned(
+            h=H, d=hd, dtype=dtype, b=TUNE_B, s=TUNE_S,
+            block_size=TUNE_BS, n_blk=TUNE_NBLK, iters=TUNE_ITERS,
+            device=dev)
+        ent = _swept(f"decode_split|b0|h{H}|s0|d{hd}|{autotune._dtype_name(dtype)}|")
+        out[f"decode_split_{name}"] = {
+            "chosen_keys": chosen, "default_keys": DA.split_keys(dtype, hd),
+            "max_abs_err_vs_plain": errs,
+            "swept_ms": {s["keys"]: {"k5_ms": s["k5_ms"], "k6_ms": s["k6_ms"],
+                                     "sum_ms": 1e3 * s["secs_per_call"]}
+                         for s in ent["detail"]["swept"]}}
+        print(f"autotune decode split ({name} cache, K5 B={TUNE_B} "
+              f"S={TUNE_S} C=1 + K6 B={TUNE_B} {TUNE_NBLK} blocks of "
+              f"{TUNE_BS}; median of {TUNE_ITERS}) on {smi}: "
+              + json.dumps(out[f"decode_split_{name}"]), flush=True)
+
+    # (b) the fused-CE chunk at the GPT-2 step's head, forward + backward
+    ce_kw = dict(dtype=torch.bfloat16, device=dev, **TUNE_CE)
+    chunk = autotune.ensure_ce_tuned(iters=10, **ce_kw)
+    ent = _swept(f"fused_ce|b{TUNE_CE['n']}|")
+    gen = torch.Generator(device=dev).manual_seed(seed + 38)
+    x = torch.randn(TUNE_CE["n"], TUNE_CE["d"], generator=gen,
+                    device=dev).bfloat16()
+    w = torch.randn(TUNE_CE["v"], TUNE_CE["d"], generator=gen,
+                    device=dev) * 0.02
+    tg = torch.randint(0, TUNE_CE["v"], (TUNE_CE["n"],), generator=gen,
+                       device=dev)
+    with torch.no_grad():
+        ref = fused_cross_entropy(x, w.t(), tg, chunk=8192).item()
+        ce_rel = {c: abs(fused_cross_entropy(x, w.t(), tg, chunk=c).item()
+                         - ref) / ref
+                  for c in autotune.ce_chunk_candidates(TUNE_CE["v"])}
+    del x, w, tg
+    if max(ce_rel.values()) > TUNE_CE_REL:
+        fail(f"autotune: a chunk's loss strays from the default chunk's: "
+             f"{ce_rel}")
+    out["fused_ce"] = {"chosen_chunk": chunk, "default_chunk": 8192,
+                       "loss_rel_vs_default": ce_rel,
+                       "swept_ms": {s["chunk"]: 1e3 * s["secs_per_call"]
+                                    for s in ent["detail"]["swept"]}}
+    print(f"autotune fused CE (N={TUNE_CE['n']}, d={TUNE_CE['d']}, "
+          f"V={TUNE_CE['v']}, bf16, forward + backward; median of 10) on "
+          f"{smi}: " + json.dumps(out["fused_ce"]), flush=True)
+    stats = autotune.online_tune_stats()
+    if stats["failed"]:
+        fail(f"autotune sweeps: failures {stats['failures']}")
+    torch.cuda.empty_cache()
+
+    # (c) the online path on a fresh table
+    os.environ["DTG_AUTOTUNE_TABLE"] = str(path.with_name("online.json"))
+    autotune.reset()
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    rs = np.random.RandomState(seed + 38)
+    prompts = [rs.randint(0, 50257, rs.randint(DA.CHUNK_MIN_ROWS,
+                                               LORA_CHUNK + 1))
+               .astype(np.int32) for _ in range(8)]
+    eng = ServeEngine(cfg, model, slots=8, block_size=TUNE_BS,
+                      num_blocks=513, prefill_chunk=LORA_CHUNK,
+                      temperature=0.0, online_tune=True)
+    tuned_keys = eng.fns.cfg.decode_split_keys
+    after_engine = autotune.online_tune_stats()
+    DA.reset_launch_counts()
+    got, drain_stats = drain(eng, prompts, seed=seed)
+    by_regime = check_k6_launches("autotune online engine", drain_stats,
+                                  cfg.num_layers)
+    check_captures(eng.fns, 1)
+    eng.close()
+    one = make_generate_fn(cfg, max_new_tokens=64, temperature=0.0)
+    for i, p in enumerate(prompts):
+        o = one(model, p[None].astype(np.int64),
+                np.array([seed, i], np.uint32))
+        if got[i] != o[0, len(p):].tolist():
+            fail(f"autotune: the online engine's request {i} differs from "
+                 f"the one-shot (keys {tuned_keys})")
+    after_one_shot = autotune.online_tune_stats()
+    del model
+    torch.cuda.empty_cache()
+    if after_engine["attempted"] < 1 or after_engine["failed"]:
+        fail(f"autotune online engine: stats {after_engine}")
+    if after_one_shot["attempted"] != after_engine["attempted"]:
+        fail("autotune: the one-shot made an attempt of its own")
+    losses = {}
+    trs = np.random.RandomState(seed + 380)
+    host = [{"tokens": trs.randint(0, 50257, (TRAIN_B, TRAIN_S))
+             .astype(np.int64)} for _ in range(TUNE_TRAIN_STEPS)]
+    for label, online in (("default_chunk", False), ("online", True)):
+        dp = DataParallel()
+        model = Transformer(cfg).init_weights(seed).to(dev)
+        state = TrainState(model, torch.optim.Adam(
+            model.parameters(), lr=1e-3, capturable=True))
+        loss_fn = make_lm_loss_fn(
+            model, ce_chunk=None if online else autotune.DEFAULT_CE_CHUNK)
+        step = dp.make_train_step(loss_fn, steps_per_call=CAP_K,
+                                  stacked_batch=True, per_step_metrics=True)
+        sink = _Losses()
+        TrainLoop(step, state, dp.prefetch(iter(host), steps_per_call=CAP_K),
+                  steps_per_call=CAP_K, online_tune=online,
+                  hooks=[StopAtStepHook(TUNE_TRAIN_STEPS), sink]).run()
+        losses[label] = torch.stack(sink.losses).tolist()
+        if step.captures != 1:
+            fail(f"autotune training ({label}): {step.captures} captures")
+        del model, state, step
+        torch.cuda.empty_cache()
+    stats = autotune.online_tune_stats()
+    train_chunk = autotune.ce_chunk_for(
+        n=TRAIN_B * (TRAIN_S - 1), d=cfg.d_model, v=cfg.vocab_size,
+        dtype=cfg.dtype, device=dev)
+    gaps = [abs(a - b) for a, b in zip(losses["online"],
+                                       losses["default_chunk"])]
+    out["online"] = {
+        "engine_keys": tuned_keys, "engine_drain": drain_stats,
+        "k6_by_regime": by_regime, "engine_equals_one_shot": True,
+        "stats_after_engine": after_engine,
+        "stats_after_one_shot": after_one_shot,
+        "train_chunk": train_chunk, "train_losses": losses,
+        "train_loss_gaps": gaps, "stats": stats}
+    print(f"autotune online path on {kind}: " + json.dumps(out["online"]),
+          flush=True)
+    if stats["failed"] or stats["attempted"] != after_engine["attempted"] + 1:
+        fail(f"autotune online training: stats {stats} (one attempt of "
+             f"its own expected, for the CE chunk)")
+    if stats["spent_s"] > stats["budget_s"]:
+        fail(f"autotune online: {stats['spent_s']} s past the budget")
+    if gaps[0] > TUNE_LOSS0_ABS or max(gaps) > TUNE_LOSS_ABS:
+        fail(f"autotune training at chunk {train_chunk}: losses stray from "
+             f"the default chunk's by {gaps}")
+
+    # (d) a new process reloads the table: every key hits, no attempt
+    table = json.loads(autotune.table_path().read_text())
+    keys = [{"kernel": "decode_split", "dtype": "bfloat16",
+             "key": {"h": H, "d": hd,
+                     "shape": {"b": TUNE_B, "s": TUNE_S,
+                               "block_size": TUNE_BS}}},
+            {"kernel": "fused_ce", "dtype": "bfloat16",
+             "key": {"n": TRAIN_B * (TRAIN_S - 1), "d": cfg.d_model,
+                     "v": cfg.vocab_size}}]
+    want = [tuned_keys, train_chunk]
+    res = subprocess.run(
+        [sys.executable, "-c", _RELOAD, json.dumps(keys)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode:
+        fail(f"autotune reload: rc {res.returncode}: {res.stderr[-2000:]}")
+    reloaded = json.loads(res.stdout.strip().splitlines()[-1])
+    out["reload"] = {"entries": sorted(table), "want": want, **reloaded}
+    print("autotune reload in a new process: " + json.dumps(out["reload"]),
+          flush=True)
+    if reloaded["values"] != want or reloaded["attempted"] or \
+            reloaded["failed"]:
+        fail(f"autotune reload: {reloaded} (expected {want} with no "
+             "attempt)")
+    if len(table) != 3:  # decode_split, fused_ce exact-N and N-generic
+        fail(f"autotune: the online table holds {sorted(table)}")
+    print(f"autotune phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_regime
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5960,6 +6201,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
+    # a fresh tuning table, online tuning off: a table an earlier run left
+    # in this machine's home must not change what phases 1-37 run
+    tune_dir = tempfile.mkdtemp(prefix="dtg_autotune_")
+    os.environ["DTG_AUTOTUNE_TABLE"] = os.path.join(tune_dir, "table.json")
+    os.environ.pop("DTG_ONLINE_TUNE", None)
+    autotune.reset()
+    print(f"autotune table: {autotune.table_path()} (fresh; "
+          f"DTG_ONLINE_TUNE cleared)", flush=True)
 
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -6078,6 +6327,11 @@ def main() -> int:
     for n, c in check_data_plane(cfg, args.seed, kind, step7_ms,
                                  resnet_images_s).items():
         launches[n] += c
+    # phase 38: the tuning table; its online engine's K6 launches join
+    torch.cuda.empty_cache()
+    for regime, n in check_autotune(cfg, args.seed, kind, smi).items():
+        launches[f"paged_decode_attention.{regime}"] += n
+    shutil.rmtree(tune_dir, ignore_errors=True)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

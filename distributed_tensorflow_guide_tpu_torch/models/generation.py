@@ -48,7 +48,11 @@ samplers the serve engine shares with it.
   core regime and cuBLAS gives every row the bits of a one-row product.
   A shorter prompt (K5's split regime, another summation order) or one
   the engine takes in several chunks runs other kernels on each side,
-  and the streams then agree to rounding, not bitwise.
+  and the streams then agree to rounding, not bitwise. The decode steps
+  of both (K5's and K6's split regime) cut the keys into splits of one
+  count, the tuning table's ``decode_split`` entry, which each resolves
+  once before its first capture (:func:`decode_split_config`): a tuned
+  count keeps them bitwise equal.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from distributed_tensorflow_guide_tpu_torch.ops import decode_attention as DA
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -77,6 +82,23 @@ _TINY32 = float(np.finfo(np.float32).tiny)
 def decode_config(cfg: TransformerConfig) -> TransformerConfig:
     """The serving view of a training config: KV-cache attention."""
     return dataclasses.replace(cfg, decode=True)
+
+
+def decode_split_config(cfg: TransformerConfig, device, *, batch: int,
+                        block_size: int | None = None,
+                        n_blk: int | None = None) -> TransformerConfig:
+    """``cfg`` with the keys a split of K5/K6 resolved once
+    (``ops/decode_attention.resolve_split_keys``: the tuning table's
+    ``decode_split`` entry, which the engine (K6) and the one-shot (K5)
+    share, or its online sweep at ``batch`` rows; the fixed rule on the
+    CPU). Called before any graph is captured; the views keep it."""
+    if cfg.decode_split_keys is not None:
+        return cfg
+    keys = DA.resolve_split_keys(
+        h=cfg.num_heads, hd=cfg.head_dim, kv_dtype=cfg.cache_dtype,
+        q_dtype=cfg.dtype, device=device, b=batch, s=cfg.max_len,
+        block_size=block_size, n_blk=n_blk)
+    return dataclasses.replace(cfg, decode_split_keys=keys)
 
 
 def init_cache(model: Transformer, batch_size: int) -> list[dict]:
@@ -439,6 +461,10 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
     * ``adapters`` (with ``cfg.lora_rank``): the delta banks, name ->
       array, as :func:`serve.engine.init_adapter_bank` names them;
       ``adapter_id`` picks the row the whole batch uses.
+
+    The keys a split of K5's split regime are resolved at the first call,
+    before its capture, and kept (:func:`decode_split_config`: the entry
+    the serve engine reads too).
     """
     spec = spec_draft_layers > 0
     if spec and not 0 < spec_draft_layers < cfg.num_layers:
@@ -471,6 +497,7 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
         max_new_tokens=max_new_tokens, temperature=temperature,
         top_k=top_k, adapters=adapters, adapter_id=adapter_id)
     loops: dict = {}
+    resolved: list = []  # the settings with the keys a split, once
 
     def loop_for(model: Transformer, batch: int, capture: bool) -> _Loop:
         # the weights by address: a graph reads them there
@@ -481,7 +508,13 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
             return hit[1]
         while len(loops) >= _LOOPS_KEPT:
             loops.pop(next(iter(loops)))
-        loop = _Loop(g, model, batch, capture)
+        if not resolved:
+            dc = decode_split_config(dcfg, dev, batch=batch)
+            resolved.append(dataclasses.replace(
+                g, dcfg=dc, draft_cfg=None if g.draft_cfg is None else
+                dataclasses.replace(g.draft_cfg,
+                                    decode_split_keys=dc.decode_split_keys)))
+        loop = _Loop(resolved[0], model, batch, capture)
         if capture:
             generate.captures += loop.step.captures
         loops[key] = (weakref.ref(model), loop)

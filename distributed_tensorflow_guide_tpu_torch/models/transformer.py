@@ -168,6 +168,11 @@ class TransformerConfig:
     # dropless
     moe_experts: int | None = None
     moe_capacity: int | None = None
+    # keys a split of K5/K6's split regime (decode views): None reads the
+    # tuning table's ``decode_split`` entry at each call; the engine and
+    # the one-shot resolve it once, before any graph is captured
+    # (``models/generation.decode_split_config``)
+    decode_split_keys: int | None = None
 
     def __post_init__(self):
         if self.weight_dtype not in (None, "int8", "int4", "fp8"):
@@ -618,7 +623,8 @@ class MultiHeadAttention(nn.Module):
             cache["k"].index_copy_(2, rows, kT.to(cache["k"].dtype))
             cache["v"].index_copy_(2, rows, vT.to(cache["v"].dtype))
         return DA.decode_attention(q, cache["k"], cache["v"], index,
-                                   key_scale=ks, value_scale=vs)
+                                   key_scale=ks, value_scale=vs,
+                                   split_keys=self.cfg.decode_split_keys)
 
     def _paged_decode_attend(self, q, k, v, index, cache, block_tables):
         """Paged decode view: scatter the chunk through the block tables
@@ -655,7 +661,8 @@ class MultiHeadAttention(nn.Module):
         lengths = (idx + C).to(torch.int32)
         return DA.paged_decode_attention(
             q, cache["k"], cache["v"], block_tables, lengths,
-            key_scale_pool=ks, value_scale_pool=vs, block_size=bs)
+            key_scale_pool=ks, value_scale_pool=vs, block_size=bs,
+            split_keys=cfg.decode_split_keys)
 
 
 class MLP(nn.Module):

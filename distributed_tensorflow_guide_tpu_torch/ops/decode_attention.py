@@ -22,17 +22,27 @@ summed), never into a dequantised copy.
 Two regimes, picked on the host from C (:func:`decode_regime`):
 
 * ``"split"`` — decode steps and short chunks, and every f32 call: the
-  key axis is cut into splits of ``SPLIT_KEYS`` absolute positions (half
-  that for f32 rows wider than 64), one CTA per split, and a second
-  kernel merges the splits' (m, l, acc) in split order. The plan is made
-  here alone and handed to the kernels (split count and keys a split):
-  the count comes from the cache's capacity only (:func:`split_count`:
-  K5's S, K6's table width times the block size), never from a live
-  length, so the wrapper reads no device value, one captured graph
-  serves every position, and a request's output does not depend on its
-  batch-mates. Splits past the live length exit early. The kernels'
-  entry point refuses a plan that does not cover the capacity.
-  :func:`split_attention_plain` is the same algorithm in PyTorch.
+  key axis is cut into splits of a fixed number of keys (absolute
+  positions), one CTA per split, and a second kernel merges the splits'
+  (m, l, acc) in split order. The plan is made here alone and handed to
+  the kernels (split count and keys a split): the count comes from the
+  cache's capacity only (:func:`split_count`: K5's S, K6's table width
+  times the block size), never from a live length, so the wrapper reads
+  no device value, one captured graph serves every position, and a
+  request's output does not depend on its batch-mates. Splits past the
+  live length exit early. The kernels' entry point refuses a plan that
+  does not cover the capacity. :func:`split_attention_plain` is the same
+  algorithm in PyTorch.
+
+  The keys a split come from the caller (``split_keys=``; the engine and
+  the one-shot resolve theirs once, :func:`resolve_split_keys`) or else
+  from the tuning table's ``decode_split`` entry (``ops/autotune.py``),
+  which K5 and K6 share: keyed on the heads, the head dim and the cache
+  dtype, never on the batch, the capacity or the pool, so both kernels
+  and every shape of a model split alike. Without an entry, and always
+  on the CPU, it is :func:`split_keys`: ``SPLIT_KEYS``, or half that for
+  f32 rows wider than 64. Valid counts are those the kernels take
+  (:func:`split_keys_fit`).
 * ``"chunk"`` — prefill chunks of at least ``CHUNK_MIN_ROWS`` rows with
   bf16 queries, a bf16 or int8 cache and a head dim that is a multiple of
   8: 64-row query tiles against 64-key tiles on the tensor cores
@@ -56,6 +66,7 @@ import ctypes
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.ops import autotune
 from distributed_tensorflow_guide_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM,
     kernel_error,
@@ -65,7 +76,14 @@ from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
 )
 
 NEG_INF = -1e30  # the finite mask value of the reference kernels
-SPLIT_KEYS = 256  # keys per split of the split regime, absolute positions
+SPLIT_KEYS = 256  # default keys per split of the split regime
+# the split kernel's limits (csrc/decode_attention.cu): 8 warps of up to
+# 32 keys, at most 8 query rows a CTA, 227 KiB of shared memory a CTA
+SPLIT_WARPS = 8
+MAX_SPLIT_KEYS = SPLIT_WARPS * 32
+SPLIT_ROWS = 8
+SPLIT_SMEM_CAP = 227 * 1024
+SWEEP_BLOCK_SIZE = 16  # the pool block size K6 is timed at without a pool
 CHUNK_MIN_ROWS = 10  # chunks of at least this many rows take the tensor cores
 KERNEL_SOURCE = ("distributed_tensorflow_guide_tpu_torch/ops/csrc/"
                  "decode_attention.cu")
@@ -154,6 +172,46 @@ def split_keys(kv_dtype: torch.dtype, head_dim: int) -> int:
     than 64). Fixed per cache dtype and head dim."""
     wide = head_dim * kv_dtype.itemsize > 256
     return SPLIT_KEYS // 2 if wide else SPLIT_KEYS
+
+
+def _split_pitch(hd: int, elem: int) -> int:
+    """Bytes of one K or V row in a split CTA's shared memory: whole
+    16-byte chunks, one more where their count is not a power of two (the
+    unswizzled pitch)."""
+    chunks = (hd * elem + 15) // 16
+    return chunks * 16 + (0 if chunks & (chunks - 1) == 0 else 16)
+
+
+def split_smem_bytes(keys: int, hd: int, elem: int, rows: int,
+                     hdp: int | None = None) -> int:
+    """Dynamic shared memory of a split CTA (``split_smem`` of the CUDA
+    source): the split's K and V rows (reused for the warps' partial
+    accumulators), q, and each warp's P and (m, l). ``hdp`` is the
+    compiled head-dim tile, 64 or 128."""
+    if hdp is None:
+        hdp = 64 if hd <= 64 else 128
+    kv = 2 * keys * _split_pitch(hd, elem)
+    return (max(kv, SPLIT_WARPS * rows * hdp * 4) + rows * hdp * 4
+            + SPLIT_WARPS * rows * (32 + 2) * 4)
+
+
+def split_keys_fit(keys: int, hd: int, kv_dtype: torch.dtype) -> bool:
+    """Whether the kernels take ``keys`` keys a split at this head dim
+    and cache dtype: a multiple of the 8 warps, at most one key a lane
+    (256), and a split CTA's shared memory within the cap the kernel opts
+    in to, for one query row and for ``SPLIT_ROWS``."""
+    keys = int(keys)
+    if (keys < SPLIT_WARPS or keys % SPLIT_WARPS or keys > MAX_SPLIT_KEYS
+            or not 1 <= hd <= MAX_HEAD_DIM):
+        return False
+    hdp = 64 if hd <= 64 else 128
+    elem = kv_dtype.itemsize
+    for rows in (1, SPLIT_ROWS):
+        cap = min(split_smem_bytes(MAX_SPLIT_KEYS, hdp, elem, rows, hdp),
+                  SPLIT_SMEM_CAP)
+        if split_smem_bytes(keys, hd, elem, rows, hdp) > cap:
+            return False
+    return True
 
 
 def split_count(span: int, keys: int = SPLIT_KEYS) -> int:
@@ -347,16 +405,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _plan(q, regime: str, kv_dtype, span: int):
+def _plan(q, regime: str, kv_dtype, span: int, keys: int | None = None,
+          block_size: int | None = None):
     """(n_splits, keys, workspace) of a launch: 0, 0 and no workspace for
     the chunk regime; else the split count over ``span`` keys, the keys
-    of a split (the kernel takes both from here) and, for more than one
-    split, the f32 workspace of the splits' partials (acc, then m and
-    l)."""
+    of a split (the caller's, else the table's ``decode_split`` entry:
+    the kernel takes both from here) and, for more than one split, the
+    f32 workspace of the splits' partials (acc, then m and l)."""
     B, C, H, hd = q.shape
     if regime == "chunk":
         return 0, 0, None
-    keys = split_keys(kv_dtype, hd)
+    if keys is None:
+        keys = autotune.split_keys_for(h=H, d=hd, dtype=kv_dtype,
+                                       block_size=block_size,
+                                       device=q.device)
+    elif not split_keys_fit(keys, hd, kv_dtype):
+        raise ValueError(f"split_keys {keys}: the kernels take "
+                         f"{autotune.split_keys_candidates(hd, kv_dtype)}"
+                         f" (or another multiple of {SPLIT_WARPS} that "
+                         f"fits) at head dim {hd}, {kv_dtype} rows")
     n = split_count(span, keys)
     if n == 1:
         return n, keys, None
@@ -365,7 +432,8 @@ def _plan(q, regime: str, kv_dtype, span: int):
 
 
 def decode_attention(q, cached_key, cached_value, index, *,
-                     key_scale=None, value_scale=None):
+                     key_scale=None, value_scale=None,
+                     split_keys: int | None = None):
     """K5: attention of a (B, C, H, hd) chunk against a contiguous
     (B, H, S, hd) cache whose rows ``[index, index + C)`` already hold the
     chunk's k/v. ``index`` is a 0-d or (1,) int32 tensor on q's device,
@@ -373,8 +441,9 @@ def decode_attention(q, cached_key, cached_value, index, *,
     first; on the card an int out of range raises); the live length
     ``index + C`` is clamped to [1, S], here and in the plain version
     alike, so the caller keeps it inside the cache. int8 caches come with
-    (B, H, 1, S) f32 scales. Returns (B, C, H, hd) in q's dtype. CPU
-    tensors take the plain version."""
+    (B, H, 1, S) f32 scales. ``split_keys``: the keys a split of the
+    split regime (None: the tuning table's entry). Returns (B, C, H, hd)
+    in q's dtype. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, cached_key, cached_value, index,
                                       key_scale=key_scale,
@@ -401,7 +470,8 @@ def decode_attention(q, cached_key, cached_value, index, *,
                 (B, H, 1, S))
     out = torch.empty_like(q)
     regime = decode_regime(q.dtype, cached_key.dtype, hd, C)
-    n_splits, keys, ws = _plan(q, regime, cached_key.dtype, S)
+    n_splits, keys, ws = _plan(q, regime, cached_key.dtype, S,
+                               split_keys)
     rc = _lib().dtg_decode_attention(
         _ptr(q), _ptr(cached_key), _ptr(cached_value), _ptr(key_scale),
         _ptr(value_scale), _ptr(out), _ptr(ws), _ptr(index), B, C, H, hd,
@@ -418,14 +488,15 @@ def decode_attention(q, cached_key, cached_value, index, *,
 
 def paged_decode_attention(q, key_pool, value_pool, block_tables, lengths,
                            *, key_scale_pool=None, value_scale_pool=None,
-                           block_size: int):
+                           block_size: int, split_keys: int | None = None):
     """K6: attention of a (B, C, H, hd) chunk against a block pool
     (N, H, block_size, hd) read through ``block_tables`` (B, n_blk)
     int32. ``lengths`` (B,) int32 count the chunk; each is clamped to at
     least 1. int8 pools come with (N, H, 1, block_size) f32 scale pools.
-    Returns (B, C, H, hd) in q's dtype. CPU tensors take the plain
-    version. On the card the lengths stay on the device: the split count
-    comes from the table's width."""
+    ``split_keys`` as :func:`decode_attention`'s. Returns (B, C, H, hd)
+    in q's dtype. CPU tensors take the plain version. On the card the
+    lengths stay on the device: the split count comes from the table's
+    width."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, key_pool, value_pool, block_tables, lengths,
@@ -434,13 +505,14 @@ def paged_decode_attention(q, key_pool, value_pool, block_tables, lengths,
     return paged_decode_attention_kernel(
         q, key_pool, value_pool, block_tables, lengths,
         key_scale_pool=key_scale_pool, value_scale_pool=value_scale_pool,
-        block_size=block_size)
+        block_size=block_size, split_keys=split_keys)
 
 
 def paged_decode_attention_kernel(q, key_pool, value_pool, block_tables,
                                   lengths, *, key_scale_pool=None,
                                   value_scale_pool=None, block_size: int,
-                                  regime: str | None = None):
+                                  regime: str | None = None,
+                                  split_keys: int | None = None):
     """K6 on the card: :func:`paged_decode_attention`'s CUDA path, in the
     regime :func:`decode_regime` picks, or in ``regime`` where the caller
     names one (the measurement the threshold rests on); a regime the
@@ -467,7 +539,7 @@ def paged_decode_attention_kernel(q, key_pool, value_pool, block_tables,
     n_blk = block_tables.shape[1]
     regime = regime or decode_regime(q.dtype, key_pool.dtype, hd, C)
     n_splits, keys, ws = _plan(q, regime, key_pool.dtype,
-                               n_blk * block_size)
+                               n_blk * block_size, split_keys, block_size)
     rc = _lib().dtg_paged_decode_attention(
         _ptr(q), _ptr(key_pool), _ptr(value_pool), _ptr(key_scale_pool),
         _ptr(value_scale_pool), _ptr(block_tables), _ptr(lengths),
@@ -481,3 +553,100 @@ def paged_decode_attention_kernel(q, key_pool, value_pool, block_tables,
     LAUNCHES["paged_decode_attention"] += 1
     REGIME_LAUNCHES[f"paged_decode_attention.{regime}"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# the keys a split: the sweep's runners and the resolution
+# --------------------------------------------------------------------------
+
+
+def make_split_runners(*, b: int, h: int, s: int, d: int,
+                       dtype: torch.dtype, q_dtype=None, block_size: int,
+                       n_blk: int | None = None, device, seed: int = 0):
+    """What the ``decode_split`` sweep times, on seeded random operands:
+    ``k5(keys)``, one K5 decode step (B=``b``, C=1) against a full
+    (B, H, S, hd) cache at ``dtype`` (int8 with its scales), and
+    ``k6(keys)``, one K6 decode step at the same B through shuffled block
+    tables of ``n_blk`` blocks (default S / block_size) into a pool of
+    B * n_blk blocks, every request at full length; ``k5_plain(keys)`` /
+    ``k6_plain(keys)`` are :func:`split_attention_plain` on the same
+    operands with the same keys. ``q_dtype`` defaults to f32 for an f32
+    cache, else bf16."""
+    from types import SimpleNamespace
+
+    dev = torch.device(device)
+    if q_dtype is None:
+        q_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    n_blk = n_blk or -(-s // block_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def cache(shape):
+        pair = []
+        for _ in range(2):
+            x = torch.randn(shape, generator=gen, device=dev)
+            if dtype == torch.int8:
+                x8, sc = quantize_kv(x)
+                pair.append((x8, sc.unsqueeze(2).contiguous()))
+            else:
+                pair.append((x.to(dtype), None))
+        (k, ks), (v, vs) = pair
+        return k, v, ks, vs
+
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).to(q_dtype)
+    k, v, ks, vs = cache((b, h, s, d))
+    index = torch.tensor([s - 1], dtype=torch.int32, device=dev)
+    kp, vp, ksp, vsp = cache((b * n_blk, h, block_size, d))
+    perm = torch.randperm(b * n_blk, generator=gen, device=dev)
+    tables = perm.view(b, n_blk).to(torch.int32).contiguous()
+    span = n_blk * block_size
+    lengths = torch.full((b,), span, dtype=torch.int32, device=dev)
+
+    def k5(keys):
+        return decode_attention(q, k, v, index, key_scale=ks,
+                                value_scale=vs, split_keys=keys)
+
+    def k6(keys):
+        return paged_decode_attention(q, kp, vp, tables, lengths,
+                                      key_scale_pool=ksp,
+                                      value_scale_pool=vsp,
+                                      block_size=block_size,
+                                      split_keys=keys)
+
+    def k5_plain(keys):
+        q_pos = torch.full((b, 1), s - 1, device=dev)
+        return split_attention_plain(q, k, v, ks, vs, q_pos, s, keys)
+
+    def k6_plain(keys):
+        kg, vg = (gather_view(t, tables, seq_axis=2) for t in (kp, vp))
+        ksg = vsg = None
+        if ksp is not None:
+            ksg, vsg = (gather_view(t, tables, seq_axis=3)
+                        for t in (ksp, vsp))
+        q_pos = (lengths.to(torch.int64) - 1)[:, None]
+        return split_attention_plain(q, kg, vg, ksg, vsg, q_pos, span, keys)
+
+    return SimpleNamespace(k5=k5, k6=k6, k5_plain=k5_plain,
+                           k6_plain=k6_plain, device=dev)
+
+
+def resolve_split_keys(*, h: int, hd: int, kv_dtype: torch.dtype,
+                       q_dtype: torch.dtype, device, b: int, s: int,
+                       block_size: int | None = None,
+                       n_blk: int | None = None, iters: int = 20) -> int:
+    """The keys a split that a model's decode views take, resolved once
+    before any graph is captured: the table's ``decode_split`` entry
+    through the online front door (``autotune.ensure_tuned_online``),
+    which, with online tuning on and no entry, sweeps K5 at (``b``,
+    ``s``) and K6 at ``b`` over ``n_blk`` blocks of ``block_size`` (the
+    engine's pool; ``SWEEP_BLOCK_SIZE`` without one) and records the
+    winner. With a ``block_size`` whose multiple the keys are not, the
+    fixed rule (:func:`split_keys`). On the CPU: the fixed rule."""
+    bs = block_size or SWEEP_BLOCK_SIZE
+    keys = autotune.ensure_tuned_online(
+        autotune.DECODE_SPLIT_KERNEL, h=h, d=hd, dtype=kv_dtype,
+        device=device, iters=iters,
+        shape={"b": b, "s": s, "block_size": bs, "n_blk": n_blk,
+               "q_dtype": q_dtype})
+    if block_size and keys % block_size:
+        return split_keys(kv_dtype, hd)
+    return keys

@@ -20,6 +20,14 @@ largest loss intermediate in the forward or the backward is one
   input's own backward (a reduce-scatter) sums ``dx``: ``sum_dx=False``
   leaves it to it.
 
+The chunk width is a tuned value (``ops/autotune.py``'s ``fused_ce``
+entry, keyed on N, d, V_local and the activation dtype): ``chunk=None``
+takes the table's entry through the online front door (an in-situ sweep
+of the forward and backward with online tuning on), else
+``DEFAULT_CE_CHUNK`` clipped to V_local; on the CPU always the default.
+Under a vocab-parallel ``axis`` the axis's first rank decides and
+broadcasts it, so every rank runs the same chunk loop.
+
 This is plain PyTorch, as the JAX package's version is plain jnp: the
 chunk matmuls go to the library's GEMMs.
 """
@@ -32,8 +40,9 @@ from distributed_tensorflow_guide_tpu_torch.collectives import (
     collectives as cc,
 )
 from distributed_tensorflow_guide_tpu_torch.core.mesh import resolve_axis
+from distributed_tensorflow_guide_tpu_torch.ops import autotune
 
-DEFAULT_CE_CHUNK = 8192  # the JAX package's tested default
+DEFAULT_CE_CHUNK = autotune.DEFAULT_CE_CHUNK  # the JAX package's default
 
 
 def resolve_fused_ce(setting, *, vocab_size: int | None = None,
@@ -154,7 +163,7 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
     int ids, the leading shape of ``x``. Returns the mean
     (default) or sum NLL as a 0-d f32 tensor, the same on every rank of
     ``axis``; no ``(N, V)`` tensor is live in the forward or the backward.
-    ``chunk=None`` takes ``DEFAULT_CE_CHUNK`` clipped to V_local.
+    ``chunk=None`` takes the tuned chunk (:func:`resolve_chunk`).
     ``sum_dx=False`` (with ``axis``) leaves ``x``'s gradient as this
     shard's part, for an ``x`` whose own backward sums it.
     """
@@ -172,12 +181,30 @@ def fused_cross_entropy(x, kernel, targets, *, chunk: int | None = None,
     x2 = x.reshape(-1, d)
     t1 = targets.reshape(-1).long()
     v = kernel.shape[1]
-    chunk = max(1, min(int(chunk or DEFAULT_CE_CHUNK), v))
     ax = None if axis is None else resolve_axis(axis)
+    if chunk is None:
+        chunk = resolve_chunk(n=x2.shape[0], d=d, v=v, dtype=x.dtype,
+                              device=x.device,
+                              group=None if ax is None else ax.group)
+    chunk = max(1, min(int(chunk), v))
     total = _FusedNLL.apply(x2, kernel, t1, chunk, ax, sum_dx)
     if reduction == "sum":
         return total
     return total / x2.shape[0]
+
+
+def resolve_chunk(*, n: int, d: int, v: int, dtype, device,
+                  group=None) -> int:
+    """The vocab chunk of a fused-CE call over (``n``, ``d``) activations
+    and a ``v``-column (local) head: the ``fused_ce`` table entry through
+    ``autotune.ensure_tuned_online`` (with online tuning on and no entry,
+    a sweep of :class:`_FusedNLL`'s forward and backward at this key),
+    else ``DEFAULT_CE_CHUNK`` clipped to ``v``; the default on the CPU.
+    ``group``: the vocab-parallel axis's process group, whose first rank
+    decides for all."""
+    return autotune.ensure_tuned_online(
+        autotune.CE_KERNEL, n=n, d=d, v=v, dtype=dtype, device=device,
+        group=group, iters=10)
 
 
 def fused_next_token_loss(x, kernel, tokens, *, chunk: int | None = None,

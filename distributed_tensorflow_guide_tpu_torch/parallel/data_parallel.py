@@ -95,8 +95,10 @@ class DataParallel:
     its own share of the global batch and is moved there.
 
     ``overlap`` ("auto" | True | False, default off): the bucketed
-    backward all-reduce, ``bucket_bytes`` a bucket
-    (``overlap.DEFAULT_BUCKET_BYTES`` when None). ``compress`` ("int8" |
+    backward all-reduce, ``bucket_bytes`` a bucket (None: the tuning
+    table's budget, ``overlap.resolve_bucket_bytes``, decided by the
+    axis's first rank at the first step; ``overlap.DEFAULT_BUCKET_BYTES``
+    without an entry and on the CPU). ``compress`` ("int8" |
     None / "off"): the buckets' wire in int8 (``ops/quant.int8_pmean``);
     it rides the bucketed backward, so it requires ``overlap=True``.
     """

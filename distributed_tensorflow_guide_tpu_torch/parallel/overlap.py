@@ -41,9 +41,14 @@ JAX package's names: ``all_gather[data]``, ``reduce_scatter[data]``,
 The JAX module's ``apply_xla_overlap_flags`` sets libtpu flags that let
 XLA's scheduler run collectives async; under NCCL the async work handles
 above take that place, so it has no counterpart here. The bucket budget
-is :data:`DEFAULT_BUCKET_BYTES` (the JAX package's tested default,
-``ops/autotune.py``) until the autotune table is ported (ROADMAP Queue 1
-item 16).
+is a tuned value (``ops/autotune.py``'s ``dp_bucket`` entry, keyed on the
+gradients' MiB, the world and the wire dtype): :func:`resolve_bucket_bytes`
+takes the entry, else :data:`DEFAULT_BUCKET_BYTES` (the JAX package's
+tested default; always on the CPU). It is swept only with a caller's
+``measure`` that times the caller's own step. The axis's first rank
+decides it and broadcasts it: a budget that differed between ranks would
+give different bucket layouts, and the all-reduces would hang or sum the
+wrong buffers.
 """
 
 from __future__ import annotations
@@ -62,11 +67,12 @@ from distributed_tensorflow_guide_tpu_torch.core.mesh import (
     Mesh,
     resolve_axis,
 )
+from distributed_tensorflow_guide_tpu_torch.ops import autotune
 from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     LossFn,
 )
 
-DEFAULT_BUCKET_BYTES = 4 << 20
+DEFAULT_BUCKET_BYTES = autotune.DEFAULT_BUCKET_BYTES
 
 
 # ---- knob resolution ---------------------------------------------------------
@@ -126,6 +132,30 @@ def resolve_compress(setting) -> str | None:
 
 
 # ---- bucketed DP all-reduce --------------------------------------------------
+
+
+def resolve_bucket_bytes(params: Mapping[str, torch.Tensor], axis: str, *,
+                         mesh: Mesh | None = None,
+                         compress: str | None = None,
+                         measure=None) -> int:
+    """The bucket budget of a bucketed backward over ``params`` on
+    ``axis``: the ``dp_bucket`` entry for (their bytes, the axis size, the
+    wire dtype: int8 when compressed, else the first parameter's) through
+    ``autotune.ensure_tuned_online``, which sweeps only with ``measure``
+    (``measure(bucket_bytes) -> seconds a step``, run on every rank of
+    the axis in the same order), else :data:`DEFAULT_BUCKET_BYTES`. The
+    axis's first rank decides and broadcasts; only it writes the table.
+    Every rank of the axis must call it."""
+    ax = resolve_axis(axis, mesh)
+    leaves = list(params.values())
+    dtype = (torch.int8 if compress == "int8"
+             else leaves[0].dtype if leaves else torch.float32)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    return autotune.ensure_tuned_online(
+        autotune.BUCKET_KERNEL, measure=measure, device=device,
+        group=ax.group,
+        param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+        world=ax.size, dtype=dtype)
 
 
 def bucket_assignment(leaves: Sequence[torch.Tensor], bucket_bytes: int
@@ -319,14 +349,19 @@ def bucketed_loss_fn(loss_fn: LossFn, axis: str,
     again). Give each step a ``pending`` list of its own and call
     :func:`drop_buckets` on it if the step raises, so that nothing is
     left for the next step. ``bucket_bytes=None`` is
-    :data:`DEFAULT_BUCKET_BYTES`; ``compress="int8"`` sends the buckets in
-    int8."""
-    bb = DEFAULT_BUCKET_BYTES if bucket_bytes is None else bucket_bytes
+    :func:`resolve_bucket_bytes` at the first call (every rank of the axis
+    makes it); ``compress="int8"`` sends the buckets in int8."""
+    bb = bucket_bytes
 
     def wrapped(module, batch):
-        pmean_buckets({n: p for n, p in module.named_parameters()
-                       if p.requires_grad}, axis, bb, pending=pending,
-                      mesh=mesh, compress=compress)
+        nonlocal bb
+        params = {n: p for n, p in module.named_parameters()
+                  if p.requires_grad}
+        if bb is None:
+            bb = resolve_bucket_bytes(params, axis, mesh=mesh,
+                                      compress=compress)
+        pmean_buckets(params, axis, bb, pending=pending, mesh=mesh,
+                      compress=compress)
         return loss_fn(module, batch)
 
     return wrapped

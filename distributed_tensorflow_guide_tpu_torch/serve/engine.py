@@ -25,6 +25,14 @@ On the card that holds only where both sides prefill the prompt in the
 same regime (one engine chunk against a one-shot chunk of 10 to 64 rows:
 ``models/generation.py`` says why); elsewhere they agree to rounding.
 
+The keys a split of K6's split regime (``ops/decode_attention.py``) are
+resolved once, when the step functions are built and before any graph is
+captured (``models/generation.decode_split_config``): the tuning table's
+``decode_split`` entry, the one the one-shot generator reads too, or with
+``online_tune`` and no entry an in-situ sweep at the engine's own slots
+and pool; the captured graphs hold the split count, the keys and the
+workspace as constants.
+
 On the card each step function is captured once as a CUDA graph
 (``core/graphs.CapturedStep``), the JAX package's two jitted programs:
 the host packs a step's inputs (block tables, write positions, tokens,
@@ -115,6 +123,7 @@ from distributed_tensorflow_guide_tpu_torch.core.graphs import CapturedStep
 from distributed_tensorflow_guide_tpu_torch.models.generation import (
     _sample,
     decode_config,
+    decode_split_config,
     fold_in,
     sample_rows,
 )
@@ -146,12 +155,6 @@ from distributed_tensorflow_guide_tpu_torch.utils.watchdog import (
 __all__ = ["Event", "Request", "ServeEngine", "EngineOverloaded",
            "WatchdogTimeout", "adapter_bank_shapes", "build_step_fns",
            "init_adapter_bank", "paged_cache_pool", "paged_config"]
-
-# ServeEngine knob of the JAX engine that this package does not serve
-# yet, and the ROADMAP item (Queue 1) that brings it
-_DEFERRED = {
-    "online_tune": "item 16 (autotune)",
-}
 
 # pool-pressure chaos faults allocate under this reserved owner id (real
 # rids are non-negative) and release after this many engine ticks
@@ -471,8 +474,11 @@ def build_step_fns(cfg: TransformerConfig, *, slots: int, num_blocks: int,
     flags, (E,) load, (E,) overflow; prefill (1,) token, (E,) load, (E,)
     overflow. On ``device`` "cuda" ``decode`` and ``prefill`` are
     captured (see :class:`_Step`)."""
-    pcfg = paged_config(cfg, num_blocks=num_blocks, block_size=block_size)
-    n_blk = pcfg.max_len // block_size
+    n_blk = cfg.max_len // block_size
+    pcfg = decode_split_config(
+        paged_config(cfg, num_blocks=num_blocks, block_size=block_size),
+        resolve_device(device), batch=slots, block_size=block_size,
+        n_blk=n_blk)
     sampled, lora, moe = temperature != 0.0, pcfg.lora, pcfg.moe
     S, CH = slots, prefill_chunk
     i32, i64 = torch.int32, torch.int64
@@ -552,6 +558,10 @@ class ServeEngine:
     request's row. ``engine.adapters`` holds the live banks: write new
     adapter weights into them in place (:meth:`load_adapter_bank`).
 
+    ``online_tune`` (True / False; None inherits ``DTG_ONLINE_TUNE``)
+    sets the tuning table's process-wide online override before the
+    step functions resolve the decode split (``ops/autotune.py``).
+
     Resilience (see the module docstring): ``chaos`` a
     ``testing.chaos.FaultSchedule`` whose serve kinds fire at engine
     ticks, ``burst_factory(n, now[, tenant]) -> [Request]`` for its
@@ -577,14 +587,16 @@ class ServeEngine:
                  snapshot_dir=None, snapshot_keep: int = 3,
                  host_blocks: int = 0, persist_cache: bool = False,
                  continuations: str | None = None, device=None,
-                 **deferred):
-        for knob, value in deferred.items():
-            if knob not in _DEFERRED:
-                raise TypeError(f"unexpected keyword argument {knob!r}")
-            if value not in (None, 0, False):
-                raise NotImplementedError(
-                    f"{knob} is not ported yet: ROADMAP Queue 1 "
-                    f"{_DEFERRED[knob]}")
+                 online_tune: bool | None = None):
+        # online in-situ tuning: True / False set the process-wide
+        # override (the tuning table is process state, so the knob is
+        # too: ``autotune.set_online_tune``), None inherits
+        # DTG_ONLINE_TUNE. The step functions below resolve the decode
+        # split once, before any capture; on the CPU it is the default.
+        if online_tune is not None:
+            from distributed_tensorflow_guide_tpu_torch.ops import autotune
+
+            autotune.set_online_tune(online_tune)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "

@@ -63,6 +63,13 @@ class TrainLoop:
     ``device=None`` is the first CUDA card (raises without one); each
     batch is placed there before the step. ``device="cpu"`` runs on the
     CPU.
+
+    ``online_tune``: True / False set the process-wide override of the
+    tuning table's online front door (``ops/autotune.set_online_tune``),
+    None inherits ``DTG_ONLINE_TUNE``. With it on, a tuned value the step
+    resolves (the fused-CE chunk) is swept in situ at the first call; a
+    ``steps_per_call`` step runs that call eagerly before it captures its
+    graph, so the graph holds the tuned value. On the CPU: the defaults.
     """
 
     def __init__(
@@ -80,10 +87,15 @@ class TrainLoop:
         data_deadline_s: float | None = None,
         watchdog_action: Any = "interrupt",
         watchdog_diag_path: Any = None,
+        online_tune: bool | None = None,
     ):
         if steps_per_call < 1:
             raise ValueError(
                 f"steps_per_call must be >= 1, got {steps_per_call}")
+        if online_tune is not None:
+            from distributed_tensorflow_guide_tpu_torch.ops import autotune
+
+            autotune.set_online_tune(online_tune)
         self.steps_per_call = steps_per_call
         self.tail_step_fn = tail_step_fn
         self.step_fn = step_fn

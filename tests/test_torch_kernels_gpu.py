@@ -1,7 +1,9 @@
 """The hand-written decode-attention kernels (K5, K6) and flash-attention
 kernels (K1-K4) against their plain PyTorch versions, on CUDA tensors;
 and the MoE routing (index dispatch against its one-hot plain version,
-the row-invariant router, the MoE engine against its solo generator).
+the row-invariant router, the MoE engine against its solo generator);
+each keys candidate of the tuning table's decode split, and a sweep's
+round trip through a temporary table.
 
 Needs the card; each test decides inside itself to skip where there is
 none. This file imports neither jax nor the JAX package, so it also runs
@@ -328,6 +330,76 @@ def test_decode_regime_named_by_the_caller_on_the_card(kind):
                 b, q.shape[1], h, hd, bs, n_blk, 1, 1, 1.0 / hd ** 0.5,
                 n_splits, keys, torch.cuda.current_stream().cuda_stream)
             assert rc != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_every_split_keys_candidate_matches_the_plain_split_on_the_card(
+        kind, hd):
+    """Each keys candidate of the tuning table's ``decode_split`` entry
+    (64, 128, 256; 64 and 128 for f32 rows of 128): K5 and K6 decode
+    steps (C = 1) through the kernels against ``split_attention_plain``
+    with the same keys on the same operands, and a 5-row chunk of K5
+    against the one-pass plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.ops import autotune
+
+    dev = torch.device("cuda", 0)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}[kind]
+    tol = dict(atol=TOL[kind], rtol=TOL[kind])
+    cands = autotune.split_keys_candidates(hd, dtype, 16)
+    assert cands == ([64, 128] if kind == "f32" and hd == 128
+                     else [64, 128, 256])
+    r = DA.make_split_runners(b=4, h=12, s=640, d=hd, dtype=dtype,
+                              block_size=16, device=dev, seed=41)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    k, v, ks, vs = _cache(kind, 2, 3, 640, hd, gen, dev)
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn(2, 5, 3, hd, generator=gen, device=dev).to(q_dtype)
+    want = DA.decode_attention_plain(q, k, v, 300, key_scale=ks,
+                                     value_scale=vs)
+    for keys in cands:
+        torch.testing.assert_close(r.k5(keys).float(),
+                                   r.k5_plain(keys).float(), **tol)
+        torch.testing.assert_close(r.k6(keys).float(),
+                                   r.k6_plain(keys).float(), **tol)
+        got = DA.decode_attention(q, k, v, 300, key_scale=ks,
+                                  value_scale=vs, split_keys=keys)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    with pytest.raises(ValueError, match="split_keys"):
+        DA.decode_attention(q, k, v, 300, key_scale=ks, value_scale=vs,
+                            split_keys=100)
+
+
+@pytest.mark.gpu
+def test_split_sweep_round_trip_on_the_card(tmp_path, monkeypatch):
+    """A sweep of K5 + K6 on the card records a candidate in a temporary
+    table with no failure; after ``reset()`` the online front door finds
+    it and makes no attempt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.ops import autotune
+
+    monkeypatch.setenv("DTG_AUTOTUNE_TABLE", str(tmp_path / "table.json"))
+    autotune.reset()
+    try:
+        kw = dict(h=12, d=64, dtype=torch.bfloat16, device="cuda")
+        shape = dict(b=8, s=1024, block_size=16)
+        keys = autotune.ensure_split_keys_tuned(iters=5, **kw, **shape)
+        assert keys in autotune.split_keys_candidates(64, torch.bfloat16)
+        assert autotune.online_tune_stats()["failed"] == 0
+        assert (tmp_path / "table.json").exists()
+        autotune.reset()
+        autotune.set_online_tune(True)
+        got = autotune.ensure_tuned_online(autotune.DECODE_SPLIT_KERNEL,
+                                           shape=shape, **kw)
+        assert got == keys
+        assert autotune.online_tune_stats()["attempted"] == 0
+    finally:
+        autotune.reset()
 
 
 FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}

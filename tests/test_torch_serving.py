@@ -264,8 +264,23 @@ def test_submit_validation_and_deferred_knobs(model, tmp_path):
     with pytest.raises(ValueError, match="adapter"):
         eng.submit(Request(rid=2, prompt=np.array([1, 2], np.int32),
                            max_new_tokens=2, rng=_key(2), adapter=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(TCFG, model, device="cpu", **ROOMY, online_tune=1)
+    # online tuning is served now: the knob sets the process override,
+    # and on the CPU the engine keeps the default decode split
+    from distributed_tensorflow_guide_tpu_torch.ops import autotune
+    from distributed_tensorflow_guide_tpu_torch.ops import (
+        decode_attention as DA,
+    )
+    try:
+        tuned = ServeEngine(TCFG, model, device="cpu", **ROOMY,
+                            online_tune=1)
+        assert autotune.online_tune_enabled()
+        assert tuned.fns.cfg.decode_split_keys == DA.split_keys(
+            TCFG.cache_dtype, TCFG.head_dim)
+        tuned.close()
+    finally:
+        autotune.set_online_tune(None)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ServeEngine(TCFG, model, device="cpu", **ROOMY, no_such_knob=1)
     # the host spill tier and warm cache persistence are served now:
     # each builds an engine, persist_cache with the snapshot directory and
     # prefix cache it needs, and without them it is refused as the JAX
