@@ -372,6 +372,22 @@ and check them.
     ``TrainLoop(online_tune=True)``, their losses within 1e-3 (first)
     and 2e-2 (all) of the default chunk's; (d) a new process reloads the
     table: every key hits with no attempt.
+39. the program audit (``analysis/``, part 1): (a) the 12 registered
+    collective-free programs (the serve engine's eager steps, the
+    one-shot generator, fused CE, the fp8 product) linted on the card:
+    every rule passes, the collective census is empty, and K5's and K6's
+    launch counters (by regime) move by exactly the kernel nodes each
+    census counted; per program, the census's op and kernel-node counts,
+    flops, HBM bytes, the census's peak live bytes beside the
+    ``torch.cuda.max_memory_allocated`` rise, and whether the structure
+    hash equals the CPU census taken in this process (the ops that
+    differ where not); (b) one eager decode step of phase 4's
+    ``gpt2_124m`` bf16 engine geometry (8 slots at ragged lengths, block
+    16, 513 blocks) audited under ``serve_decode_step``'s rules:
+    collective-free, no host sync, no global-generator draw, the pool
+    updated in place, no f32 tensor of slots x heads x max_len elements
+    but the (slots, 1, V) logits the sampler reads, K6 once a layer; its
+    cost vector beside phase 36's closed form (``_decode_cost``).
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -5454,8 +5470,9 @@ def check_fleet(cfg, model, seed, kind, keep: dict) -> dict:
 
 def _decode_cost(eng) -> dict:
     """Closed-form cost of one decode step of ``eng`` at its residents'
-    lengths: bf16 weights read once, the KV rows each slot attends read
-    once, 2 x parameters x slots FLOPs."""
+    lengths: every parameter's stored bytes read once (the f32 masters:
+    the decode views cast them to bf16 at every call), the bf16 KV rows
+    each slot attends read once, 2 x parameters x slots FLOPs."""
     cfg = eng.fns.cfg
     params = sum(p.numel() for p in eng.model.parameters())
     weight_bytes = sum(p.numel() * p.element_size()
@@ -6185,6 +6202,184 @@ def check_autotune(cfg, seed, kind, smi) -> dict:
     return by_regime
 
 
+# ---- phase 39: the program audit ----------------------------------------------
+
+AUDIT_PROGRAMS = (
+    "serve_decode_step", "serve_decode_step_lora", "serve_decode_step_moe",
+    "serve_decode_step_wq8", "serve_decode_step_wqfp8",
+    "serve_decode_step_moe_wq8", "serve_prefill_chunk_step",
+    "serve_prefill_chunk_step_moe", "decode_step", "decode_spec_step",
+    "fused_ce_loss_grad", "fp8_ste_matmul_grad",
+)
+
+
+def _node_regimes(census) -> dict:
+    """K5 / K6 kernel nodes of a census, by ``name.regime``."""
+    out = {k: 0 for k in DA.REGIME_LAUNCHES}
+    for n in census.nodes:
+        if n.kind == "kernel" and n.name in DA.LAUNCHES:
+            out[f"{n.name}.{n.regime}"] += 1
+    return out
+
+
+def _audit_decode_step(cfg, model, dev, seed) -> tuple[dict, dict]:
+    """Phase 39 (b): one eager decode step of phase 4's engine geometry
+    under ``serve_decode_step``'s rules. Returns (its printout, K6's
+    launches by regime)."""
+    from types import SimpleNamespace
+
+    from distributed_tensorflow_guide_tpu_torch.analysis import (
+        cost as acost,
+        lint,
+        rules,
+        walker,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        build_step_fns,
+        paged_cache_pool,
+    )
+
+    slots, bs, nblocks = 8, 16, 513
+    fns = build_step_fns(cfg, slots=slots, num_blocks=nblocks,
+                         block_size=bs, prefill_chunk=128, device=dev)
+    view = model.with_config(fns.cfg)
+    pool = paged_cache_pool(view)
+    rng = np.random.RandomState(seed)
+    written = rng.randint(32, 701, slots).astype(np.int32)
+    tables = np.zeros((slots, fns.n_blk), np.int32)
+    free = iter(rng.permutation(np.arange(1, nblocks)))
+    for i, w in enumerate(written):
+        for j in range(-(-int(w + 1) // bs)):
+            tables[i, j] = next(free)
+    last = rng.randint(0, 50257, slots)
+    [base] = lint._registered(("serve_decode_step",))
+    contract = dataclasses.replace(
+        base, name="gpt2_124m_decode_step", policy="bf16",
+        max_f32_intermediate_elems=None, cost=None)
+    DA.reset_launch_counts()
+    torch.cuda.synchronize()
+    _, census = walker.record(fns.decode_fn,
+                              (view, pool, tables, written, last),
+                              device=dev)
+    torch.cuda.synchronize()
+    launched = {k: DA.REGIME_LAUNCHES[k] for k in DA.REGIME_LAUNCHES
+                if k.startswith("paged_decode_attention.")}
+    traced = rules.TracedProgram(contract.name, census)
+    reports = {r.rule: r for r in (
+        rules.rule_collectives(traced, contract),
+        rules.rule_donation(traced, contract),
+        rules.rule_determinism(traced, contract))}
+    bad = {k: [f.message for f in r.findings]
+           for k, r in reports.items() if not r.ok}
+    if bad:
+        fail(f"phase 39 (b): gpt2_124m decode step: {bad}")
+    bar = slots * cfg.num_heads * cfg.max_len
+    big = sorted({(tuple(m.shape)) for n in census.nodes for m in n.outputs
+                  if m.sid in n.new and m.dtype == torch.float32
+                  and m.numel >= bar})
+    stray = [s for s in big if s[-1] != cfg.vocab_size]
+    if stray:
+        fail(f"phase 39 (b): f32 tensors of >= {bar} elements besides the "
+             f"logits: {stray}")
+    k6 = _node_regimes(census)
+    n_k6 = sum(v for k, v in k6.items() if k.startswith("paged"))
+    if n_k6 != cfg.num_layers or sum(launched.values()) != cfg.num_layers:
+        fail(f"phase 39 (b): K6 nodes {k6}, launches {launched}, want one "
+             f"a layer ({cfg.num_layers})")
+    vec = acost.census_cost(census,
+                            donated=acost.donated_sids(contract, census))
+    shim = SimpleNamespace(
+        fns=fns, model=view, num_slots=slots,
+        sched=SimpleNamespace(slots=[SimpleNamespace(written=int(w))
+                                     for w in written]))
+    out = {"counts": census.counts(), "k6_nodes": k6,
+           "k6_launches": launched,
+           "f32_at_or_over_bar": [list(s) for s in big],
+           "collectives": reports["collectives"].observed["census"],
+           "determinism": reports["determinism"].observed["hits"],
+           "pool": {k: reports["donation"].observed[k] for k in
+                    ("donated_leaves", "moved_leaves", "whole_copies")},
+           "cost": vec.to_dict(), "closed_form": _decode_cost(shim)}
+    return out, launched
+
+
+def check_program_audit(cfg, seed, kind) -> dict:
+    """Phase 39. Returns K5's and K6's launches by regime over its runs."""
+    from distributed_tensorflow_guide_tpu_torch.analysis import (
+        fingerprint,
+        lint,
+    )
+
+    t_phase = time.perf_counter()
+    dev = resolve_device(None)
+    # phase 38's online engine left online tuning on for the process: a
+    # program's build would then sweep K5/K6 for its new shape, launches
+    # the census (one run of the program) rightly does not hold
+    was = autotune.set_online_tune(False)
+    contracts = lint._registered(None)
+    names = [c.name for c in contracts]
+    if sorted(names) != sorted(AUDIT_PROGRAMS):
+        fail(f"phase 39: registered programs {names}")
+    launches = {k: 0 for k in DA.REGIME_LAUNCHES}
+    rows = {}
+    for c in contracts:
+        cpu = lint.lint_contract(c, "cpu")
+        before = dict(DA.REGIME_LAUNCHES)
+        rep = lint.lint_contract(c, dev)
+        moved = {k: DA.REGIME_LAUNCHES[k] - before[k] for k in before}
+        if not rep.ok or rep.census is None:
+            fail(f"phase 39 (a) {c.name} on the card:\n"
+                 + lint.render_text(lint.LintReport([rep])))
+            continue
+        census = rep.census
+        coll = next(r for r in rep.rules if r.rule == "collectives")
+        nodes = _node_regimes(census)
+        if coll.observed["census"] or moved != nodes:
+            fail(f"phase 39 (a) {c.name}: collectives "
+                 f"{coll.observed['census']}, kernel nodes {nodes}, "
+                 f"launches {moved}")
+        for k, n in moved.items():
+            launches[k] += n
+        vec = rep.fingerprint.cost
+        same = rep.fingerprint.structure == cpu.fingerprint.structure
+        rows[c.name] = {
+            **census.counts(),
+            "k5_k6_nodes": {k: v for k, v in nodes.items() if v},
+            "flops": vec["flops"], "hbm_bytes": vec["hbm_bytes"],
+            "census_peak_live_bytes": vec["peak_live_bytes"],
+            # the allocator's rise counts only what the run allocated:
+            # set the census's peak beside it less the inputs it holds
+            "census_peak_above_inputs": vec["peak_live_bytes"] - sum(
+                st.nbytes for st in census.storages.values()
+                if st.alloc == -1 and st.device == dev.type),
+            "max_memory_allocated_rise": rep.device_peak_bytes,
+            "structure_equals_cpu": same,
+            "structure_cuda": rep.fingerprint.structure[:12],
+            **({} if same else {"differs": fingerprint.census_diff(
+                cpu.census, census, limit=6)}),
+        }
+        print(f"audit {c.name} on {kind}: {json.dumps(rows[c.name])}",
+              flush=True)
+    t_b = time.perf_counter()
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    step, k6 = _audit_decode_step(cfg, model, dev, seed)
+    for k, n in k6.items():
+        launches[k] += n
+    del model
+    torch.cuda.empty_cache()
+    print(f"audit gpt2_124m decode step on {kind} (8 slots, block 16, 513 "
+          f"blocks): {json.dumps(step)} | s {time.perf_counter() - t_b:.1f}",
+          flush=True)
+    print(f"program audit on {kind}: {len(rows)} programs pass on the card, "
+          f"{sum(r['structure_equals_cpu'] for r in rows.values())} with the "
+          f"CPU census's structure | phase_s "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    print(f"K5/K6 launches by regime (phase 39): {json.dumps(launches)}",
+          flush=True)
+    autotune.set_online_tune(was)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -6332,6 +6527,10 @@ def main() -> int:
     for regime, n in check_autotune(cfg, args.seed, kind, smi).items():
         launches[f"paged_decode_attention.{regime}"] += n
     shutil.rmtree(tune_dir, ignore_errors=True)
+    # phase 39: the program audit; its K5 and K6 launches join the line
+    torch.cuda.empty_cache()
+    for n, c in check_program_audit(cfg, args.seed, kind).items():
+        launches[n] += c
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

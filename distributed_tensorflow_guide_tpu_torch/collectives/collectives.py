@@ -60,6 +60,23 @@ log = logging.getLogger(__name__)
 # of its own
 _TRACES: list["CommTrace"] = []
 _STAGED_NOTED = False
+# calls into torch.distributed this module has in flight (the program
+# auditor's census tells them from a collective that bypasses this module)
+_ISSUING = [0]
+
+
+def issuing() -> bool:
+    """Whether this module is inside a ``torch.distributed`` call."""
+    return _ISSUING[0] > 0
+
+
+@contextlib.contextmanager
+def _issue():
+    _ISSUING[0] += 1
+    try:
+        yield
+    finally:
+        _ISSUING[0] -= 1
 
 
 @dataclasses.dataclass
@@ -171,7 +188,8 @@ def _all_reduce(tree, ax: AxisGroup, op, mean: bool):
             kinds[(t.dtype, t.device)].append(i)
         for idx in kinds.values():
             flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-            dist.all_reduce(flat, op=op, group=ax.group)
+            with _issue():
+                dist.all_reduce(flat, op=op, group=ax.group)
             if mean:
                 flat /= ax.size
             parts = flat.split([leaves[i].numel() for i in idx])
@@ -226,7 +244,8 @@ def _all_gather(x: torch.Tensor, ax: AxisGroup, *, tiled: bool,
         send = _to_host(send)
     out = torch.empty((n * send.shape[0], *send.shape[1:]),
                       dtype=send.dtype, device=send.device)
-    dist.all_gather_into_tensor(out, send, group=ax.group)
+    with _issue():
+        dist.all_gather_into_tensor(out, send, group=ax.group)
     if staged:
         out = out.to(x.device)
     # (n * d, ...) or (n, ...), moved to gather_axis
@@ -260,8 +279,9 @@ def _reduce_scatter(x: torch.Tensor, ax: AxisGroup,
         send = _to_host(send)
     out = torch.empty((send.shape[0] // n, *send.shape[1:]),
                       dtype=send.dtype, device=send.device)
-    dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM,
-                               group=ax.group)
+    with _issue():
+        dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM,
+                                   group=ax.group)
     if staged:
         out = out.to(x.device)
     return out.movedim(0, scatter_axis).contiguous()
@@ -305,8 +325,9 @@ def _ppermute(x: torch.Tensor, ax: AxisGroup, perm) -> torch.Tensor:
             out = torch.empty_like(send)
             ops.append(dist.P2POp(dist.irecv, out, ax.ranks[frm[0]],
                                   group=ax.group))
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with _issue():
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         if out is not None and staged:
             out = out.to(x.device)
     if out is not None:
@@ -364,7 +385,8 @@ def _all_to_all(x: torch.Tensor, ax: AxisGroup, split_axis: int,
     if staged:
         chunks = _to_host(chunks)
     out = torch.empty_like(chunks)
-    dist.all_to_all_single(out, chunks, group=ax.group)
+    with _issue():
+        dist.all_to_all_single(out, chunks, group=ax.group)
     if staged:
         out = out.to(x.device)
     return torch.cat(out.unbind(0), dim=concat_axis)

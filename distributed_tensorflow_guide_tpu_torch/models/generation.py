@@ -543,6 +543,88 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
 
     generate.eager = lambda model, prompt, rng: run(model, prompt, rng,
                                                     capture=False)
+    # the eager loop ``generate.eager`` runs for (model, batch): its caches
+    # are the state the program auditor's contracts name
+    generate.eager_loop = lambda model, batch: loop_for(model, batch,
+                                                        capture=False)
     generate.captures = 0
     generate.last_stats = None
     return generate
+
+
+def lint_contracts():
+    """Contracts for the one-shot generator's programs (vanilla and
+    speculative), each one ``generate.eager`` call: the prompt chunk and
+    the decode steps (the eager body of the step the card captures).
+
+    Collective-free (it runs on one device or replicated), free of host
+    syncs and global draws (tokens are sampled with threefry from the
+    request's key), and the caches are ``scratch`` state: zeroed and
+    refilled in place each call, read by K5, never copied whole. The
+    speculative round reads one value a round on the host
+    (``int(idx.item())``, the stream's length, standing in for the JAX
+    package's ``lax.while_loop`` condition): its contract allows exactly
+    that, once a round. A round emits 1 to G + 1 tokens, so the 3 tokens
+    after the prompt's take 1 to 3 rounds."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+
+    B, P, MAX_NEW = 2, 8, 4
+
+    def build(spec_layers):
+        def _build(device):
+            from distributed_tensorflow_guide_tpu_torch.analysis.fixtures import (  # noqa: E501
+                tiny_lm,
+                tiny_lm_cfg,
+            )
+
+            cfg = tiny_lm_cfg(max_len=32)
+            gen = make_generate_fn(
+                cfg, max_new_tokens=MAX_NEW, spec_draft_layers=spec_layers,
+                spec_lookahead=2 if spec_layers else 4, device=device)
+            model = tiny_lm(cfg, device)
+            prompt = np.random.RandomState(1).randint(
+                0, cfg.vocab_size, (B, P)).astype(np.int32)
+            rng = np.array([0, 0], np.uint32)
+            caches = gen.eager_loop(model, B).caches
+
+            def program(model, prompt, *rest):
+                return gen.eager(model, prompt, rest[-1])
+
+            return program, (model, prompt, *caches, rng)
+
+        return _build
+
+    common = dict(
+        policy="f32",
+        collectives={},  # strict: the serve path is collective-free
+        sources=("distributed_tensorflow_guide_tpu_torch.models.generation",
+                 "distributed_tensorflow_guide_tpu_torch.models.transformer",
+                 "distributed_tensorflow_guide_tpu_torch.ops."
+                 "decode_attention"),
+    )
+    return [
+        ProgramContract(
+            name="decode_step",
+            build=build(0),
+            donation=DonationSpec(argnums=(2,), mode="scratch"),
+            # 55,392 observed on the CPU census (weights 28,672 + the
+            # cache's 16,384 + the run's tensors): a second copy of the
+            # cache held live adds 16,384 and fails it
+            cost=CostSpec(max_peak_live_bytes=65536),
+            notes="one-shot decode: cache zeroed and refilled in place",
+            **common),
+        ProgramContract(
+            name="decode_spec_step",
+            build=build(1),
+            donation=DonationSpec(argnums=(2, 3), mode="scratch"),
+            allowed_callbacks={"_local_scalar_dense": (1, MAX_NEW - 1)},
+            # 64,576 observed on the CPU census (+ the draft's 8,192-byte
+            # cache over decode_step's)
+            cost=CostSpec(max_peak_live_bytes=73728),
+            notes="self-speculative decode: one host read a round",
+            **common),
+    ]

@@ -66,6 +66,8 @@ import ctypes
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.analysis import cost as _cost
+from distributed_tensorflow_guide_tpu_torch.analysis import walker as _census
 from distributed_tensorflow_guide_tpu_torch.ops import autotune
 from distributed_tensorflow_guide_tpu_torch.ops.flash_attention import (
     MAX_HEAD_DIM,
@@ -431,6 +433,52 @@ def _plan(q, regime: str, kv_dtype, span: int, keys: int | None = None,
                                 dtype=torch.float32, device=q.device)
 
 
+# --------------------------------------------------------------------------
+# kernel nodes of the program auditor's census (analysis/walker.py)
+# --------------------------------------------------------------------------
+
+
+def _k5_node(q, cached_key, cached_value, index, *, key_scale=None,
+             value_scale=None, split_keys=None):
+    B, C, H, hd = q.shape
+    attrs = dict(b=B, h=H, s=cached_key.shape[2], d=hd, chunk=C,
+                 kv_dtype=cached_key.dtype, q_dtype=q.dtype)
+    return (decode_regime(q.dtype, cached_key.dtype, hd, C),
+            (q, cached_key, cached_value, index, key_scale, value_scale),
+            attrs)
+
+
+def _k6_node(q, key_pool, value_pool, block_tables, lengths, *,
+             key_scale_pool=None, value_scale_pool=None, block_size: int,
+             split_keys=None):
+    B, C, H, hd = q.shape
+    attrs = dict(b=B, h=H, s=block_tables.shape[1] * block_size, d=hd,
+                 chunk=C, kv_dtype=key_pool.dtype, q_dtype=q.dtype)
+    return (decode_regime(q.dtype, key_pool.dtype, hd, C),
+            (q, key_pool, value_pool, block_tables, lengths,
+             key_scale_pool, value_scale_pool), attrs)
+
+
+def decode_node_cost(node) -> dict:
+    """The cost of one K5 / K6 node: :func:`decode_kernel_hbm_bytes` at
+    the node's shapes, exactly (the cache, K6's whole table span, read
+    once; q read and the output written once), and 4·B·H·S·C·hd flops.
+    The closed form leaves out the kernel's metadata: K5's (1,) int32
+    index (4 bytes) and K6's block tables and lengths are not counted."""
+    a = node.attrs
+    total = decode_kernel_hbm_bytes(b=a["b"], h=a["h"], s=a["s"], d=a["d"],
+                                    dtype=a["kv_dtype"], chunk=a["chunk"],
+                                    q_dtype=a["q_dtype"])
+    out = a["b"] * a["h"] * a["chunk"] * a["d"] * a["q_dtype"].itemsize
+    return {"flops": 4.0 * a["b"] * a["h"] * a["s"] * a["chunk"] * a["d"],
+            "read": total - out, "write": float(out)}
+
+
+_cost.register_kernel_cost("decode_attention", decode_node_cost)
+_cost.register_kernel_cost("paged_decode_attention", decode_node_cost)
+
+
+@_census.kernel_entry("decode_attention", _k5_node)
 def decode_attention(q, cached_key, cached_value, index, *,
                      key_scale=None, value_scale=None,
                      split_keys: int | None = None):
@@ -486,6 +534,7 @@ def decode_attention(q, cached_key, cached_value, index, *,
     return out
 
 
+@_census.kernel_entry("paged_decode_attention", _k6_node)
 def paged_decode_attention(q, key_pool, value_pool, block_tables, lengths,
                            *, key_scale_pool=None, value_scale_pool=None,
                            block_size: int, split_keys: int | None = None):

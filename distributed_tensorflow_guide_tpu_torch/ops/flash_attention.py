@@ -50,6 +50,8 @@ import math
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.analysis import cost as _cost
+from distributed_tensorflow_guide_tpu_torch.analysis import walker as _census
 from distributed_tensorflow_guide_tpu_torch.ops.attention import (
     blockwise_attention,
 )
@@ -343,6 +345,39 @@ def _raise_on(rc, name):
                            f"{kernel_error(rc)}")
 
 
+# --------------------------------------------------------------------------
+# kernel nodes of the program auditor's census (analysis/walker.py): the
+# JAX package's fallback byte rule (operands read once, outputs written
+# once) and the products each kernel runs (2 flops a multiply-add; half
+# of them under a causal or diagonal mask)
+# --------------------------------------------------------------------------
+
+#: kernel node -> (S x S x D products a (batch, head) it runs, causal key)
+_FLASH_PRODUCTS = {"flash_fwd": (2, "causal"), "flash_dq": (3, "causal"),
+                   "flash_dkv": (4, "causal"), "flash_carry": (2, "diag")}
+
+
+def _flash_node(q, k, v, *rest, scale: float, **kw):
+    B, S, H, D = q.shape
+    mask = kw.get("causal", kw.get("diag"))
+    writes = rest[:3] if "diag" in kw and q.is_cuda else ()
+    return None, (q, k, v, *rest), dict(
+        b=B, sq=S, sk=k.shape[1], h=H, d=D, masked=bool(mask)), writes
+
+
+def _flash_node_cost(node) -> dict:
+    a = node.attrs
+    products, _ = _FLASH_PRODUCTS[node.name]
+    flops = 2.0 * products * a["b"] * a["h"] * a["sq"] * a["sk"] * a["d"]
+    return {"flops": flops * (0.5 if a["masked"] else 1.0),
+            **_cost.operands_once(node)}
+
+
+for _name in _FLASH_PRODUCTS:
+    _cost.register_kernel_cost(_name, _flash_node_cost)
+
+
+@_census.kernel_entry("flash_fwd", _flash_node)
 def flash_fwd(q, k, v, *, scale: float, causal: bool):
     """K1: (out (B, S, H, D) contiguous in q's dtype, lse (B, H, S) f32).
     CPU tensors take the plain version."""
@@ -380,6 +415,7 @@ def _bwd_operands(q, k, v, do, lse, delta):
     return q, k, v, do, strides
 
 
+@_census.kernel_entry("flash_dq", _flash_node)
 def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     """K2: dQ (B, S, H, D) contiguous in q's dtype. ``lse`` and ``delta``
     are (B, H, S) f32. CPU tensors take the plain version."""
@@ -400,6 +436,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     return _unpad(dq, hd)
 
 
+@_census.kernel_entry("flash_dkv", _flash_node)
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     """K3: (dK, dV), each (B, S, H, D) contiguous in q's dtype. CPU tensors
     take the plain version."""
@@ -422,6 +459,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     return _unpad(dk, hd), _unpad(dv, hd)
 
 
+@_census.kernel_entry("flash_carry", _flash_node)
 def flash_carry_step(q, k, v, m, l, acc, *, scale: float, diag: bool):
     """K4: one ring visit, merging the KV shard (k, v) into the carry of the
     query shard q. q, k, v: (B, S_loc, H, D), K1's layout and dtypes; m, l:

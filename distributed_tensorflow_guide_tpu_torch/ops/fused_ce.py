@@ -215,3 +215,68 @@ def fused_next_token_loss(x, kernel, tokens, *, chunk: int | None = None,
     return fused_cross_entropy(
         x[:, :-1], kernel, tokens[:, 1:], chunk=chunk, axis=axis,
         reduction=reduction, sum_dx=sum_dx)
+
+
+def lint_contracts():
+    """Contract for the fused-CE loss and gradient under the bf16 policy:
+    every chunk product takes bf16 factors and sums in f32 (the card's
+    ``torch.mm(..., out_dtype=f32)``, the CPU's widened factors), the
+    log-sum-exp stays f32, and no f32 (N, V) logits tensor exists in the
+    forward OR the backward (``vocab_rows=N`` keeps the (D, V) weight
+    gradient out of scope)."""
+    import numpy as np
+
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+
+    N, D, V, CHUNK = 64, 32, 128, 32
+
+    def _build(device):
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.standard_normal((N, D)).astype(np.float32))
+        kernel = torch.from_numpy(
+            (rng.standard_normal((D, V)) * 0.1).astype(np.float32))
+        targets = torch.from_numpy(rng.randint(0, V, N)).to(device)
+        x = x.to(device, torch.bfloat16).requires_grad_()
+        kernel = kernel.to(device, torch.bfloat16).requires_grad_()
+
+        def loss_and_grad(x, kernel, targets):
+            loss = fused_cross_entropy(x, kernel, targets, chunk=CHUNK)
+            return (loss, *torch.autograd.grad(loss, (x, kernel)))
+
+        return loss_and_grad, (x, kernel, targets)
+
+    return [
+        ProgramContract(
+            name="fused_ce_loss_grad",
+            build=_build,
+            policy="bf16",
+            vocab_dim=V,
+            vocab_rows=N,
+            max_vocab_f32_elems=0,
+            collectives={},  # single shard: no vocab-parallel psums
+            sources=("distributed_tensorflow_guide_tpu_torch.ops.fused_ce",),
+            cost=CostSpec(
+                pins=(
+                    # forward, backward recompute, dx, dW: four passes of
+                    # the logit product (the recompute is the price of
+                    # never holding the logits)
+                    CostPin("flops", 4 * 2.0 * N * D * V,
+                            note="4 logit-product passes incl. the "
+                                 "backward recompute"),
+                    CostPin("hbm_bytes",
+                            lambda: closed_forms().fused_ce_trace_bytes(
+                                N, D, V, CHUNK),
+                            note="fusion-boundary chunk traffic model"),
+                ),
+                # 63,308 observed on the CPU census: x, the kernel, the
+                # f32 (N, chunk) tiles, dx and dW at once
+                max_peak_live_bytes=65536),
+            notes="bf16 product factors, f32 sums, no full logits"),
+    ]

@@ -376,3 +376,45 @@ def int8_pmean(tree, axis, *, mesh=None):
     if isinstance(tree, Mapping):
         return {k: done.get(id(v), v) for k, v in tree.items()}
     return [done.get(id(v), v) for v in tree]
+
+
+def lint_contracts():
+    """Contract for the fp8 straight-through training product, the
+    program that exercises the precision rule's fp8 gate: e4m3fn factors
+    only (``torch._scaled_mm`` on the card, e4m3 values widened to f32 by
+    the CPU's plain version), f32 sums, an f32 dequant scale on the
+    result, and straight-through f32 gradients (no fp8 product in the
+    backward: its products run on the unquantised operands, which the
+    f32-factor check covers)."""
+    import numpy as np
+
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        ProgramContract,
+    )
+
+    N, D_IN, D_OUT = 8, 16, 32
+
+    def _build(device):
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.standard_normal((N, D_IN)).astype(
+            np.float32)).to(device).requires_grad_()
+        w = torch.from_numpy((rng.standard_normal((D_IN, D_OUT)) * 0.1)
+                             .astype(np.float32)).to(device).requires_grad_()
+
+        def loss_and_grad(x, w):
+            loss = (fp8_ste_dot(x, w) ** 2).sum()
+            return (loss, *torch.autograd.grad(loss, (x, w)))
+
+        return loss_and_grad, (x, w)
+
+    return [
+        ProgramContract(
+            name="fp8_ste_matmul_grad",
+            build=_build,
+            policy="fp8",
+            collectives={},  # single shard: the quantiser is device-local
+            fp8_matmuls=True,
+            sources=("distributed_tensorflow_guide_tpu_torch.ops.quant",),
+            notes="e4m3 factors, f32 sums, f32 dequant scales, "
+                  "straight-through backward"),
+    ]

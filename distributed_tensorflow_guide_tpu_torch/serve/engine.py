@@ -1328,3 +1328,220 @@ class ServeEngine:
             if isinstance(step, _Step):
                 step.release()
         self.pool = self.kv = None
+
+
+def lint_contracts():
+    """Contracts for the serving steps: the decode and prefill-chunk
+    pair, and the decode variants (multi-LoRA, MoE, weight-only int8 and
+    fp8, MoE with int8 banks), each the EAGER step
+    (``fns.decode_fn`` / ``fns.prefill_fn``), which is the body the card's
+    graphs capture.
+
+    Collective-free (a stray psum would deadlock a replicated server),
+    free of host syncs and global draws, the pool updated in place
+    (``alias``: every pool leaf read, written, never copied, the same
+    buffer after the step), and a ceiling on the largest f32 tensor that
+    sits BELOW a full-``max_len`` f32 score tensor: the lint fails if
+    anyone brings dense (slots, heads, chunk, max_len) scores back into
+    the serve path (K6 reads the pool through its block tables)."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+
+    # fixture geometry: every legitimate f32 tensor (largest: one pool
+    # leaf, num_blocks * heads * block * head_dim = 5 * 2 * 8 * 8 = 640,
+    # or a widened kernel, at most 48 * 16 = 768) fits under the cap,
+    # while dense f32 scores (decode: slots * heads * max_len = 2048;
+    # prefill: heads * chunk * max_len = 4096) would not
+    S, NB, BS, CH, MAXLEN = 4, 5, 8, 8, 256
+    F32_CAP = 1024
+
+    def _inputs(fns, cfg, kind):
+        """The host arrays of one step: slots at their own lengths in
+        their own blocks (slot 2 empty, its table all trash block 0)."""
+        rng = np.random.RandomState(3)
+        n_blk = fns.n_blk
+        if kind == "prefill":
+            tables = np.zeros((1, n_blk), np.int32)
+            tables[0, :2] = (1, 2)
+            arrays = [tables, np.array([4], np.int32),
+                      rng.randint(0, cfg.vocab_size, (1, CH)),
+                      np.array([CH - 2])]
+            return arrays + ([np.array([1])] if fns.lora else [])
+        tables = np.zeros((S, n_blk), np.int32)
+        written = np.array([3, 7, 0, 5], np.int32)
+        for i, blk in enumerate((1, 2, 0, 4)):
+            tables[i, 0] = blk
+        arrays = [tables, written, rng.randint(0, cfg.vocab_size, S)]
+        return arrays + ([np.array([0, 1, 2, 1])] if fns.lora else [])
+
+    def _build(kind):
+        def _b(device):
+            from distributed_tensorflow_guide_tpu_torch.analysis.fixtures import (  # noqa: E501
+                tiny_lm,
+                tiny_lm_cfg,
+            )
+
+            wq = ("int8" if kind in ("decode_wq8", "decode_moe_wq8")
+                  else "fp8" if kind == "decode_wqfp8" else None)
+            base = dataclasses.replace(
+                tiny_lm_cfg(vocab_size=32, max_len=MAXLEN),
+                **({"lora_rank": 2, "lora_adapters": 2}
+                   if kind == "decode_lora" else {}),
+                **({"moe_experts": 4, "moe_capacity": 2}
+                   if "moe" in kind else {}))
+            model = tiny_lm(base, device)
+            cfg = base
+            if wq is not None:
+                model = model.quantize(wq)
+                cfg = model.cfg
+            fns = build_step_fns(cfg, slots=S, num_blocks=NB,
+                                 block_size=BS, prefill_chunk=CH,
+                                 device=device)
+            view = model.with_config(fns.cfg)
+            if fns.lora:
+                rng = np.random.RandomState(4)
+                view.set_adapter_bank({
+                    name: (rng.standard_normal(shape) * 0.1).astype(
+                        np.float32)
+                    for name, (shape, _) in adapter_bank_shapes(
+                        fns.cfg).items()})
+            pool = paged_cache_pool(view)
+            step = (fns.prefill_fn if kind.startswith("prefill")
+                    else fns.decode_fn)
+            return step, (view, pool,
+                          *_inputs(fns, cfg, "prefill"
+                                   if kind.startswith("prefill")
+                                   else "decode"))
+
+        return _b
+
+    common = dict(
+        policy="f32",
+        collectives={},  # strict: the serve steps are collective-free
+        max_f32_intermediate_elems=F32_CAP,
+        donation=DonationSpec(argnums=(1,), mode="alias"),
+        sources=("distributed_tensorflow_guide_tpu_torch.serve.engine",
+                 "distributed_tensorflow_guide_tpu_torch.serve.paged_cache",
+                 "distributed_tensorflow_guide_tpu_torch.models.transformer",
+                 "distributed_tensorflow_guide_tpu_torch.ops."
+                 "decode_attention"),
+    )
+
+    def _sibling_read(sibling) -> float:
+        from distributed_tensorflow_guide_tpu_torch.analysis import lint
+
+        rep = lint.lint_contract(sibling, "cpu")
+        return next(r.observed["hbm_bytes_read"] for r in rep.rules
+                    if r.rule == "cost")
+
+    # every quantised kernel element of the fixture: per layer qkv
+    # 16 * 48 + proj 16 * 16 + up 16 * 32 + down 32 * 16 = 2048, x 2
+    # layers, plus lm_head 16 * 32 = 512 -> 4608; stored in one byte, each
+    # is read by the product at 1 byte instead of the f32 sibling's 4.
+    # Plus the MLP up projection's bias (32 f32 a layer, x 2): the f32
+    # sibling's ``addmm`` reads it as a product operand, the quantised
+    # projection adds it elementwise (fused, free)
+    WQ8_SAVED_BYTES = 3 * 4608 + 2 * 32 * 4
+    # the MoE fixture's: per layer qkv 768 + proj 256 + expert banks
+    # w_in 4 * 16 * 32 + w_out 4 * 32 * 16 = 4096, x 2 layers, plus
+    # lm_head 512 -> 10752 (the f32 router is exempt)
+    MOE_WQ8_SAVED_BYTES = 3 * 10752
+
+    sibling = ProgramContract(
+        name="serve_decode_step",
+        build=_build("decode"),
+        # 50,960 observed on the CPU census
+        cost=CostSpec(max_peak_live_bytes=57344),
+        notes="fixed-slot paged decode: pool updated in place, no "
+              "full-max_len f32 score tensor",
+        **common)
+    moe_sibling = ProgramContract(
+        name="serve_decode_step_moe",
+        build=_build("decode_moe"),
+        # 75,796 observed on the CPU census
+        cost=CostSpec(max_peak_live_bytes=81920),
+        notes="MoE decode: router dispatch and fixed-capacity expert "
+              "products inside the step; per-slot overflow flags drive "
+              "the engine's stall-and-retry; idle slots masked out",
+        **common)
+    return [
+        sibling,
+        ProgramContract(
+            name="serve_decode_step_wq8",
+            build=_build("decode_wq8"),
+            quantized_matmuls=True,
+            cost=CostSpec(
+                pins=(CostPin(
+                    "hbm_bytes_read",
+                    lambda: _sibling_read(sibling) - WQ8_SAVED_BYTES,
+                    note="f32 decode read bytes minus 3 B x 4608 "
+                         "quantised kernel elems and the up bias"),),
+                # 40,880 observed on the CPU census
+                max_peak_live_bytes=49152),
+            notes="weight-only int8 decode: int8 kernels + f32 column "
+                  "scales; the port widens the stored kernel into an f32 "
+                  "copy at every call (wq_matmul) and the product reads "
+                  "it at its 1-byte origin",
+            **common),
+        ProgramContract(
+            name="serve_decode_step_wqfp8",
+            build=_build("decode_wqfp8"),
+            # NOT fp8_matmuls: only the kernel is widened from e4m3, the
+            # activation is f32, so every product is an f32 product (the
+            # weight-only discipline); the saved read bytes are int8's
+            cost=CostSpec(
+                pins=(CostPin(
+                    "hbm_bytes_read",
+                    lambda: _sibling_read(sibling) - WQ8_SAVED_BYTES,
+                    note="f32 decode read bytes minus 3 B x 4608 "
+                         "fp8-stored kernel elems and the up bias"),),
+                # 40,880 observed on the CPU census
+                max_peak_live_bytes=49152),
+            notes="weight-only fp8 decode: e4m3 kernels + f32 column "
+                  "scales, widened at every call like int8's",
+            **common),
+        ProgramContract(
+            name="serve_prefill_chunk_step",
+            build=_build("prefill"),
+            # 51,272 observed on the CPU census
+            cost=CostSpec(max_peak_live_bytes=57344),
+            notes="B=1 chunked prefill through K6",
+            **common),
+        ProgramContract(
+            name="serve_decode_step_lora",
+            build=_build("decode_lora"),
+            # 61,904 observed on the CPU census
+            cost=CostSpec(max_peak_live_bytes=65536),
+            notes="multi-adapter decode: gathered low-rank deltas stay "
+                  "collective-free and under the f32 cap",
+            **common),
+        moe_sibling,
+        ProgramContract(
+            name="serve_decode_step_moe_wq8",
+            build=_build("decode_moe_wq8"),
+            quantized_matmuls=True,
+            cost=CostSpec(
+                pins=(CostPin(
+                    "hbm_bytes_read",
+                    lambda: _sibling_read(moe_sibling) - MOE_WQ8_SAVED_BYTES,
+                    note="f32 MoE decode read bytes minus 3 B x 10752 "
+                         "quantised kernel and bank elems"),),
+                # 48,436 observed on the CPU census
+                max_peak_live_bytes=57344),
+            notes="weight-only int8 MoE decode: per-expert qkernel + scale "
+                  "banks, one expert's kernel widened at a time "
+                  "(wq_bank_matmul)",
+            **common),
+        ProgramContract(
+            name="serve_prefill_chunk_step_moe",
+            build=_build("prefill_moe"),
+            # 81,708 observed on the CPU census
+            cost=CostSpec(max_peak_live_bytes=90112),
+            notes="B=1 MoE chunked prefill: dropless, pad rows masked out "
+                  "of the census",
+            **common),
+    ]

@@ -1586,3 +1586,49 @@ def test_record_fed_steps_through_the_prefetch_are_bitwise(tmp_path):
     assert prefetch.stats.peak_ahead == 2
     assert got == want
     assert all(torch.equal(got_sd[n], want_sd[n]) for n in want_sd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_census_of_k5_and_k6_on_the_card_is_one_priced_node_each(kind):
+    """The program auditor's census of one K5 and one K6 call on the card:
+    one kernel node each (the launch itself is invisible to the dispatch
+    mode), the call launched its kernel once, and the node prices at
+    ``decode_kernel_hbm_bytes`` exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.analysis import cost, walker
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, s, hd, bs, c = 4, 12, 256, 64, 16, 1
+    q_dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    k, v, ks, vs = _cache(kind, b, h, s, hd, gen, dev)
+    n_blk = s // bs
+    perm = torch.randperm(b * n_blk, generator=gen, device=dev)
+    tables = perm.view(b, n_blk).to(torch.int32)
+    kp, vp = _pool(k, perm, n_blk, 2), _pool(v, perm, n_blk, 2)
+    ksp = None if ks is None else _pool(ks, perm, n_blk, 3)
+    vsp = None if vs is None else _pool(vs, perm, n_blk, 3)
+    q = torch.randn(b, c, h, hd, generator=gen, device=dev).to(q_dtype)
+    index = torch.tensor([s - 1], dtype=torch.int32, device=dev)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    want = DA.decode_kernel_hbm_bytes(b=b, h=h, s=s, d=hd, dtype=k.dtype,
+                                      chunk=c, q_dtype=q_dtype)
+    calls = {
+        "decode_attention": lambda: DA.decode_attention(
+            q, k, v, index, key_scale=ks, value_scale=vs),
+        "paged_decode_attention": lambda: DA.paged_decode_attention(
+            q, kp, vp, tables, lens, key_scale_pool=ksp,
+            value_scale_pool=vsp, block_size=bs),
+    }
+    for name, call in calls.items():
+        before = DA.LAUNCHES[name]
+        _, census = walker.record(call, (), device=dev)
+        assert DA.LAUNCHES[name] == before + 1
+        [node] = census.nodes
+        assert (node.kind, node.name, node.regime) == ("kernel", name,
+                                                        "split")
+        vec = cost.census_cost(census)
+        assert vec.hbm_bytes == want
+        assert vec.flops == 4.0 * b * h * s * c * hd
