@@ -388,6 +388,25 @@ and check them.
     updated in place, no f32 tensor of slots x heads x max_len elements
     but the (slots, 1, V) logits the sampler reads, K6 once a layer; its
     cost vector beside phase 36's closed form (``_decode_cost``).
+40. the program audit, part 2, the 10 mesh programs: (a) ``lint --world
+    8`` in a world of 8 gloo ranks time-sharing ``cuda:0``, online tuning
+    off: the DP, bucketed-overlap and int8 steps, FSDP, the GPipe step
+    with the fused CE head, the two multislice rounds, the KV transfer
+    across slices, the Switch and dropless MoE steps. Each passes every
+    rule on every rank with no bypass, with the same per-rank collective
+    censuses and world-mean collective bytes as the same world on the
+    CPU (run here first); one line a program, the structure hash against
+    the CPU's reported, not gated (gloo's staging copies the CUDA
+    messages); (b) one eager GPT-2 124M data-parallel train step (phase
+    7's model, S=1024, 4 sequences a rank, SGD with momentum as the
+    contract's fixture) at 2 ranks sharing the card over gloo, audited
+    under ``dp_train_step``'s rules with its counts and pins re-derived:
+    2 ``psum[data]`` calls moving ``dp_allreduce_bytes(G, 2)`` +
+    2 ``dp_allreduce_bytes(4, 2)`` a rank (G the f32 parameter bytes), no
+    bypass, no host sync, the state updated in place, 12 K1, 12 K2 and 12
+    K3 kernel nodes a rank and launches equal to them; its precision and
+    memory observations are printed, not gated (a bf16 model under the
+    f32 contract's rules).
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -6316,10 +6335,11 @@ def check_program_audit(cfg, seed, kind) -> dict:
     # program's build would then sweep K5/K6 for its new shape, launches
     # the census (one run of the program) rightly does not hold
     was = autotune.set_online_tune(False)
-    contracts = lint._registered(None)
-    names = [c.name for c in contracts]
+    # the one-process programs; phase 40 audits the mesh programs
+    names = [c.name for c in lint._registered(None) if c.world is None]
     if sorted(names) != sorted(AUDIT_PROGRAMS):
-        fail(f"phase 39: registered programs {names}")
+        fail(f"phase 39: registered one-process programs {names}")
+    contracts = lint._registered(AUDIT_PROGRAMS)
     launches = {k: 0 for k in DA.REGIME_LAUNCHES}
     rows = {}
     for c in contracts:
@@ -6378,6 +6398,194 @@ def check_program_audit(cfg, seed, kind) -> dict:
           flush=True)
     autotune.set_online_tune(was)
     return launches
+
+
+# ---- phase 40: the program audit's mesh programs -------------------------------
+
+MESH_PROGRAMS = (
+    "dp_train_step", "dp_overlap_train_step", "dp_overlap_int8_round",
+    "fsdp_prefetch_train_step", "pipeline_fused_ce_train_step",
+    "multislice_outer_on_round", "multislice_outer_off_round",
+    "serve_kv_block_transfer_dcn", "moe_train_step",
+    "moe_dropless_train_step",
+)
+MESH_WORLD = 8
+AUDIT_DP_N, AUDIT_DP_B, AUDIT_DP_S = 2, 4, 1024  # ranks, sequences, tokens
+
+
+def _world_view(p) -> dict:
+    """A mesh program's report as phase 40 compares it: every rank's
+    collective census and op count, the world-mean collective bytes, the
+    bypassing ops and the allocator's peak rise over the ranks."""
+    world_cost = next(r for r in p.rules if r.rule == "cost")
+    return {
+        "census": [r.counts()["collectives"] for r in p.ranks],
+        "ops": [r.counts()["ops"] for r in p.ranks],
+        "bypassing_ops": sum(
+            next(x for x in r.rules if x.rule == "collectives").observed[
+                "bypassing_ops"] for r in p.ranks),
+        "collective_bytes_world_mean":
+            world_cost.observed["collective_bytes_world_mean"],
+        "max_memory_allocated_rise_max": max(
+            (r.device_peak_bytes or 0) for r in p.ranks),
+    }
+
+
+def check_mesh_programs(kind) -> None:
+    """Phase 40 (a): the 10 mesh programs in a world of 8 ranks on the
+    CPU, then on ``cuda:0``."""
+    from distributed_tensorflow_guide_tpu_torch.analysis import lint
+
+    t0 = time.perf_counter()
+    contracts = lint._registered(MESH_PROGRAMS)
+    cpu = lint.run_contracts(contracts, "cpu", world=MESH_WORLD)
+    t_cpu = time.perf_counter() - t0
+    if not cpu.ok:
+        fail("phase 40 (a): the CPU world:\n" + lint.render_text(cpu))
+    t1 = time.perf_counter()
+    card = lint.run_contracts(contracts, "cuda:0", world=MESH_WORLD)
+    t_card = time.perf_counter() - t1
+    bad = []
+    for c, p, q in zip(contracts, card.programs, cpu.programs):
+        if not p.ok:
+            bad.append(lint.render_text(lint.LintReport([p])))
+            continue
+        got, want = _world_view(p), _world_view(q)
+        if (len(p.ranks) != MESH_WORLD or got["bypassing_ops"]
+                or got["census"] != want["census"]
+                or got["collective_bytes_world_mean"]
+                != want["collective_bytes_world_mean"]):
+            bad.append(f"{c.name}: card {got}, CPU world {want}")
+        row = {"ranks": len(p.ranks), "census_rank0": got["census"][0],
+               "collective_bytes_world_mean":
+                   got["collective_bytes_world_mean"],
+               "bypassing_ops": got["bypassing_ops"],
+               "ops_rank0_cuda": got["ops"][0],
+               "ops_rank0_cpu": want["ops"][0],
+               "max_memory_allocated_rise_max":
+                   got["max_memory_allocated_rise_max"],
+               "structure_equals_cpu":
+                   p.fingerprint.structure == q.fingerprint.structure}
+        print(f"audit mesh {c.name} on {kind}: {json.dumps(row)}",
+              flush=True)
+    if bad:
+        fail("phase 40 (a) on the card:\n" + "\n".join(bad))
+    print(f"mesh audit on {kind}: {sum(p.ok for p in card.programs)}/"
+          f"{len(contracts)} programs pass on {MESH_WORLD} ranks sharing "
+          f"the card | cpu_world_s {t_cpu:.1f} card_world_s {t_card:.1f}",
+          flush=True)
+
+
+def audit_dp_rank(seed: int) -> dict:
+    """One rank of phase 40 (b) (started by ``run_multiprocess``)."""
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.analysis import (
+        lint,
+        rules,
+        walker,
+    )
+
+    autotune.set_online_tune(False)
+    dev = resolve_device(None)
+    mesh = build_mesh(MeshSpec(data=AUDIT_DP_N))
+    i = mesh.axis("data").index
+    cfg = gpt2_124m(dtype=torch.bfloat16)
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    if cfg.resolve_attn_impl(AUDIT_DP_S) != "flash":
+        raise RuntimeError("attn_impl='auto' did not resolve to flash")
+    tokens = np.random.RandomState(seed).randint(
+        0, 50257, (AUDIT_DP_N * AUDIT_DP_B, AUDIT_DP_S)).astype(np.int64)
+    share = {"tokens": torch.as_tensor(
+        tokens[i * AUDIT_DP_B:(i + 1) * AUDIT_DP_B], device=dev)}
+    # SGD with momentum, as the contract's fixture: Adam's step count
+    # lives on the host and its update reads it back (a host sync)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=1e-3,
+                                              momentum=0.9))
+    step = DataParallel(mesh, device=dev).make_train_step(
+        make_lm_loss_fn(model))
+    [base] = lint._registered(("dp_train_step",))
+    contract = dataclasses.replace(base, name="gpt2_124m_dp_train_step",
+                                   policy="bf16", cost=None, world=None)
+    FA.reset_launch_counts()
+    dist.barrier()
+    torch.cuda.synchronize()
+    (_, mets), census = walker.record(step, (state, share), device=dev)
+    torch.cuda.synchronize()
+    launched = {n: FA.LAUNCHES[n] for n in K1_K3}
+    traced = rules.TracedProgram(contract.name, census)
+    reports = {r.rule: r for r in (rule(traced, contract)
+                                   for rule in rules.ALL_RULES)}
+    nodes = {n: sum(1 for x in census.nodes if x.kind == "kernel"
+                    and x.name == n) for n in K1_K3}
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(),
+            "device": str(dev),
+            "gated_findings": {k: [f.message for f in reports[k].findings]
+                               for k in ("collectives", "donation",
+                                         "determinism")
+                               if not reports[k].ok},
+            "counts": census.counts(),
+            "collectives": reports["collectives"].observed,
+            "donation": {k: reports["donation"].observed.get(k) for k in
+                         ("donated_leaves", "moved_leaves")},
+            "determinism": reports["determinism"].observed["hits"],
+            "precision": reports["precision"].observed,
+            "precision_findings": sorted({f.message for f in reports[
+                "precision"].findings}),
+            "memory": reports["memory"].observed,
+            "collective_bytes": traced.cost_vector.collective_bytes,
+            "flops": traced.cost_vector.flops,
+            "grad_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+            "kernel_nodes": nodes, "launches": launched,
+            "loss": float(mets["loss"])}
+
+
+def check_mesh_dp_gpt2(seed, kind) -> dict:
+    """Phase 40 (b). Returns the ranks' K1-K3 launches, summed."""
+    from distributed_tensorflow_guide_tpu_torch.analysis import cost
+
+    t0 = time.perf_counter()
+    res = [r.result for r in run_multiprocess(
+        "chip_smoke:audit_dp_rank", AUDIT_DP_N, [seed], timeout=900)]
+    layers = gpt2_124m().num_layers
+    want_nodes = dict.fromkeys(K1_K3, layers)
+    G = res[0]["grad_bytes"]
+    ar = cost.dp_allreduce_bytes
+    want_bytes = ar(G, AUDIT_DP_N) + 2 * ar(4, AUDIT_DP_N)
+    mean = sum(r["collective_bytes"].get("psum[data]", 0.0)
+               for r in res) / AUDIT_DP_N
+    for r in res:
+        if r["gated_findings"]:
+            fail(f"phase 40 (b) rank {r['rank']}: {r['gated_findings']}")
+        if r["collectives"] != {"census": {"psum[data]": 2},
+                                "bypassing_ops": 0}:
+            fail(f"phase 40 (b) rank {r['rank']}: collectives "
+                 f"{r['collectives']}")
+        if r["kernel_nodes"] != want_nodes or r["launches"] != want_nodes:
+            fail(f"phase 40 (b) rank {r['rank']}: K1-K3 nodes "
+                 f"{r['kernel_nodes']}, launches {r['launches']}, want "
+                 f"{layers} each")
+    if mean != want_bytes:
+        fail(f"phase 40 (b): psum[data] world mean {mean}, closed form "
+             f"{want_bytes}")
+    # the loss is the pmean over the ranks: one number, at random init
+    # within the margin of ln(V)
+    losses = {r["loss"] for r in res}
+    if len(losses) != 1 or abs(res[0]["loss"] - LN_VOCAB) > LOSS0_MARGIN:
+        fail(f"phase 40 (b): losses {sorted(losses)}, want one within "
+             f"{LOSS0_MARGIN} of ln(50304) = {LN_VOCAB}")
+    print(f"audit gpt2_124m dp train step on {kind} ({AUDIT_DP_N} ranks "
+          f"sharing the card over {res[0]['backend']}, B={AUDIT_DP_B} a "
+          f"rank, S={AUDIT_DP_S}): " + json.dumps(
+              {"psum_data_world_mean": mean, "closed_form": want_bytes,
+               "grad_bytes": G, "loss": res[0]["loss"],
+               **{k: [r[k] for r in res] for k in (
+                   "counts", "kernel_nodes", "launches", "donation",
+                   "determinism", "flops", "precision", "memory")},
+               "precision_findings": res[0]["precision_findings"]})
+          + f" | s {time.perf_counter() - t0:.1f}", flush=True)
+    return {n: sum(r["launches"][n] for r in res) for n in K1_K3}
 
 
 def main() -> int:
@@ -6531,6 +6739,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     for n, c in check_program_audit(cfg, args.seed, kind).items():
         launches[n] += c
+    # phase 40: the mesh programs; the GPT-2 DP step's K1-K3 launches join
+    torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    check_mesh_programs(kind)
+    for n, c in check_mesh_dp_gpt2(args.seed, kind).items():
+        launches[n] += c
+    print(f"phase 40: {time.perf_counter() - t_mesh:.1f} s", flush=True)
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

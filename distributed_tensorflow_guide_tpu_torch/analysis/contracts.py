@@ -38,17 +38,23 @@ class DonationSpec:
     * ``"scratch"`` — the buffer is read at least once and never copied
       whole (the one-shot generator's cache, zeroed and refilled each
       call).
+    * ``"update"`` — a train state its optimizer updates in place
+      (``TrainState.apply_gradients``): every donated leaf is read, some
+      op writes it, and it keeps the ``data_ptr`` passed in. No op counts
+      as a copy of it: a forward reads a parameter into tensors of its
+      size and more (a bias add), which is not a second copy of the
+      state.
 
-    In both modes a donated leaf that is never read is a finding.
+    In every mode a donated leaf that is never read is a finding.
     """
 
     argnums: tuple[int, ...]
     mode: str = "alias"
 
     def __post_init__(self):
-        if self.mode not in ("alias", "scratch"):
+        if self.mode not in ("alias", "scratch", "update"):
             raise ValueError(
-                f"donation mode must be 'alias' or 'scratch', "
+                f"donation mode must be 'alias', 'scratch' or 'update', "
                 f"got {self.mode!r}")
 
 
@@ -108,6 +114,17 @@ class ProgramContract:
 
     ``sources`` lists the module names whose edits should re-trigger this
     contract under ``lint --changed-only``.
+
+    ``world`` marks a mesh program: it runs on every rank of a world of
+    processes (``analysis/world.py``; ``lint --world N``, N = 8 for the
+    registered ones, the JAX package's ``LINT_DEVICES``), each rank
+    building the program on its own mesh from the default process group.
+    Every rule runs on every rank's census; the ``collective_bytes[...]``
+    pins are held to the world mean of the key (the sum over ranks / N,
+    the JAX package's per-device convention). ``per_rank(rank)`` returns
+    field overrides for the ranks whose role differs (a pipeline's first
+    stage runs no head). ``None`` runs the program in the linting
+    process.
     """
 
     name: str
@@ -134,6 +151,15 @@ class ProgramContract:
     #: opt-in for fp8 products: e4m3fn operands only, accumulated in the
     #: policy's accum dtype, rescaled by an f32 scale downstream.
     fp8_matmuls: bool = False
+    #: the world size the program is written for (None: one process)
+    world: int | None = None
+    #: rank -> {field: value} overrides of this contract on that rank
+    per_rank: Callable[[int], dict] | None = None
+
+    def for_rank(self, rank: int) -> "ProgramContract":
+        """This contract as rank ``rank`` of its world is held to it."""
+        over = self.per_rank(rank) if self.per_rank is not None else {}
+        return dataclasses.replace(self, **over) if over else self
 
 
 _REGISTRY: dict[str, ProgramContract] = {}

@@ -22,7 +22,18 @@ JAX package's conventions so that a pin means what its pin means:
   copies nothing, so there is no boundary term.
 
 * **Collective bytes** — the run's ``collectives.CommTrace`` wire bytes,
-  keyed like the census (``"psum[data]"``).
+  keyed like the census (``"psum[data]"``), under the ring model: an
+  all-reduce puts 2·P·(n−1)/n on the wire, a reduce-scatter and an
+  all-to-all P·(n−1)/n, an all-gather of a P-byte shard P·(n−1), and a
+  ``ppermute`` P per destination, so a rank that only receives records 0.
+  Two conventions read these bytes. A rank's census holds its own wire
+  bytes (one process, one rank). A mesh program (``ProgramContract.
+  world``) is held to the WORLD MEAN of each key, the sum over its ranks
+  / N: the JAX package's per-device convention, whose SPMD census prices
+  a ``ppermute`` at bytes × hops / n_devices. Where every rank sends
+  alike (an all-reduce) the two agree; a point-to-point transfer from
+  one slice to the other reads P on a sender, 0 on a receiver and P/2 as
+  the mean over two slices.
 
 * **Peak live bytes** — from the allocation and free order the census
   saw (a finalizer on each storage). Program inputs are live for the whole
@@ -260,15 +271,110 @@ def fused_ce_trace_bytes(n_rows: int, d_model: int, vocab: int, chunk: int,
                                     **kw).values())
 
 
+def dp_allreduce_bytes(grad_bytes: float, world: int,
+                       compress: str | None = None) -> float:
+    """Sync-DP gradient all-reduce per rank: a ring reduce-scatter and
+    all-gather, each moving (n−1)/n of the buffer, 2·P·(n−1)/n; 0 on an
+    axis of one rank. ``grad_bytes`` is the f32 gradient size;
+    ``compress="int8"`` prices the int8 wire, 1 byte an element (P/4);
+    callers add ``n_buckets * dp_allreduce_bytes(4, world)`` for the
+    shared-scale ``pmax``."""
+    if compress not in (None, "int8"):
+        raise ValueError(f"compress must be None or 'int8', got "
+                         f"{compress!r}")
+    if world <= 1:
+        return 0.0
+    wire = grad_bytes / 4.0 if compress == "int8" else float(grad_bytes)
+    return 2.0 * wire * (world - 1) / world
+
+
+def pipeline_ppermute_bytes(act_bytes: float, num_microbatches: int,
+                            stages: int) -> float:
+    """Pipeline traffic per rank a step: each microbatch's activation
+    crosses every stage boundary once forward and its cotangent once
+    backward, 2·M·act·(P−1)/P averaged over the ring; 0 at P = 1. It has
+    no virtual-chunk factor: at v = 1 it is ``PipelinedLM.
+    pipe_wire_bytes_per_step / P``, which counts P·v − 1 boundaries."""
+    if stages <= 1:
+        return 0.0
+    return 2.0 * num_microbatches * act_bytes * (stages - 1) / stages
+
+
+def moe_all_to_all_bytes(dispatch_buffer_bytes: float, expert_world: int,
+                         n_layers: int = 1, passes: int = 4) -> float:
+    """Expert-parallel routing traffic per rank a step: each MoE layer
+    crosses the expert axis ``passes`` times (training: dispatch and
+    return forward, their transposes backward; serving: 2), each an
+    all-to-all keeping the local 1/e share, passes·L·B·(e−1)/e with B the
+    dispatch buffer (E · capacity · d_model · itemsize)."""
+    if expert_world <= 1:
+        return 0.0
+    return (float(passes) * n_layers * dispatch_buffer_bytes
+            * (expert_world - 1) / expert_world)
+
+
+def outer_sync_bytes(float_state_bytes: float, n_slices: int,
+                     compress: str | None = None) -> float:
+    """The two-tier outer sync per rank a round (``parallel/
+    multislice.py``): a ring all-reduce across slices of the float
+    parameter delta and the float inner-optimizer state, 2·P·(n−1)/n
+    with n the slice count; 0 at one slice."""
+    return dp_allreduce_bytes(float_state_bytes, n_slices, compress)
+
+
+def kv_migration_bytes_terms(n_blocks: int, num_layers: int,
+                             num_heads: int, block_size: int,
+                             head_dim: int, kv_dtype: str | None = None, *,
+                             activation_dtype_bytes: int = 2) -> dict:
+    """Payload bytes of migrating ``n_blocks`` written KV blocks, split
+    into terms: per layer a K and a V row ``(H, block_size, hd)`` at the
+    activation dtype, or int8 with the two f32 scale rows ``(H, 1,
+    block_size)`` the int8 pool holds a block (one scale a position and
+    head). For any config of this geometry the total is ``serve/
+    paged_cache.kv_migration_bytes(n_blocks, cfg, block_size)``, which
+    reads the same numbers off the config. The JAX package's form counts
+    the int8 scales per head dim instead, so the two agree on int8 only
+    where the block size equals the head dim."""
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    elems = 2 * num_layers * num_heads * block_size * head_dim
+    if kv_dtype is None:
+        return {"kv_payload_bytes":
+                float(n_blocks * activation_dtype_bytes * elems)}
+    return {"kv_payload_bytes": float(n_blocks * elems),
+            "kv_scale_bytes":
+                float(n_blocks * 4 * 2 * num_layers * num_heads
+                      * block_size)}
+
+
+def kv_migration_bytes(n_blocks: int, num_layers: int, num_heads: int,
+                       block_size: int, head_dim: int,
+                       kv_dtype: str | None = None, *,
+                       activation_dtype_bytes: int = 2) -> float:
+    """Sum of :func:`kv_migration_bytes_terms`."""
+    return sum(kv_migration_bytes_terms(
+        n_blocks, num_layers, num_heads, block_size, head_dim, kv_dtype,
+        activation_dtype_bytes=activation_dtype_bytes).values())
+
+
 def closed_forms() -> SimpleNamespace:
     """The closed-form models the CostSpec pins are held to: the port's
-    own copies (the JAX package keeps its in ``benchmarks/common.py``)."""
+    own copies (the JAX package keeps its in ``benchmarks/common.py``);
+    ZeRO-3's split is ``parallel/fsdp.fsdp_comm_terms``."""
     from distributed_tensorflow_guide_tpu_torch.ops import decode_attention
+    from distributed_tensorflow_guide_tpu_torch.parallel import fsdp
 
     return SimpleNamespace(
         fused_ce_trace_terms=fused_ce_trace_terms,
         fused_ce_trace_bytes=fused_ce_trace_bytes,
-        decode_kernel_hbm_bytes=decode_attention.decode_kernel_hbm_bytes)
+        decode_kernel_hbm_bytes=decode_attention.decode_kernel_hbm_bytes,
+        dp_allreduce_bytes=dp_allreduce_bytes,
+        fsdp_comm_terms=fsdp.fsdp_comm_terms,
+        pipeline_ppermute_bytes=pipeline_ppermute_bytes,
+        moe_all_to_all_bytes=moe_all_to_all_bytes,
+        outer_sync_bytes=outer_sync_bytes,
+        kv_migration_bytes_terms=kv_migration_bytes_terms,
+        kv_migration_bytes=kv_migration_bytes)
 
 
 # ---- public entry ------------------------------------------------------------------
@@ -296,6 +402,21 @@ def census_cost(census, *, donated=frozenset()) -> CostVector:
         vec.collective_bytes[k] = vec.collective_bytes.get(k, 0.0) + wire
     vec.peak_live_bytes = peak_live_bytes(census, donated_sids=donated)
     return vec
+
+
+def world_mean(vectors: list[CostVector]) -> CostVector:
+    """The per-device view of a world's cost vectors: every field the mean
+    over the ranks (a collective key absent on a rank counts 0 there),
+    peak live bytes the largest rank's."""
+    n = len(vectors)
+    keys = sorted({k for v in vectors for k in v.collective_bytes})
+    return CostVector(
+        flops=sum(v.flops for v in vectors) / n,
+        hbm_bytes_read=sum(v.hbm_bytes_read for v in vectors) / n,
+        hbm_bytes_written=sum(v.hbm_bytes_written for v in vectors) / n,
+        collective_bytes={k: sum(v.collective_bytes.get(k, 0.0)
+                                 for v in vectors) / n for k in keys},
+        peak_live_bytes=max(v.peak_live_bytes for v in vectors))
 
 
 def program_cost(traced, contract) -> CostVector:

@@ -9,6 +9,13 @@ and audits the census with the rule families of ``analysis/rules.py``.
 Exit status 1 on any violation; the report (text or ``--json``) carries
 the expected-vs-observed diff per finding.
 
+Mesh programs (``ProgramContract.world``) run in ONE world of ``--world``
+processes (default 8, the JAX package's ``LINT_DEVICES``) started by
+``analysis/world.py``: every rank builds its share, records one run and
+is audited under every rule; the program's report holds one report a
+rank, and its ``collective_bytes`` pins are held to the world mean. The
+other programs run in this process.
+
 ``--changed-only`` maps ``git diff --name-only <base>`` (plus the working
 tree) onto each contract's ``sources``, so a small edit lints only what
 it touches; any edit under ``analysis/`` (which holds the closed forms
@@ -54,15 +61,26 @@ class ProgramReport:
     census: Any = None  # the run's walker.Census (not serialised)
     #: on a card: torch.cuda.max_memory_allocated's rise over the run
     device_peak_bytes: int | None = None
+    #: a mesh program: one report a rank, in rank order (``rules`` then
+    #: holds the world-mean cost rule)
+    ranks: list | None = None
+    #: a rank's report: its census's counts and collective census
+    rank_counts: dict | None = None
+
+    def counts(self) -> dict | None:
+        return self.census.counts() if self.census else self.rank_counts
 
     def to_dict(self) -> dict:
-        return {"name": self.name, "ok": self.ok,
-                "rules": [r.to_dict() for r in self.rules],
-                "error": self.error, "notes": self.notes,
-                "fingerprint": (self.fingerprint.to_json()
-                                if self.fingerprint else None),
-                "counts": self.census.counts() if self.census else None,
-                "device_peak_bytes": self.device_peak_bytes}
+        out = {"name": self.name, "ok": self.ok,
+               "rules": [r.to_dict() for r in self.rules],
+               "error": self.error, "notes": self.notes,
+               "fingerprint": (self.fingerprint.to_json()
+                               if self.fingerprint else None),
+               "counts": self.counts(),
+               "device_peak_bytes": self.device_peak_bytes}
+        if self.ranks is not None:
+            out["ranks"] = [r.to_dict() for r in self.ranks]
+        return out
 
 
 @dataclasses.dataclass
@@ -136,8 +154,22 @@ def lint_contract(contract, device="cpu") -> ProgramReport:
                          device_peak_bytes=peak)
 
 
-def run_contracts(contracts, device="cpu") -> LintReport:
-    return LintReport([lint_contract(c, device) for c in contracts])
+def run_contracts(contracts, device="cpu", *,
+                  world: int | None = None) -> LintReport:
+    """Lint ``contracts`` on ``device``: the one-process programs here,
+    the mesh programs in one world of ``world`` ranks (default: the
+    largest ``ProgramContract.world`` among them), reports in order."""
+    mesh = [c for c in contracts if c.world is not None]
+    done = {}
+    if mesh:
+        from distributed_tensorflow_guide_tpu_torch.analysis import (
+            world as world_mod,
+        )
+
+        n = world or max(c.world for c in mesh)
+        done = {r.name: r for r in world_mod.run_world(mesh, n, device)}
+    return LintReport([done.get(c.name) or lint_contract(c, device)
+                       for c in contracts])
 
 
 # ---- registry + --changed-only selection -----------------------------------------
@@ -273,6 +305,8 @@ def render_cost_table(report: LintReport) -> str:
              "peak live")]
     for p in report.programs:
         obs = next((r.observed for r in p.rules if r.rule == "cost"), None)
+        if p.ranks is not None:  # the world mean
+            obs = p.fingerprint.cost if p.fingerprint else None
         if not obs or "flops" not in obs:
             rows.append((p.name, "-", "-", "-", "-", "-"))
             continue
@@ -293,25 +327,32 @@ def render_cost_table(report: LintReport) -> str:
     return "\n".join(out)
 
 
+def _render_rules(lines: list, rules, verbose: bool, who: str = "") -> None:
+    for r in rules:
+        if verbose or not r.ok:
+            obs = ", ".join(f"{k}={v}" for k, v in r.observed.items())
+            lines.append(f"      {who}{r.rule:12} {'ok' if r.ok else 'FAIL'}"
+                         f"  [{obs}]")
+        for f in r.findings:
+            lines.append(f"        - {who}{f.message}")
+            lines.append(f"          expected: {f.expected!r}   "
+                         f"observed: {f.observed!r}")
+
+
 def render_text(report: LintReport, verbose: bool = False) -> str:
     lines = []
     for p in report.programs:
         status = "PASS" if p.ok else "FAIL"
-        lines.append(f"{status:4}  {p.name}")
+        world = f"  ({len(p.ranks)} ranks)" if p.ranks else ""
+        lines.append(f"{status:4}  {p.name}{world}")
         if p.error:
             lines.append("      run error:")
             lines.extend("      | " + ln
-                         for ln in p.error.strip().splitlines()[-6:])
+                         for ln in p.error.strip().splitlines()[-12:])
             continue
-        for r in p.rules:
-            if verbose or not r.ok:
-                obs = ", ".join(f"{k}={v}" for k, v in r.observed.items())
-                lines.append(f"      {r.rule:12} {'ok' if r.ok else 'FAIL'}"
-                             f"  [{obs}]")
-            for f in r.findings:
-                lines.append(f"        - {f.message}")
-                lines.append(f"          expected: {f.expected!r}   "
-                             f"observed: {f.observed!r}")
+        _render_rules(lines, p.rules, verbose)
+        for rank, rp in enumerate(p.ranks or ()):
+            _render_rules(lines, rp.rules, verbose, f"rank {rank}: ")
     if report.fingerprint_drift:
         lines.append("FAIL  golden fingerprints (unblessed drift — run "
                      "lint --bless --reason '...'):")
@@ -359,6 +400,9 @@ def main(argv=None) -> int:
                              "(bench_history/) against the cost model")
     parser.add_argument("--regress-tol", type=float, default=None,
                         help="drift tolerance for --regress (default 0.25)")
+    parser.add_argument("--world", type=int, default=8,
+                        help="ranks of the world the mesh programs run in "
+                             "(default 8, the JAX package's LINT_DEVICES)")
     parser.add_argument("--device", default="cuda:0",
                         help="where the programs run (default cuda:0, "
                              "which needs a card; cpu for the plain "
@@ -394,7 +438,7 @@ def main(argv=None) -> int:
         if not contracts:
             print("nothing to lint")
             return 0
-    report = run_contracts(contracts, device)
+    report = run_contracts(contracts, device, world=args.world)
     if args.bless:
         try:
             path = bless_fingerprints(report, args.reason)

@@ -9,9 +9,13 @@ module is the one aggregation point: importing it (which
 Provider failures are deliberately NOT swallowed: a provider that cannot
 even build its contract list is a lint failure in its own right.
 
-The twelve programs registered here run in one process and issue no
+Twelve of the programs registered here run in one process and issue no
 collective: the serving engine's steps, the one-shot generator's decode,
-the fused cross-entropy and the fp8 training product.
+the fused cross-entropy and the fp8 training product. The other ten are
+mesh programs (``ProgramContract.world``), which run on every rank of a
+world of processes (``analysis/world.py``): the data-parallel, FSDP and
+pipeline train steps, the two multislice rounds and the KV-block
+transfer across slices, and the two MoE train steps.
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ PROVIDER_MODULES = (
     "distributed_tensorflow_guide_tpu_torch.ops.quant",
     "distributed_tensorflow_guide_tpu_torch.models.generation",
     "distributed_tensorflow_guide_tpu_torch.serve.engine",
+    "distributed_tensorflow_guide_tpu_torch.parallel.data_parallel",
+    "distributed_tensorflow_guide_tpu_torch.parallel.fsdp",
+    "distributed_tensorflow_guide_tpu_torch.parallel.pipeline",
+    "distributed_tensorflow_guide_tpu_torch.parallel.multislice",
+    "distributed_tensorflow_guide_tpu_torch.models.moe_lm",
 )
 
 

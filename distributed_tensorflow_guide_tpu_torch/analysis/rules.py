@@ -29,8 +29,8 @@ The JAX package's families, with the meaning each has in PyTorch:
    strictly; an empty dict means collective-free. A ``c10d`` op issued
    around ``collectives.py`` is a finding of its own.
 4. **donation** — PyTorch has no donation; see
-   ``contracts.DonationSpec`` for what ``alias`` and ``scratch`` mean
-   here. A donated leaf that is never read is a finding.
+   ``contracts.DonationSpec`` for what ``alias``, ``scratch`` and
+   ``update`` mean here. A donated leaf that is never read is a finding.
 5. **determinism** — a host sync (``_local_scalar_dense``: ``.item()``,
    ``int(t)``, ``bool(t)``; a ``_to_copy`` / ``copy_`` from a CUDA tensor
    to the CPU, spelled ``d2h_copy``) or a draw from the global generator
@@ -38,7 +38,9 @@ The JAX package's families, with the meaning each has in PyTorch:
    ``multinomial``, ...) is a finding unless ``allowed_callbacks`` lists
    it with its count. The port samples with threefry from explicit keys.
    On the CPU ``.cpu().numpy()`` dispatches nothing: that blind spot is
-   closed only by running the program on the card.
+   closed only by running the program on the card. The copies through
+   host memory a gloo group makes of a CUDA message (ranks sharing one
+   card) are the collective's transport, not a finding.
 6. **cost** — the derived :class:`~.cost.CostVector` against the
    contract's :class:`~.contracts.CostSpec`.
 """
@@ -364,11 +366,11 @@ def rule_donation(traced: TracedProgram,
                 "donation",
                 f"donated buffer ({leaf}) is never read — dead donation",
                 expected="buffer read at least once", observed="unused"))
-        whole = [n for n in census.nodes
-                 if any(i.sid == m.sid and i.numel >= m.numel
-                        for i in n.inputs)
-                 and any(o.sid in n.new and o.numel >= m.numel
-                         for o in n.outputs)]
+        whole = [] if spec.mode == "update" else [
+            n for n in census.nodes
+            if any(i.sid == m.sid and i.numel >= m.numel for i in n.inputs)
+            and any(o.sid in n.new and o.numel >= m.numel
+                    for o in n.outputs)]
         if whole:
             copies += len(whole)
             findings.append(Finding(
@@ -377,12 +379,12 @@ def rule_donation(traced: TracedProgram,
                 f"{sorted({n.name for n in whole})}",
                 expected="updated in place, never copied",
                 observed=len(whole)))
-        if spec.mode == "alias" and m.sid not in writes:
+        if spec.mode != "scratch" and m.sid not in writes:
             findings.append(Finding(
                 "donation",
                 f"donated buffer ({leaf}) is never updated in place",
                 expected="an in-place write", observed="not written"))
-    if spec.mode == "alias":
+    if spec.mode != "scratch":
         moved = sum(
             a != b for argnum in spec.argnums
             if argnum < len(census.arg_ptrs_before)
@@ -411,8 +413,8 @@ def determinism_hits(census: walker.Census) -> dict[str, int]:
     spelling."""
     hits: dict[str, int] = {}
     for n in census.nodes:
-        if n.kind != "op":
-            continue
+        if n.kind != "op" or n.attrs.get("comm"):
+            continue  # a collective's staging copies are its transport
         key = None
         if n.name == "_local_scalar_dense":
             key = n.name
@@ -478,15 +480,15 @@ def rule_cost(traced: TracedProgram,
     findings = []
     for pin in spec.pins:
         want = float(pin.expect() if callable(pin.expect) else pin.expect)
-        got = vec.quantity(pin.quantity)
-        if abs(got - want) > pin.rel_tol * max(abs(want), 1.0):
-            findings.append(Finding(
-                "cost",
-                f"{pin.quantity} drifted from the closed-form model"
-                + (f" ({pin.note})" if pin.note else ""),
-                expected=(f"{want:g}" if pin.rel_tol == 0
-                          else f"{want:g} ±{pin.rel_tol:.1%}"),
-                observed=got))
+        if contract.world is not None and pin.quantity.startswith(
+                "collective_bytes["):
+            # held to the world mean by rule_world_cost; the expectation
+            # is evaluated here, where the pin can read the world
+            observed.setdefault("world_pins", []).append(
+                {"quantity": pin.quantity, "expect": want,
+                 "rel_tol": pin.rel_tol, "note": pin.note})
+            continue
+        findings += _pin_findings(pin, want, vec.quantity(pin.quantity))
     cap = spec.max_peak_live_bytes
     if cap is not None and vec.peak_live_bytes > cap:
         findings.append(Finding(
@@ -494,6 +496,45 @@ def rule_cost(traced: TracedProgram,
             f"peak live bytes {vec.peak_live_bytes} over the declared "
             "budget",
             expected=f"<= {cap} bytes", observed=vec.peak_live_bytes))
+    return RuleReport("cost", observed, findings)
+
+
+def _pin_findings(pin, want: float, got: float, what: str = ""
+                  ) -> list[Finding]:
+    if abs(got - want) <= pin.rel_tol * max(abs(want), 1.0):
+        return []
+    return [Finding(
+        "cost",
+        f"{pin.quantity}{what} drifted from the closed-form model"
+        + (f" ({pin.note})" if pin.note else ""),
+        expected=(f"{want:g}" if pin.rel_tol == 0
+                  else f"{want:g} ±{pin.rel_tol:.1%}"),
+        observed=got)]
+
+
+def rule_world_cost(mean, rank_pins: list[list[dict]]) -> RuleReport:
+    """A mesh program's ``collective_bytes[...]`` pins against ``mean``,
+    its world-mean :class:`~.cost.CostVector`. ``rank_pins`` are the pins
+    each rank's cost rule evaluated (``world_pins``), in rank order; every
+    rank must have evaluated each closed form to the same number."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+    )
+
+    observed = {"ranks": len(rank_pins),
+                "collective_bytes_world_mean": dict(mean.collective_bytes)}
+    findings = []
+    for i, pin in enumerate(rank_pins[0]):
+        wants = {p[i]["expect"] for p in rank_pins}
+        if len(wants) != 1:
+            findings.append(Finding(
+                "cost", f"{pin['quantity']}: the ranks evaluate its closed "
+                "form to different numbers",
+                expected="one number", observed=sorted(wants)))
+            continue
+        findings += _pin_findings(CostPin(**pin), pin["expect"],
+                                  mean.quantity(pin["quantity"]),
+                                  " (world mean)")
     return RuleReport("cost", observed, findings)
 
 

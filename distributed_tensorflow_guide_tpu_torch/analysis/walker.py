@@ -33,7 +33,10 @@ How this census differs from the JAX one:
   the whole run. A ``c10d`` / ``_c10d_functional`` op the dispatch mode
   sees while ``collectives.py`` is not issuing one is recorded in
   :attr:`Census.bypass`: a collective that went around the
-  communication layer.
+  communication layer. An op that runs while it is issuing (the call
+  itself, a gloo group's copies of a CUDA message through host memory)
+  carries ``attrs["comm"]``: the transport, not a host sync of the
+  program.
 * Blind spot: on the CPU, ``.cpu()`` and ``.numpy()`` of a CPU tensor
   dispatch nothing, so a device-to-host copy shows only when the program
   runs on the card.
@@ -49,6 +52,7 @@ import functools
 import gc
 import math
 import re
+import threading
 import weakref
 from collections import Counter
 from typing import Any, Callable
@@ -109,17 +113,25 @@ class StorageInfo:
 
 def arg_leaves(arg) -> list[torch.Tensor]:
     """The tensors of one program argument, in order: a tensor; a module's
-    parameters and buffers; the values of a dict, list or tuple (nested).
-    Anything else (numpy arrays, Python numbers) holds none."""
+    parameters and buffers; an optimizer's state tensors, parameter by
+    parameter; the values of a dict, list or tuple and the fields of a
+    dataclass (a ``TrainState``), nested. Anything else (numpy arrays,
+    Python numbers) holds none."""
     if isinstance(arg, torch.Tensor):
         return [arg]
     if isinstance(arg, torch.nn.Module):
         return ([p for _, p in arg.named_parameters()]
                 + [b for _, b in arg.named_buffers()])
+    if isinstance(arg, torch.optim.Optimizer):
+        return [t for g in arg.param_groups for p in g["params"]
+                for t in arg_leaves(list(arg.state.get(p, {}).values()))]
     if isinstance(arg, dict):
         return [t for v in arg.values() for t in arg_leaves(v)]
     if isinstance(arg, (list, tuple)):
         return [t for v in arg for t in arg_leaves(v)]
+    if dataclasses.is_dataclass(arg) and not isinstance(arg, type):
+        return [t for f in dataclasses.fields(arg)
+                for t in arg_leaves(getattr(arg, f.name))]
     return []
 
 
@@ -168,14 +180,23 @@ class Census:
         self._ids: dict[int, int] = {}  # id(storage object) -> sid
         self._suspended = 0
         self._closed = False
+        self._threads: set[int] = set()  # threads that recorded an op
+        self._late: set[int] = set()  # sids freed on another thread
 
     # ---- storages -------------------------------------------------------------
 
     def _on_free(self, key: int, sid: int) -> None:
         if self._ids.get(key) == sid:
             del self._ids[key]
-        if not self._closed:
+        if self._closed:
+            return
+        if threading.get_ident() in self._threads:
             self.storages[sid].free = len(self.nodes)
+        else:
+            # a communication thread (gloo's) dropped the last reference
+            # at a moment of its own: the buffer is dead after its last
+            # use (set at close), which does not depend on that timing
+            self._late.add(sid)
 
     def _sid(self, t: torch.Tensor, alloc: int | None) -> tuple[int, bool]:
         """(sid, new) of ``t``'s storage; a storage seen for the first time
@@ -225,6 +246,7 @@ class Census:
         if ns != "aten":
             name = f"{ns}.{name}"
         i = len(self.nodes)
+        self._threads.add(threading.get_ident())
         inputs = [self._meta(t, None)[0]
                   for t in tree_flatten((args, kwargs))[0]
                   if isinstance(t, torch.Tensor)]
@@ -256,13 +278,14 @@ class Census:
         if name in RANDOM_OPS and "global_generator" not in attrs:
             attrs["global_generator"] = True
         self._note_widening(name, inputs, outputs)
-        if ns in ("c10d", "_c10d_functional"):
-            from distributed_tensorflow_guide_tpu_torch.collectives import (
-                collectives as cc,
-            )
+        from distributed_tensorflow_guide_tpu_torch.collectives import (
+            collectives as cc,
+        )
 
-            if not cc.issuing():
-                self.bypass.append(i)
+        if cc.issuing():  # the communication layer's own work
+            attrs["comm"] = True
+        elif ns in ("c10d", "_c10d_functional"):
+            self.bypass.append(i)
         self.nodes.append(OpNode(i, name, "op", inputs, outputs,
                                  frozenset(writes), reads, frozenset(new),
                                  attrs=attrs))
@@ -289,6 +312,7 @@ class Census:
     def _record_kernel(self, name, regime, inputs, out, attrs,
                        writes=()) -> None:
         i = len(self.nodes)
+        self._threads.add(threading.get_ident())
         ins = [self._meta(t, None)[0] for t in inputs
                if isinstance(t, torch.Tensor)]
         outputs, new = [], set()
@@ -308,6 +332,10 @@ class Census:
         self.arg_ptrs_after = [[t.data_ptr() for t in arg_leaves(a)]
                                for a in args]
         self._closed = True
+        last = self.last_use()
+        for sid in self._late:
+            st = self.storages[sid]
+            st.free = max(last.get(sid, -1), st.alloc or 0) + 1
 
     # ---- derived facts ----------------------------------------------------------
 

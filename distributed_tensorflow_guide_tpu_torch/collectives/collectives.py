@@ -60,13 +60,16 @@ log = logging.getLogger(__name__)
 # of its own
 _TRACES: list["CommTrace"] = []
 _STAGED_NOTED = False
-# calls into torch.distributed this module has in flight (the program
-# auditor's census tells them from a collective that bypasses this module)
+# the transfers this module has in flight: its torch.distributed calls and
+# the host staging copies of a gloo group holding CUDA tensors (the
+# program auditor's census tells them from a collective that bypasses this
+# module, and from a host sync of the program's own)
 _ISSUING = [0]
 
 
 def issuing() -> bool:
-    """Whether this module is inside a ``torch.distributed`` call."""
+    """Whether this module is inside a ``torch.distributed`` call or a
+    staging copy of one."""
     return _ISSUING[0] > 0
 
 
@@ -158,9 +161,15 @@ def _staged(ax: AxisGroup, x: torch.Tensor) -> bool:
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
-    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    buf.copy_(x)
+    with _issue():
+        buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        buf.copy_(x)
     return buf
+
+
+def _to_device(x: torch.Tensor, device) -> torch.Tensor:
+    with _issue():
+        return x.to(device)
 
 
 # ---- reductions and gathers -------------------------------------------------
@@ -247,7 +256,7 @@ def _all_gather(x: torch.Tensor, ax: AxisGroup, *, tiled: bool,
     with _issue():
         dist.all_gather_into_tensor(out, send, group=ax.group)
     if staged:
-        out = out.to(x.device)
+        out = _to_device(out, x.device)
     # (n * d, ...) or (n, ...), moved to gather_axis
     return out.movedim(0, gather_axis).contiguous()
 
@@ -283,7 +292,7 @@ def _reduce_scatter(x: torch.Tensor, ax: AxisGroup,
         dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM,
                                    group=ax.group)
     if staged:
-        out = out.to(x.device)
+        out = _to_device(out, x.device)
     return out.movedim(0, scatter_axis).contiguous()
 
 
@@ -329,7 +338,7 @@ def _ppermute(x: torch.Tensor, ax: AxisGroup, perm) -> torch.Tensor:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
         if out is not None and staged:
-            out = out.to(x.device)
+            out = _to_device(out, x.device)
     if out is not None:
         return out
     if (me, me) in perm:  # a rank that keeps its own value
@@ -388,7 +397,7 @@ def _all_to_all(x: torch.Tensor, ax: AxisGroup, split_axis: int,
     with _issue():
         dist.all_to_all_single(out, chunks, group=ax.group)
     if staged:
-        out = out.to(x.device)
+        out = _to_device(out, x.device)
     return torch.cat(out.unbind(0), dim=concat_axis)
 
 

@@ -305,3 +305,114 @@ class SwitchLM:
             return module, {"loss": loss, **mets}
 
         return step
+
+
+# ---- program contracts (analysis/) ------------------------------------------
+
+
+def lint_contracts():
+    """Contracts of the Switch train step over the (data=2, expert=4) mesh
+    at the auditor's fixture (E=4, top-1, capacity factor 2, the tiny
+    LM's 2 layers): the Switch router and the dropless one. The defining
+    expectation is the ``all_to_all[expert]`` census, and the byte pin
+    holds its other side: 4·L·B·(e−1)/e with B the dispatch buffer.
+
+    The census counts executed calls: each layer's forward makes 2
+    all-to-alls (dispatch and return) and the backward their 2
+    transposes, 4·L = 8, where the JAX census counts the 4 sites of one
+    scan body. Over the token axes ``(data, expert)`` a layer makes 3
+    reductions (the load and router-probability fractions and the z
+    loss), the loss 2 (its numerator and the target count) and the
+    replicated gradients one tree: 3·L + 3 = 9 (the JAX contract counts
+    13 leaf sites); the expert stacks' gradients are one tree over
+    ``data`` only (the JAX contract: 2 leaves), their expert
+    contributions having come back through the backward all-to-all.
+    Dropless changes the capacity, not the calls: C = t_local, twice the
+    Switch buffer at this fixture."""
+    import numpy as np
+
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+
+    n_data, n_expert, top_k, cap_factor = 2, 4, 1, 2.0
+    n_layers, B, S, d_model = 2, 8, 8, 16
+
+    def _make_build(router):
+        def _build(device):
+            from distributed_tensorflow_guide_tpu_torch.analysis.fixtures \
+                import tiny_lm_cfg
+            from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+                MeshSpec,
+                build_mesh,
+            )
+
+            mesh = build_mesh(MeshSpec(data=n_data, expert=n_expert))
+            lm = SwitchLM(mesh, tiny_lm_cfg(), num_experts=n_expert,
+                          top_k=top_k, capacity_factor=cap_factor,
+                          router=router, fused_ce=False, device=device)
+            # the token axes' joint group is made collectively: here, not
+            # inside the recorded step
+            mesh.axis(lm.moe_cfg.token_axes)
+            module = lm.init_params(0)
+            step = lm.make_train_step(torch.optim.SGD(module.parameters(),
+                                                      lr=0.1))
+            tokens = torch.from_numpy(np.random.RandomState(0).randint(
+                0, lm.cfg.vocab_size, (B, S)))
+            return step, (module, lm.token_shard(tokens))
+
+        return _build
+
+    def _a2a_expect(router):
+        def expect():
+            t_local = B // (n_data * n_expert) * S
+            capacity = (t_local if router == "dropless"
+                        else max(1, -(-top_k * t_local * int(cap_factor)
+                                      // n_expert)))
+            dispatch_bytes = n_expert * capacity * d_model * 4
+            return closed_forms().moe_all_to_all_bytes(
+                dispatch_bytes, n_expert, n_layers=n_layers)
+
+        return expect
+
+    census = {
+        "all_to_all[expert]": 4 * n_layers,
+        "psum[data,expert]": 3 * n_layers + 3,
+        "psum[data]": 1,
+    }
+    sources = ("distributed_tensorflow_guide_tpu_torch.models.moe_lm",
+               "distributed_tensorflow_guide_tpu_torch.parallel.expert",
+               "distributed_tensorflow_guide_tpu_torch.collectives."
+               "collectives")
+    return [
+        ProgramContract(
+            name=name,
+            build=_make_build(router),
+            policy="f32",
+            collectives=dict(census),
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=sources,
+            cost=CostSpec(
+                pins=(
+                    CostPin("collective_bytes[all_to_all[expert]]",
+                            _a2a_expect(router), note=note),
+                ),
+                # 71,096 (Switch) and 75,628 (dropless) observed
+                max_peak_live_bytes=81920),
+            world=8,
+            notes=notes)
+        for name, router, note, notes in (
+            ("moe_train_step", "switch",
+             "4·L·B·(e−1)/e at the fixed-capacity dispatch buffer",
+             "Switch-MoE step: tokens travel, expert params stay"),
+            ("moe_dropless_train_step", "dropless",
+             "the same 4·L crossings at C = t_local: the byte price of "
+             "dropless routing",
+             "dropless Switch step: capacity = t_local, no drops"))
+    ]

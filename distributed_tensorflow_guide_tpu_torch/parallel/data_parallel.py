@@ -302,3 +302,157 @@ class DataParallel:
             return cc.pmean(mets, self.axis, mesh=self.mesh)
 
         return eval_step
+
+
+# ---- program contracts (analysis/) ------------------------------------------
+
+
+def lint_contracts():
+    """Contracts of the data-parallel train step on the auditor's tiny MLP
+    over ``data`` = the world (8 ranks, one batch row each): the
+    monolithic step and the bucketed-overlap step, whose collective count
+    is derived from the bucket partition (``bucket_bytes=1``: one bucket a
+    leaf), plain and with the int8 wire.
+
+    The census counts executed calls, and a tree goes over the wire as
+    one flat all-reduce. So the monolithic step makes 2 ``psum[data]``
+    calls, the gradient tree and the metrics tree (loss and mae), where
+    the JAX contract counts 3 sites (one a metric) and its trace shows 6;
+    the bucketed step makes one a bucket plus the metrics tree. The bytes
+    are the invariant: each pin is the ring closed form."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        world_and_rank,
+    )
+
+    def build(overlap_on, compress=None):
+        def _build(device):
+            from distributed_tensorflow_guide_tpu_torch.analysis.fixtures \
+                import tiny_mlp
+            from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+                MeshSpec,
+                build_mesh,
+            )
+
+            loss_fn, state, batch = tiny_mlp(device)
+            mesh = build_mesh(MeshSpec(data=-1))
+            ax = mesh.axis("data")
+            per = len(batch["x"]) // ax.size
+            share = {k: v[ax.index * per:(ax.index + 1) * per]
+                     for k, v in batch.items()}
+            # bucket_bytes=1 is given, so no tuning-table broadcast runs
+            dp = DataParallel(mesh, overlap=overlap_on,
+                              bucket_bytes=1 if overlap_on else None,
+                              compress=compress, device=device)
+            return dp.make_train_step(loss_fn), (state, share)
+
+        return _build
+
+    sources = ("distributed_tensorflow_guide_tpu_torch.parallel."
+               "data_parallel",
+               "distributed_tensorflow_guide_tpu_torch.parallel.overlap",
+               "distributed_tensorflow_guide_tpu_torch.collectives."
+               "collectives")
+    # the tiny MLP's leaves; at bucket_bytes=1 one bucket a leaf
+    leaf_shapes = [(16, 32), (32,), (32, 16), (16,)]
+    grad_bytes = sum(int(np.prod(s)) * 4 for s in leaf_shapes)  # 4288
+    n_buckets = len(ov.bucket_assignment(
+        [torch.zeros(s) for s in leaf_shapes], bucket_bytes=1))
+
+    def _psum_expect(compress=None):
+        # the gradient tree (f32 or int8 on the wire) + the loss and mae
+        def expect():
+            common, world = closed_forms(), world_and_rank()[0]
+            return (common.dp_allreduce_bytes(grad_bytes, world, compress)
+                    + 2 * common.dp_allreduce_bytes(4, world))
+
+        return expect
+
+    def _scale_expect():
+        # one f32 amax a bucket rides a ring pmax
+        return n_buckets * closed_forms().dp_allreduce_bytes(
+            4, world_and_rank()[0])
+
+    def _flops_expect():
+        # a rank's rows: two forward products and three backward ones (no
+        # input gradient at the first layer), 2·rows·16·32 each
+        rows = 8 // world_and_rank()[0]
+        return 5 * 2.0 * rows * 16 * 32
+
+    dp_cost = CostSpec(
+        pins=(
+            CostPin("collective_bytes[psum[data]]", _psum_expect(),
+                    note="2·G·(n−1)/n gradient ring + the 2 scalar "
+                         "metrics"),
+            CostPin("flops", _flops_expect,
+                    note="5 products a rank: no input gradient at layer 0"),
+        ),
+        # 13,896 observed a rank (parameters, batch share, gradients,
+        # the momentum the first step makes)
+        max_peak_live_bytes=16384)
+    return [
+        ProgramContract(
+            name="dp_train_step",
+            build=build(False),
+            policy="f32",
+            # the gradient tree + the metrics tree (loss, mae): one call
+            # each
+            collectives={"psum[data]": 2},
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=sources,
+            cost=dp_cost,
+            world=8,
+            notes="sync-DP mono step: one gradient all-reduce a step"),
+        ProgramContract(
+            name="dp_overlap_train_step",
+            build=build(True),
+            policy="f32",
+            # one all-reduce a bucket, issued mid-backward, + the metrics
+            # tree: the bucket partition is the expectation
+            collectives={"psum[data]": n_buckets + 1},
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=sources,
+            # the same bytes as the mono step: bucketing changes when the
+            # all-reduces run, not what they move (peak 11,724 observed on
+            # the CPU, 13,896 on the card)
+            cost=dp_cost,
+            world=8,
+            notes=f"bucketed backward: {n_buckets} buckets -> "
+                  f"{n_buckets} gradient all-reduces"),
+        ProgramContract(
+            name="dp_overlap_int8_round",
+            build=build(True, compress="int8"),
+            policy="f32",
+            # one int8 psum a bucket + the f32 metrics tree, and one f32
+            # scalar pmax a bucket: the shared scale of the int8 wire
+            collectives={"psum[data]": n_buckets + 1,
+                         "pmax[data]": n_buckets},
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=sources + ("distributed_tensorflow_guide_tpu_torch.ops."
+                               "quant",),
+            cost=dataclasses.replace(dp_cost, pins=(
+                CostPin("collective_bytes[psum[data]]",
+                        _psum_expect("int8"),
+                        note="the gradient ring at 1 byte an element + "
+                             "the 2 f32 scalar metrics"),
+                CostPin("collective_bytes[pmax[data]]", _scale_expect,
+                        note="one f32 scale a bucket"),
+                dp_cost.pins[1]),
+                # the f32 buffers beside their int8 copies: 16,400
+                # observed
+                max_peak_live_bytes=18432),
+            world=8,
+            notes="int8 wire: the payload in psum, the scale in pmax"),
+    ]

@@ -132,9 +132,12 @@ def route(gates: torch.Tensor, top_k: int, capacity: int,
     of_tok = torch.zeros(t, dtype=torch.int64, device=dev)
     rows, weights = [], []
     g = gates
+    experts = torch.arange(e, device=dev)
     for _ in range(top_k):
         idx = g.argmax(dim=1)
-        onehot = F.one_hot(idx, e)  # (T, E) int64
+        # (T, E) int64; not F.one_hot, which checks its indices' range
+        # with two host syncs on the CPU under autograd
+        onehot = (idx[:, None] == experts).to(torch.int64)
         routed = onehot if live is None else onehot * live
         # exclusive cumsum: the seat of each token in its expert
         pos = routed.cumsum(dim=0) - routed + fill[None, :]

@@ -289,3 +289,104 @@ class FSDP:
                     for k, v in mets.items()}
 
         return eval_step
+
+
+# ---- program contracts (analysis/) ------------------------------------------
+
+
+def lint_contracts():
+    """Contract of the ZeRO-3 schedule on the auditor's tiny MLP over
+    ``data`` = the world at ``min_shard_size=64``: the two matrices
+    shard, the two biases replicate. Each sharded leaf makes one
+    all-gather forward and one reduce-scatter backward, each replicated
+    leaf one ``pmean`` backward, each metric one ``pmean``: the same calls
+    as the JAX contract counts sites, since this step reduces leaf by leaf
+    and metric by metric."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+    from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+        world_and_rank,
+    )
+
+    n_sharded, n_replicated, n_metrics = 2, 2, 2
+    sharded_bytes = (16 * 32 + 32 * 16) * 4  # the two matrices, whole
+    replicated_bytes = (32 + 16) * 4  # the two biases
+
+    def _term(name):
+        def expect():
+            common, world = closed_forms(), world_and_rank()[0]
+            terms = common.fsdp_comm_terms(sharded_bytes, world,
+                                           replicated_bytes)
+            if name == "replicated_grad_allreduce":
+                # the bias pmeans share the psum key with the 2 metrics
+                return (terms[name] + n_metrics
+                        * common.dp_allreduce_bytes(4, world))
+            return terms[name]
+
+        return expect
+
+    def _build(device):
+        from distributed_tensorflow_guide_tpu_torch.analysis.fixtures import (
+            tiny_mlp,
+        )
+        from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+            MeshSpec,
+            build_mesh,
+        )
+        from distributed_tensorflow_guide_tpu_torch.train.state import (
+            TrainState,
+        )
+
+        loss_fn, state, batch = tiny_mlp()
+        mesh = build_mesh(MeshSpec(data=-1))
+        fsdp = FSDP(mesh, min_shard_size=64, prefetch=True, device=device)
+        local = fsdp.shard(state.model)
+        local_state = TrainState(local, torch.optim.SGD(
+            local.parameters(), lr=0.1, momentum=0.9))
+        per = len(batch["x"]) // fsdp.world
+        share = {k: v[fsdp.index * per:(fsdp.index + 1) * per].to(device)
+                 for k, v in batch.items()}
+        return fsdp.make_train_step(loss_fn), (local_state, share)
+
+    return [
+        ProgramContract(
+            name="fsdp_prefetch_train_step",
+            build=_build,
+            policy="f32",
+            collectives={
+                "all_gather[data]": n_sharded,
+                "reduce_scatter[data]": n_sharded,
+                "psum[data]": n_replicated + n_metrics,
+            },
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=(
+                "distributed_tensorflow_guide_tpu_torch.parallel.fsdp",
+                "distributed_tensorflow_guide_tpu_torch.parallel.overlap",
+                "distributed_tensorflow_guide_tpu_torch.collectives."
+                "collectives",
+            ),
+            cost=CostSpec(
+                pins=(
+                    CostPin("collective_bytes[all_gather[data]]",
+                            _term("param_all_gather"),
+                            note="ZeRO-3 forward: both matrices "
+                                 "unsharded, S·(n−1)/n"),
+                    CostPin("collective_bytes[reduce_scatter[data]]",
+                            _term("grad_reduce_scatter"),
+                            note="ZeRO-3 backward: both matrix gradients "
+                                 "resharded"),
+                    CostPin("collective_bytes[psum[data]]",
+                            _term("replicated_grad_allreduce"),
+                            note="the bias pmeans + the 2 scalar metrics"),
+                ),
+                max_peak_live_bytes=10240),
+            world=8,
+            notes="ZeRO-3 schedule: a gather and a scatter a sharded leaf"),
+    ]

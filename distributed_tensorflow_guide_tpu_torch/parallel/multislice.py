@@ -272,3 +272,186 @@ def make_kv_block_transfer(mesh: Mesh, *, src_slice: int = 0,
         return cc.ppermute(buf, DCN_AXIS, perm, mesh=mesh)
 
     return xfer
+
+
+# ---- program contracts (analysis/) ------------------------------------------
+
+
+def lint_contracts():
+    """Contracts of one outer round at both outer settings and of the KV
+    transfer between slices, on 2 slices of the world (4 ranks a slice at
+    8). The load-bearing one is ``outer="off"``: no collective and no
+    byte on ``dcn``, the metric included, because it is the timing
+    control with no cross-slice traffic. ``outer="on"`` pins the whole
+    round's cross-slice budget.
+
+    The census counts executed calls, and a tree is one call: the inner
+    ``pmean`` runs once an inner step (``sync_period`` = 2 calls, where
+    the JAX census counts its scan body once), the outer sync is two
+    trees over ``dcn`` (the parameter delta and the float optimizer
+    state; the JAX census counts one site a leaf, 8), and the metric is
+    one ``pmean`` over ``(dcn, data)`` (``outer="on"``) or over ``data``.
+    The bytes are the closed forms.
+
+    PyTorch has no donation, and a round returns a new ``TwoTierState``:
+    the inner state is updated in place, the outer momentum replaced. So
+    these contracts declare none; the JAX ones donate the state."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+
+    sync_period, n_slices, grad_bytes = 2, 2, 4288
+    # the tiny MLP's float state the outer sync averages: the parameters
+    # and SGD's momentum
+    float_state_bytes = 2 * grad_bytes
+
+    def _dcn_expect():
+        return closed_forms().outer_sync_bytes(float_state_bytes, n_slices)
+
+    def _inner_expect(n_metric_pmeans):
+        def expect():
+            common = closed_forms()
+            ici = world_and_rank()[0] // n_slices
+            return (sync_period * common.dp_allreduce_bytes(grad_bytes, ici)
+                    + n_metric_pmeans * common.dp_allreduce_bytes(4, ici))
+
+        return expect
+
+    def _joint_expect():
+        # the loss over both tiers: every rank of the world
+        return closed_forms().dp_allreduce_bytes(4, world_and_rank()[0])
+
+    def build(outer):
+        def _build(device):
+            from distributed_tensorflow_guide_tpu_torch.analysis.fixtures \
+                import tiny_mlp
+
+            loss_fn, state, batch = tiny_mlp(device)
+            mesh = two_tier_mesh(MeshSpec(data=-1), n_slices=n_slices)
+            # the joint axis's groups are made collectively: here, not
+            # inside the recorded round
+            mesh.axis((DCN_AXIS, "data"))
+            ms = MultiSliceLocalSGD(mesh, sync_period=sync_period,
+                                    outer=outer, device=device)
+            lo, hi = ms._row_block(len(batch["x"]))
+            batches = {k: torch.stack([v[lo:hi]] * sync_period)
+                       for k, v in batch.items()}
+            return ms.make_train_step(loss_fn), (ms.init(state), batches)
+
+        return _build
+
+    sources = ("distributed_tensorflow_guide_tpu_torch.parallel.multislice",
+               "distributed_tensorflow_guide_tpu_torch.collectives."
+               "collectives")
+    return [
+        ProgramContract(
+            name="multislice_outer_on_round",
+            build=build("on"),
+            policy="f32",
+            collectives={
+                "psum[data]": sync_period,  # the inner gradient pmeans
+                "psum[dcn]": 2,  # the delta tree + the optimizer-state tree
+                "psum[dcn,data]": 1,  # the metric over both tiers
+            },
+            sources=sources,
+            cost=CostSpec(
+                pins=(
+                    CostPin("collective_bytes[psum[dcn]]", _dcn_expect,
+                            note="outer_sync_bytes over the float state "
+                                 "(parameters + momentum), once a round"),
+                    CostPin("collective_bytes[psum[data]]",
+                            _inner_expect(0),
+                            note="sync_period inner gradient all-reduces "
+                                 "inside the slice"),
+                    CostPin("collective_bytes[psum[dcn,data]]",
+                            _joint_expect,
+                            note="the loss over both tiers"),
+                ),
+                max_peak_live_bytes=40960),  # 34,584 observed
+            world=8,
+            notes="two-tier round: dense inner steps, one DCN sync"),
+        ProgramContract(
+            name="multislice_outer_off_round",
+            build=build("off"),
+            policy="f32",
+            # strict: the inner pmeans + the in-slice metric and nothing
+            # else; any dcn collective fails the lint
+            collectives={"psum[data]": sync_period + 1},
+            sources=sources,
+            cost=CostSpec(
+                pins=(
+                    # the byte side of the DCN-free promise (an absent
+                    # key reads 0.0)
+                    CostPin("collective_bytes[psum[dcn]]", 0.0,
+                            note="outer=off moves no byte over DCN"),
+                    CostPin("collective_bytes[psum[data]]",
+                            _inner_expect(1),
+                            note="the inner all-reduces + the in-slice "
+                                 "scalar metric"),
+                ),
+                # 26,196 observed: no delta, no anchor sync
+                max_peak_live_bytes=32768),
+            world=8,
+            notes="outer=off is DCN-free by contract (the timing control)"),
+        _kv_transfer_contract(),
+    ]
+
+
+def _kv_transfer_contract():
+    """Contract of the KV-block migration between slices: one
+    point-to-point ``ppermute[dcn]`` and nothing else (strict: a stray
+    reduction would be a synchronisation the migration must not have),
+    every rank calling it once. 4 blocks of (L=2, H=2, block 8, hd 8) f32
+    a rank. The sending slice's ranks record P, the receiving slice's 0,
+    so the world mean is ``kv_migration_bytes / n_slices``: the JAX
+    contract's pin, bytes × hops / n_devices.
+
+    PyTorch has no donation: the transfer returns a new buffer on every
+    rank (the message on a receiver, zeros elsewhere) and leaves ``buf``
+    as it was, so the contract declares none; the JAX one donates it."""
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        ProgramContract,
+    )
+    from distributed_tensorflow_guide_tpu_torch.analysis.cost import (
+        closed_forms,
+    )
+
+    L, H, BS, HD, NB = 2, 2, 8, 8, 4
+    n_slices = 2
+
+    def _xfer_expect():
+        return closed_forms().kv_migration_bytes(
+            NB, L, H, BS, HD, activation_dtype_bytes=4) / n_slices
+
+    def _build(device):
+        mesh = two_tier_mesh(MeshSpec(data=-1), n_slices=n_slices)
+        fn = make_kv_block_transfer(mesh)
+        elems_per_block = 2 * L * H * BS * HD  # the K and V rows
+        buf = torch.from_numpy(np.random.RandomState(0).standard_normal(
+            (NB, elems_per_block)).astype(np.float32)).to(device)
+        return fn, (buf,)
+
+    return ProgramContract(
+        name="serve_kv_block_transfer_dcn",
+        build=_build,
+        policy="f32",
+        collectives={"ppermute[dcn]": 1},
+        sources=("distributed_tensorflow_guide_tpu_torch.parallel."
+                 "multislice",),
+        cost=CostSpec(
+            pins=(
+                CostPin("collective_bytes[ppermute[dcn]]", _xfer_expect,
+                        note="kv_migration_bytes / n_slices: one hop from "
+                             "the sending slice"),
+            ),
+            # the buffer and the one the transfer returns: 16,384
+            max_peak_live_bytes=16384),
+        world=8,
+        notes="KV migration across slices: one ppermute, nothing else")

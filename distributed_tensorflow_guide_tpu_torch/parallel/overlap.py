@@ -225,8 +225,10 @@ class _Bucket:
         else:
             cc._record("pmean", self.ax, buf, cc._reduce_wire(self.ax.size))
         if self.ax.size > 1:
-            self.work = dist.all_reduce(buf, op=dist.ReduceOp.SUM,
-                                        group=self.ax.group, async_op=True)
+            with cc._issue():
+                self.work = dist.all_reduce(buf, op=dist.ReduceOp.SUM,
+                                            group=self.ax.group,
+                                            async_op=True)
 
     def finish(self) -> None:
         """Wait on the all-reduce; the buffer then holds the mean."""

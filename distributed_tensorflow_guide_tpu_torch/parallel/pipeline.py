@@ -971,3 +971,107 @@ class PipelinedLM:
 
         return eval_step
 
+
+
+# ---- program contracts (analysis/) ------------------------------------------
+
+
+def lint_contracts():
+    """Contract of the GPipe train step with the fused-CE head at the
+    auditor's (data=4, pipe=2, M=2) fixture: the no-full-logits memory pin
+    (no f32 (rows >= 17, ..., V) tensor anywhere in the schedule; the
+    first stage runs no head, so it holds no tensor with a vocab last dim
+    at all) and the stage-boundary census.
+
+    The census counts executed calls: a rank makes one ``ppermute[pipe]``
+    on each tick where it sends or receives, 2 forward and 2 backward at
+    M = P = 2 (the third tick of each direction hands nothing on), where
+    the JAX census counts one fused pair of sites; the embedding and head
+    gradients and the loss are one ``psum[pipe]`` tree and one scalar
+    (the JAX contract: 3 sites), the gradient tree and the loss one
+    ``psum[data]`` each. Nothing is sent on an idle tick, so the bytes are
+    the useful hand-offs only: ``pipe_wire_bytes_per_step / P`` a rank,
+    which at v = 1 equals ``pipeline_ppermute_bytes(act, M, P)``; the JAX
+    trace also rotates its ring on the P − 1 bubble ticks, (M + P − 1)/M
+    times that."""
+    import dataclasses
+
+    from distributed_tensorflow_guide_tpu_torch.analysis.contracts import (
+        CostPin,
+        CostSpec,
+        DonationSpec,
+        ProgramContract,
+    )
+
+    n_stages, M, mb, S = 2, 2, 1, 32
+    built = {}
+
+    def _build(device):
+        from distributed_tensorflow_guide_tpu_torch.analysis.fixtures import (
+            tiny_lm,
+            tiny_lm_cfg,
+        )
+        from distributed_tensorflow_guide_tpu_torch.core.mesh import (
+            MeshSpec,
+            build_mesh,
+        )
+
+        # max_len 32: one microbatch spans 31 target rows, above the
+        # 16-column CE chunk the vocab_rows floor admits
+        cfg = tiny_lm_cfg(vocab_size=80, max_len=S)
+        mesh = build_mesh(MeshSpec(data=4, pipe=n_stages))
+        pp = PipelinedLM(mesh, cfg, num_microbatches=M, schedule="gpipe",
+                         fused_ce=True, ce_chunk=16, device=device)
+        built["pp"] = pp
+        module = pp.shard_params(tiny_lm(cfg).state_dict())
+        step = pp.make_train_step(torch.optim.SGD(module.parameters(),
+                                                  lr=0.1))
+        tokens = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                  (4 * M * mb, S))
+        d = mesh.axis("data").index
+        share = {"tokens": torch.as_tensor(
+            tokens[d * M * mb:(d + 1) * M * mb]).to(device)}
+        return step, (module, share)
+
+    def _ppermute_expect():
+        pp = built["pp"]
+        return pp.pipe_wire_bytes_per_step(mb, S) / pp.n_stages
+
+    def _per_rank(rank):
+        # ranks are row-major over (data, model, pipe, context, expert)
+        return {"vocab_rows": 1} if rank % n_stages == 0 else {}
+
+    return [
+        ProgramContract(
+            name="pipeline_fused_ce_train_step",
+            build=_build,
+            policy="f32",
+            vocab_dim=80,
+            vocab_rows=17,  # > the CE chunk (16), <= a microbatch's 31
+            max_vocab_f32_elems=0,
+            collectives={
+                "ppermute[pipe]": 4,
+                "psum[pipe]": 2,
+                "psum[data]": 2,
+            },
+            donation=DonationSpec(argnums=(0,), mode="update"),
+            sources=(
+                "distributed_tensorflow_guide_tpu_torch.parallel.pipeline",
+                "distributed_tensorflow_guide_tpu_torch.ops.fused_ce",
+                "distributed_tensorflow_guide_tpu_torch.collectives."
+                "collectives",
+            ),
+            cost=CostSpec(
+                pins=(
+                    CostPin("collective_bytes[ppermute[pipe]]",
+                            _ppermute_expect,
+                            note="the stage-boundary hand-offs, "
+                                 "2·M·act·(P·v−1) a pipe group / P"),
+                ),
+                # 120,196 (first stage) and 138,259 (last stage) observed
+                max_peak_live_bytes=163840),
+            world=8,
+            per_rank=_per_rank,
+            notes="GPipe schedule + fused-CE head: no full logits, "
+                  "the stage-boundary traffic"),
+    ]

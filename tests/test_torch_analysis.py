@@ -40,6 +40,14 @@ PROGRAMS = (
     "serve_prefill_chunk_step_moe", "decode_step", "decode_spec_step",
     "fused_ce_loss_grad", "fp8_ste_matmul_grad",
 )
+#: the mesh programs (tests/test_torch_analysis_mesh.py runs their world)
+MESH_PROGRAMS = (
+    "dp_train_step", "dp_overlap_train_step", "dp_overlap_int8_round",
+    "fsdp_prefetch_train_step", "pipeline_fused_ce_train_step",
+    "multislice_outer_on_round", "multislice_outer_off_round",
+    "serve_kv_block_transfer_dcn", "moe_train_step",
+    "moe_dropless_train_step",
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -450,7 +458,7 @@ def test_cli_json_list_cost_changed_only_and_regress(capsys):
     assert d["programs"][0]["counts"]["ops"] > 0
     assert lint.main(["--device", "cpu", "--list"]) == 0
     listed = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
-    assert sorted(listed) == sorted(PROGRAMS)
+    assert sorted(listed) == sorted(PROGRAMS + MESH_PROGRAMS)
     assert lint.main(["--device", "cpu", "--cost", "--programs",
                       "fp8_ste_matmul_grad"]) == 0
     assert "peak live" in capsys.readouterr().out
@@ -472,12 +480,14 @@ def test_cli_refuses_a_missing_card():
 
 @pytest.fixture(scope="module")
 def port_report():
-    return lint.run_lint(device="cpu")
+    # the 12 by name: the mesh programs need a world of ranks
+    return lint.run_lint(PROGRAMS, device="cpu")
 
 
 def test_registry_is_the_12_programs_and_every_one_passes(port_report):
-    names = [p.name for p in port_report.programs]
-    assert sorted(names) == sorted(PROGRAMS)
+    one_process = [c.name for c in lint._registered(None) if c.world is None]
+    assert sorted(one_process) == sorted(PROGRAMS)
+    assert [p.name for p in port_report.programs] == list(PROGRAMS)
     assert port_report.ok, lint.render_text(port_report)
 
 

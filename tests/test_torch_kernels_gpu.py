@@ -1632,3 +1632,38 @@ def test_census_of_k5_and_k6_on_the_card_is_one_priced_node_each(kind):
         vec = cost.census_cost(census)
         assert vec.hbm_bytes == want
         assert vec.flops == 4.0 * b * h * s * c * hd
+
+
+@pytest.mark.gpu
+def test_mesh_audit_on_two_ranks_sharing_the_card():
+    """The auditor's world on the card: 2 gloo ranks time-sharing
+    ``cuda:0`` lint ``dp_train_step`` and ``serve_kv_block_transfer_dcn``.
+    Both pass every rule on both ranks with no bypass; the DP step's
+    gradient ring and the transfer's one hop price at their closed forms
+    as world means (the sending slice records P, the receiving one 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.analysis import cost, lint
+
+    report = lint.run_contracts(
+        lint._registered(("dp_train_step", "serve_kv_block_transfer_dcn")),
+        "cuda:0", world=2)
+    assert report.ok, lint.render_text(report)
+    dp, kv = report.programs
+    for p in (dp, kv):
+        assert len(p.ranks) == 2
+        for rank in p.ranks:
+            coll = next(r for r in rank.rules if r.rule == "collectives")
+            assert coll.observed["bypassing_ops"] == 0
+
+    def mean(p, key):
+        return next(r for r in p.rules if r.rule == "cost").observed[
+            "collective_bytes_world_mean"][key]
+
+    ar = cost.dp_allreduce_bytes
+    assert mean(dp, "psum[data]") == ar(4288, 2) + 2 * ar(4, 2)
+    P = 4 * 2 * 2 * 2 * 8 * 8 * 4
+    assert [next(r for r in rank.rules if r.rule == "cost").observed[
+        "collective_bytes"].get("ppermute[dcn]", 0.0)
+        for rank in kv.ranks] == [P, 0.0]
+    assert mean(kv, "ppermute[dcn]") == P / 2
