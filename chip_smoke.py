@@ -113,7 +113,8 @@ and check them.
     K2 and K3 each 12 x 4 launches a step with no fallback; the logits of
     ``to_serving_params`` through ``Transformer`` against the stage's own
     forward on one microbatch; step ms, tokens/s, peak memory;
-16. pipelined GPT-2 124M at 4 ranks time-sharing the card over gloo:
+16. pipelined GPT-2 124M widths at ``MP_LAYERS`` = 4 layers (phases 16-18
+    and 20 ran 12 until PR 20) at 4 ranks time-sharing the card over gloo:
     (a) pipe = 4, 1F1B, M = 8 microbatches of 2; (b) pipe = 2 x model = 2,
     interleaved 1F1B (v = 2), M = 4 microbatches of 2, vocab-parallel
     fused CE; 3 Adam steps each. The single-process step on the same
@@ -126,30 +127,32 @@ and check them.
     2 · M · act · (P·v − 1), and after the steps the embedding and head
     copies bitwise equal across ``pipe``, replicated parameters across
     ``model``;
-17. BERT-base under ``TensorParallel`` at model = 2, 2 ranks on the card
-    over gloo, phase 14's model, batch and AdamW warm-up, 3 steps: the
+17. BERT-base widths at 4 layers under ``TensorParallel`` at model = 2, 2
+    ranks on the card over gloo, phase 14's batch and AdamW warm-up, 3
+    steps: the
     first step's loss and gradient shards within ``GRAD_REL_GAP`` of the
     single-process step, replicated parameters bitwise equal on both
     ranks after the steps;
-18. GPT-2 124M under ``FSDP`` at 2 ranks (full widths, bf16 compute, f32
+18. GPT-2 124M widths at 4 layers under ``FSDP`` at 2 ranks (bf16 compute, f32
     parameters, 4 sequences a rank at S = 1024: phase 7's global batch,
     flash, fused CE, Adam, 3 steps): the first step's loss and gradient
     shards within ``GRAD_REL_GAP`` of the single-process step on the same
     weights and the union batch; each rank's parameter and Adam moment
     bytes equal to its shards'; one all-gather and one reduce-scatter a
     sharded leaf and step, one pmean a replicated leaf and metric, wire
-    bytes equal to ``fsdp_comm_terms``; K1-K3 12 launches a step each;
+    bytes equal to ``fsdp_comm_terms``; K1-K3 once a layer and step each;
 19. phase 10's 2-rank run (GPT-2 at depth 2) with ``overlap=True``
     against ``overlap=False``, 3 Adam steps each: the first step's
     gradients and the parameters after the steps bitwise equal, one
     all-reduce a 4 MiB bucket, the same total bytes;
-20. GPT-2 124M under ``TensorParallel(rules=MEGATRON_SP_RULES)`` at
+20. GPT-2 124M widths at 4 layers under
+    ``TensorParallel(rules=MEGATRON_SP_RULES)`` at
     model = 2, 2 ranks, 2 sequences at S = 1024, flash, vocab-parallel
     fused CE, 3 Adam steps, against the ``DEFAULT_RULES`` run on the same
     weights: the first step's loss and gradient shards within
     ``GRAD_REL_GAP``; no psum left in the blocks; the gather/scatter
-    pairs' wire bytes equal to the all-reduces they replace; K1-K3 12
-    launches a step each at 6 heads; both runs' peak memory;
+    pairs' wire bytes equal to the all-reduces they replace; K1-K3 once a
+    layer and step each at 6 heads; both runs' peak memory;
 21. the async-PS family on the MNIST CNN at 4 ranks
     (``examples/async_ps_family.py``'s batch and rates): LocalSGD (K=4),
     GossipSGD and AccumulatedAdaptive (K=4), 12 calls each, then
@@ -244,17 +247,18 @@ and check them.
     all ranks and expert shards across ``data`` after 3 Adam steps; then
     one Switch-router step with the same census at C = 256.
 
-30. supervised training: ``run_with_recovery`` over phase 7's model,
-    batch shape and loss (times a float ``scale`` of 1.0 that a
-    ``nan_batch`` fault poisons), Adam with ``capturable=True``, 12 steps,
-    checkpoints every 4 (2 kept) of 1.96 GB each under a temporary
+30. supervised training: ``run_with_recovery`` over phase 7's model cut
+    to ``RESIL_LAYERS`` = 4 layers (12 until PR 20), batch shape and loss
+    (times a float ``scale`` of 1.0 that a ``nan_batch`` fault poisons),
+    Adam with ``capturable=True``, 12 steps, checkpoints every 4 (2 kept;
+    1.28 GB of tensors each, 1.96 GB at 12 layers) under a temporary
     directory, under a fault schedule fixed from ``--seed``: a step
     exception before the first checkpoint (a fresh start), a NaN batch
     the sentinel skips, the step-8 checkpoint corrupted in place, a 1 s
     data stall against a 0.5 s deadline (the ladder skips step 8). Sync
     saves, then async ones: parameters, Adam moments and step bitwise the
-    uninterrupted run on the stream without the skipped batch, K1-K3 12
-    times a step call. Then a sync save, an async save's blocking copy,
+    uninterrupted run on the stream without the skipped batch, K1-K3 once
+    a layer and step call. Then a sync save, an async save's blocking copy,
     its commit and a restore are timed, and the step-12 checkpoint is
     restored in place into a live ``steps_per_call=2`` captured step,
     whose 4 more steps (graph replays, no recapture) equal the
@@ -279,7 +283,8 @@ and check them.
     beside the same numbers for the same snapshot restored with its
     emitted tokens re-prefilled in chunks (timed only: that form is not
     bitwise on the card);
-32. preemption: SIGTERM sent by a hook after step 6 of phase 30's run:
+32. preemption: SIGTERM sent by a hook after step 6 of phase 30's run
+    (its 4 layers):
     the run saves step 7 and stops with ``stop_reason == "preemption"``,
     ``EvalHook`` skips its end pass, the SIGTERM handler comes back, and
     the resumed run ends bitwise the uninterrupted one;
@@ -395,18 +400,40 @@ and check them.
     across slices, the Switch and dropless MoE steps. Each passes every
     rule on every rank with no bypass, with the same per-rank collective
     censuses and world-mean collective bytes as the same world on the
-    CPU (run here first); one line a program, the structure hash against
+    CPU (run beside it); one line a program, the structure hash against
     the CPU's reported, not gated (gloo's staging copies the CUDA
     messages); (b) one eager GPT-2 124M data-parallel train step (phase
-    7's model, S=1024, 4 sequences a rank, SGD with momentum as the
+    7's widths at ``MP_LAYERS`` = 4 layers, 12 until PR 20; S=1024, 4
+    sequences a rank, SGD with momentum as the
     contract's fixture) at 2 ranks sharing the card over gloo, audited
     under ``dp_train_step``'s rules with its counts and pins re-derived:
     2 ``psum[data]`` calls moving ``dp_allreduce_bytes(G, 2)`` +
     2 ``dp_allreduce_bytes(4, 2)`` a rank (G the f32 parameter bytes), no
-    bypass, no host sync, the state updated in place, 12 K1, 12 K2 and 12
-    K3 kernel nodes a rank and launches equal to them; its precision and
+    bypass, no host sync, the state updated in place, K1, K2 and K3
+    kernel nodes a layer and rank and launches equal to them; its precision and
     memory observations are printed, not gated (a bf16 model under the
     f32 contract's rules).
+41. the example family: the 14 scripts of
+    ``distributed_tensorflow_guide_tpu_torch/examples/`` through their
+    importable bodies on ``cuda:0`` (the single-rank ones in this
+    process, the counts zeroed before each and read after; scripts 7, 9
+    and 10 at 4 ranks sharing the card over gloo, one after another in
+    one ``runtime/multiprocess`` job, each rank returning each body's
+    summary, its own launches and its output), at full width where the
+    script has it: ResNet-50 at 224,
+    B=256; BERT-base widths (768, 12 heads; depth 2) over model = 4;
+    ``--full-gpt2 --pipe 4`` at S=1024 then ``--generate``; ring and
+    Ulysses at S=4096 over context = 4; GPT-2 124M widths (768, 12
+    heads; depth 2) trained at S=1024, then the one-shot generator (and a
+    second run with an int8 cache and a one-layer draft) and the engine
+    with 128-row prefill chunks, so K6 runs both regimes. Steps and depth
+    are cut (each script's argv is printed). One JSON line a script: its
+    argv, wall seconds, its ``done`` line, rate and kernel launches. A
+    script fails the phase if it raises, lacks its JAX twin's success
+    lines, or launches none of its kernels (9: K1-K3 and K5; 10: K4;
+    11: K1-K3 and K5; 12: K6 in both regimes), or (script 10) strays
+    from dense attention by the JAX example's 2e-4 or more. Its launches
+    join the ``kernels`` line.
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -494,6 +521,7 @@ from distributed_tensorflow_guide_tpu_torch.models.moe_lm import SwitchLM
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     LORA_ROW_SUM_SITES,
     Transformer,
+    TransformerConfig,
     bert_base,
     gpt2_124m,
     make_cls_loss_fn,
@@ -2247,6 +2275,21 @@ PP1_M, PP1_MB, PP_S, PP1_STEPS = 4, 4, 1024, 10
 PP_RANK_CASES = (("pipe4-1f1b", 4, 1, "1f1b", 1, 8, 2),
                  ("pipe2-model2-interleaved-1f1b", 2, 2, "1f1b", 2, 4, 2))
 PP_RANK_STEPS = 3
+# phases 16-18, 20 and 40 (b), ranks sharing the card over gloo, at a cut
+# depth: every layer runs the same code, and at 12 layers these phases
+# took 35-70 s each on a slow host (PR 20's runs)
+MP_LAYERS = 4
+
+
+def _mp_gpt2() -> TransformerConfig:
+    return dataclasses.replace(gpt2_124m(dtype=torch.bfloat16),
+                               num_layers=MP_LAYERS)
+
+
+def _mp_bert() -> TransformerConfig:
+    return dataclasses.replace(bert_base(num_classes=2, dtype=torch.bfloat16),
+                               num_layers=MP_LAYERS)
+
 # phase 17: phase 14's batch
 TP_N, TP_B, TP_S, TP_STEPS = 2, 256, 128, 3
 
@@ -2386,7 +2429,7 @@ def pp_rank(seed: int, ref_dir: str) -> dict:
     import torch.distributed as dist
 
     dev = resolve_device(None)
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     full = Transformer(cfg).init_weights(seed).state_dict()
     out = {"rank": dist.get_rank(), "device": str(dev),
            "backend": dist.get_backend()}
@@ -2442,7 +2485,7 @@ def check_pipeline_ranks(seed: int, kind: str) -> None:
     """Phase 16."""
     t0 = time.perf_counter()
     dev = resolve_device(None)
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     with tempfile.TemporaryDirectory(prefix="dtg_pp_ref_") as ref_dir:
         for name, _, _, _, _, M, mb in PP_RANK_CASES:
             tokens = np.random.RandomState(seed).randint(
@@ -2512,7 +2555,7 @@ def tp_rank(seed: int, ref_path: str) -> dict:
 
     dev = resolve_device(None)
     mesh = build_mesh(MeshSpec(data=1, model=TP_N))
-    cfg = bert_base(num_classes=2, dtype=torch.bfloat16)
+    cfg = _mp_bert()
     tp = TensorParallel(mesh, device=dev)
     model = tp.shard(Transformer(cfg).init_weights(seed))
     tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size,
@@ -2545,7 +2588,7 @@ def check_bert_tp(seed: int, kind: str) -> None:
     """Phase 17."""
     t0 = time.perf_counter()
     dev = resolve_device(None)
-    cfg = bert_base(num_classes=2, dtype=torch.bfloat16)
+    cfg = _mp_bert()
     tokens = np.random.RandomState(seed).randint(0, cfg.vocab_size,
                                                  (TP_B, TP_S))
     with tempfile.TemporaryDirectory(prefix="dtg_tp_ref_") as ref_dir:
@@ -2601,7 +2644,7 @@ def fsdp_rank(seed: int, ref_path: str) -> dict:
     dev = resolve_device(None)
     mesh = build_mesh(MeshSpec(data=FSDP_N))
     i = mesh.axis("data").index
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     fs = FSDP(mesh, device=dev)
     full = Transformer(cfg).init_weights(seed)  # on the host
     model = fs.shard(full)
@@ -2648,7 +2691,7 @@ def check_fsdp(seed: int, kind: str) -> None:
     """Phase 18."""
     t0 = time.perf_counter()
     dev = resolve_device(None)
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     tokens = np.random.RandomState(seed).randint(
         0, 50257, (FSDP_N * FSDP_B, PP_S)).astype(np.int64)
     with tempfile.TemporaryDirectory(prefix="dtg_fsdp_ref_") as ref_dir:
@@ -2875,7 +2918,7 @@ def sp_tp_rank(seed: int) -> dict:
 
     dev = resolve_device(None)
     mesh = build_mesh(MeshSpec(data=1, model=SPTP_N))
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     full = Transformer(cfg).init_weights(seed)
     tokens = np.random.RandomState(seed).randint(
         0, 50257, (SPTP_B, PP_S)).astype(np.int64)
@@ -2935,7 +2978,7 @@ def check_sp_tp(seed: int, kind: str) -> None:
                      "loss_curve", "step_ms", "max_memory_allocated_bytes",
                      "launches", "comm")}
               | {"phase_s": time.perf_counter() - t0}), flush=True)
-    cfg = gpt2_124m()
+    cfg = _mp_gpt2()
     want = dict.fromkeys(K1_K3, SPTP_STEPS * cfg.num_layers) | {
         "flash_carry": 0}
     frac = (SPTP_N - 1) / SPTP_N
@@ -4075,6 +4118,9 @@ def check_expert_parallel(seed: int, kind: str) -> dict:
 # phase 30: steps of a supervised run, checkpoint cadence and kept steps;
 # the data stall against its deadline; phase 32's preemption step
 RESIL_TOTAL, RESIL_EVERY, RESIL_KEEP = 12, 4, 2
+# phases 30 and 32 at a cut depth: at 12 layers their checkpoint IO
+# (1.96 GB a save) took most of phase 30's 70 s on a slow host (PR 20)
+RESIL_LAYERS = 4
 STALL_S, DATA_DEADLINE_S = 1.0, 0.5
 PREEMPT_AT = 6
 # phase 31: requests, their prompt lengths and new tokens; the watchdog
@@ -4231,7 +4277,7 @@ def check_supervised_training(cfg, seed, kind, *, B=TRAIN_B, S=TRAIN_S,
     positions = [p for p in range(64) if p != nan_pos][:RESIL_TOTAL]
     ref = _plain_run(cfg, seed, dev, B, S, positions)
     root = tempfile.mkdtemp(prefix="dtg_phase30_")
-    out = {"model": "gpt2_124m" if cfg.num_layers == 12 else "small",
+    out = {"model": f"gpt2_124m widths, {L} layers",
            "B": B, "S": S, "steps": RESIL_TOTAL,
            "checkpoint_every": RESIL_EVERY, "max_to_keep": RESIL_KEEP,
            "faults": [[f.kind, f.position, f.param] for f in faults]}
@@ -6433,18 +6479,24 @@ def _world_view(p) -> dict:
 
 def check_mesh_programs(kind) -> None:
     """Phase 40 (a): the 10 mesh programs in a world of 8 ranks on the
-    CPU, then on ``cuda:0``."""
+    CPU and in one on ``cuda:0``, the two worlds side by side."""
+    import concurrent.futures
+
     from distributed_tensorflow_guide_tpu_torch.analysis import lint
 
-    t0 = time.perf_counter()
     contracts = lint._registered(MESH_PROGRAMS)
-    cpu = lint.run_contracts(contracts, "cpu", world=MESH_WORLD)
-    t_cpu = time.perf_counter() - t0
+
+    def world(device):
+        t0 = time.perf_counter()
+        rep = lint.run_contracts(contracts, device, world=MESH_WORLD)
+        return rep, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        runs = {d: pool.submit(world, d) for d in ("cpu", "cuda:0")}
+        (cpu, t_cpu), (card, t_card) = (runs[d].result()
+                                        for d in ("cpu", "cuda:0"))
     if not cpu.ok:
         fail("phase 40 (a): the CPU world:\n" + lint.render_text(cpu))
-    t1 = time.perf_counter()
-    card = lint.run_contracts(contracts, "cuda:0", world=MESH_WORLD)
-    t_card = time.perf_counter() - t1
     bad = []
     for c, p, q in zip(contracts, card.programs, cpu.programs):
         if not p.ok:
@@ -6472,7 +6524,8 @@ def check_mesh_programs(kind) -> None:
         fail("phase 40 (a) on the card:\n" + "\n".join(bad))
     print(f"mesh audit on {kind}: {sum(p.ok for p in card.programs)}/"
           f"{len(contracts)} programs pass on {MESH_WORLD} ranks sharing "
-          f"the card | cpu_world_s {t_cpu:.1f} card_world_s {t_card:.1f}",
+          f"the card | cpu_world_s {t_cpu:.1f} card_world_s {t_card:.1f} "
+          "(side by side)",
           flush=True)
 
 
@@ -6490,7 +6543,7 @@ def audit_dp_rank(seed: int) -> dict:
     dev = resolve_device(None)
     mesh = build_mesh(MeshSpec(data=AUDIT_DP_N))
     i = mesh.axis("data").index
-    cfg = gpt2_124m(dtype=torch.bfloat16)
+    cfg = _mp_gpt2()
     model = Transformer(cfg).init_weights(seed).to(dev)
     if cfg.resolve_attn_impl(AUDIT_DP_S) != "flash":
         raise RuntimeError("attn_impl='auto' did not resolve to flash")
@@ -6548,7 +6601,7 @@ def check_mesh_dp_gpt2(seed, kind) -> dict:
     t0 = time.perf_counter()
     res = [r.result for r in run_multiprocess(
         "chip_smoke:audit_dp_rank", AUDIT_DP_N, [seed], timeout=900)]
-    layers = gpt2_124m().num_layers
+    layers = MP_LAYERS
     want_nodes = dict.fromkeys(K1_K3, layers)
     G = res[0]["grad_bytes"]
     ar = cost.dp_allreduce_bytes
@@ -6588,6 +6641,256 @@ def check_mesh_dp_gpt2(seed, kind) -> dict:
     return {n: sum(r["launches"][n] for r in res) for n in K1_K3}
 
 
+# ---- phase 41: the example family -------------------------------------------
+
+EX_PKG = "distributed_tensorflow_guide_tpu_torch.examples"
+EX_RANKS = 4  # scripts 7, 9 and 10: ranks sharing the card over gloo
+# script 10's bound against dense attention, the JAX example's (f32)
+SP_MAX_ERR = 2e-4
+# GPT-2 124M widths at a cut depth, trained at S=1024 (scripts 11 and 12)
+EX_LM = ["--layers", "2", "--d-model", "768", "--heads", "12", "--seq-len",
+         "1024", "--global-batch", "8", "--bpe-vocab", "384"]
+# the first prompt tokenizes to 12 tokens: the one-shot's prefill takes the
+# chunk regime, as the engine's 128-row chunk does (the bitwise check)
+EX_PROMPTS = ("the quick brown fox jumps over the lazy dog. pack my box|"
+              "how vexingly quick|the lazy dog|pack my box with five dozen")
+
+
+def _example_runs(root: str) -> list:
+    """(label, script, argv, ranks, kernels, success lines) of phase 41;
+    ``root`` holds the corpus, the IDX files and the TSV."""
+    corpus, idx, tsv = (os.path.join(root, n)
+                        for n in ("corpus.txt", "mnist", "demo.tsv"))
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    return [
+        ("non_distributed", "non_distributed",
+         ["--steps", "20", "--log-every", "0"], 1, (),
+         ("platform: cuda", "done: 20 steps")),
+        ("mnist_sync_dp", "mnist_sync_dp",
+         ["--steps", "20", "--eval-batches", "2", "--log-every", "0",
+          "--data", idx], 1, (),
+         ("native loader: 2048 records", "done: 20 steps",
+          "held-out accuracy")),
+        ("async_ps_family/downpour", "async_ps_family",
+         ["--algo", "downpour", "--steps", "16"], 1, (),
+         ("done: algo=downpour",)),
+        ("async_ps_family/emulate-adag", "async_ps_family",
+         ["--algo", "emulate-adag", "--steps", "16"], 1, (),
+         ("adag emulation: loss",)),
+        ("wide_deep_recommender", "wide_deep_recommender",
+         ["--steps", "20", "--log-every", "0"], 1, (), ("done: 20 steps",)),
+        ("native_data_pipeline", "native_data_pipeline",
+         ["--steps", "20", "--steps-per-call", "4"], 1, (),
+         ("loader: NativeRecordLoader", "examples/sec/process end-to-end")),
+        ("resnet_imagenet_dp", "resnet_imagenet_dp",
+         ["--steps", "2", "--eval-batches", "1", "--log-every", "0"], 1, (),
+         ("done: 2 steps (resnet50, 224px)", "held-out accuracy")),
+        ("bert_tensor_parallel", "bert_tensor_parallel",
+         ["--model-parallel", "4", "--layers", "2", "--steps", "4",
+          "--make-demo-data", "1024", "--data", tsv, "--bpe-vocab", "300"],
+         EX_RANKS, (), ("trained BPE vocab", "held-out: ", "done: ")),
+        ("fsdp_zero3", "fsdp_zero3",
+         ["--steps", "20", "--fused-ce", "on", "--fsdp-prefetch", "on"], 1,
+         (), ("local shard = 1.000", "done: loss")),
+        ("gpt2_pipeline", "gpt2_pipeline",
+         ["--full-gpt2", "--pipe", "4", "--steps", "2", "--microbatches",
+          "4", "--microbatch-size", "1", "--data", corpus, "--bpe-vocab",
+          "300", "--generate", "the quick brown", "--max-new", "8"],
+         EX_RANKS, flash + ("decode_attention",),
+         ("trained BPE vocab", "native loader: ", "done: ",
+          "generated: ")),
+        ("long_context_sp", "long_context_sp",
+         ["--impl", "both", "--seq-len", "4096"], EX_RANKS,
+         ("flash_carry",),
+         ("ring attention: ", "ulysses: ", "long-context SP ok")),
+        ("gpt2_generate", "gpt2_generate",
+         [*EX_LM, "--steps", "6", "--data", corpus, "--max-new", "16"], 1,
+         flash + ("decode_attention",), ("output : ", "generate ok")),
+        ("gpt2_generate/int8-spec", "gpt2_generate",
+         [*EX_LM, "--steps", "0", "--data", corpus, "--max-new", "16",
+          "--precision", "bf16", "--kv-dtype", "int8",
+          "--spec-draft-layers", "1"], 1, ("decode_attention",),
+         ("speculative: ", "generate ok")),
+        ("gpt2_serve", "gpt2_serve",
+         [*EX_LM, "--steps", "4", "--data", corpus, "--precision", "bf16",
+          "--slots", "4", "--block-size", "16", "--num-blocks", "257",
+          "--prefill-chunk", "128", "--max-new", "16", "--prefix-cache",
+          "--prompts", EX_PROMPTS], 1,
+         flash + ("paged_decode_attention.split",
+                  "paged_decode_attention.chunk"),
+         ("engine == one-shot for req 0: ok", "serve ok")),
+        ("moe_expert_parallel", "moe_expert_parallel", ["--steps", "10"], 1,
+         (), ("experts sharded 1-way over 1 devices",)),
+        ("switch_moe_lm", "switch_moe_lm",
+         ["--expert", "1", "--steps", "10"], 1, (), ("switch-moe ok",)),
+    ]
+
+
+def _example_inputs(root: str, seed: int) -> None:
+    """Phase 41's files: the demo corpus six times over (16 records of 1024
+    tokens at vocab 384) and MNIST IDX files of 2048 and 512 images drawn
+    from the synthetic task; the BERT script writes its own TSV."""
+    from distributed_tensorflow_guide_tpu_torch.examples.gpt2_generate import (
+        DEMO_CORPUS,
+    )
+
+    with open(os.path.join(root, "corpus.txt"), "w") as fh:
+        fh.write(DEMO_CORPUS * 6)
+    idx = os.path.join(root, "mnist")
+    os.makedirs(idx)
+    for split, n, sample in (("train", 2048, seed + 1), ("t10k", 512,
+                                                          seed + 2)):
+        b = synthetic.synthetic_mnist(n, seed=seed,
+                                      sample_seed=sample).take(1)[0]
+        pixels = np.clip(b["image"][..., 0] * 64 + 128, 0, 255)
+        write_idx(os.path.join(idx, f"{split}-images-idx3-ubyte"),
+                  pixels.astype(np.uint8))
+        write_idx(os.path.join(idx, f"{split}-labels-idx1-ubyte"),
+                  b["label"].astype(np.uint8))
+
+
+def _example_body(script: str, argv: list) -> tuple:
+    """One script's body on this rank's card: (summary, stdout, wall s)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"{EX_PKG}.{script}")
+    args = mod.parser().parse_args(argv)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = mod.run(args)
+    if torch.cuda.is_available():  # a CPU rehearsal has no card
+        torch.cuda.synchronize()
+    return summary, out.getvalue(), time.perf_counter() - t0
+
+
+def examples_rank(runs: list) -> dict:
+    """One rank of phase 41's multi-rank scripts (started by
+    ``run_multiprocess``): each body in turn, in one world, so the ranks
+    start once. Its summary (the body's own launch counts), stdout and
+    wall seconds, by label."""
+    out = {}
+    for label, script, argv in runs:
+        summary, text, wall = _example_body(script, argv)
+        out[label] = {"summary": summary, "stdout": text, "wall_s": wall}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _example_in_process(script: str, argv: list) -> tuple:
+    """One script's body on ``cuda:0`` in this process, the launch counts
+    zeroed just before it: (summary, stdout, wall s, launches)."""
+    FA.reset_launch_counts()
+    DA.reset_launch_counts()
+    summary, text, wall = _example_body(script, argv)
+    launches = {k: v for k, v in {**FA.LAUNCHES,
+                                  **DA.REGIME_LAUNCHES}.items() if v}
+    return summary, text, wall, launches
+
+
+def _example_ranks(runs: list) -> dict:
+    """The multi-rank scripts' bodies in ``EX_RANKS`` fresh rank
+    processes sharing the card, one after another: by label, (rank 0's
+    summary, rank 0's stdout, rank 0's wall s, launches summed over the
+    ranks)."""
+    results = run_multiprocess(
+        "chip_smoke:examples_rank", EX_RANKS,
+        [[[label, script, argv] for label, script, argv in runs]],
+        timeout=900)
+    out = {}
+    for label, _, _ in runs:
+        launches: dict = {}
+        for r in results:
+            for k, v in r.result[label]["summary"]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        first = results[0].result[label]
+        out[label] = (first["summary"], first["stdout"], first["wall_s"],
+                      launches)
+    return out
+
+
+def _launched(launches: dict, kernel: str) -> int:
+    if kernel in ("decode_attention", "paged_decode_attention"):
+        return sum(launches.get(f"{kernel}.{r}", 0)
+                   for r in ("split", "chunk"))
+    return launches.get(kernel, 0)
+
+
+def check_examples(seed: int, kind: str) -> dict:
+    """Phase 41. Returns the launches of K1-K6 (by name and regime) summed
+    over the scripts."""
+    import traceback
+
+    # online tuning off, as a user's process has it (phase 38 turned it on
+    # for the process): a sweep would launch K5 / K6 candidates inside a
+    # script's run
+    was = autotune.set_online_tune(False)
+    root = tempfile.mkdtemp(prefix="dtg_examples_")
+    _example_inputs(root, seed)
+    runs = [(label, script, [*argv, "--device", "cuda"], ranks, kernels,
+             lines) for label, script, argv, ranks, kernels, lines
+            in _example_runs(root)]
+    results, failures = {}, []
+    try:
+        for label, script, argv, ranks, _, _ in runs:
+            if ranks > 1:
+                continue
+            try:
+                results[label] = _example_in_process(script, argv)
+            except (Exception, SystemExit) as e:  # the phase fails below
+                failures.append(f"{label}: raised {e!r}")
+                print(f"phase 41 {label}: argv={argv} raised:", flush=True)
+                traceback.print_exc()
+            finally:
+                gc.collect()
+                torch.cuda.empty_cache()
+        multi = [(label, script, argv)
+                 for label, script, argv, ranks, _, _ in runs if ranks > 1]
+        t0 = time.perf_counter()
+        try:
+            results.update(_example_ranks(multi))
+        except Exception as e:  # the phase fails below
+            failures.append(f"{[m[0] for m in multi]}: raised {e!r}")
+            traceback.print_exc()
+        print(f"phase 41: the {EX_RANKS}-rank job "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        autotune.set_online_tune(was)
+    total: dict = {}
+    for label, script, argv, ranks, kernels, lines in runs:
+        if label not in results:
+            continue
+        summary, out, wall, launches = results[label]
+        missing = [ln for ln in lines if ln not in out]
+        idle = [k for k in kernels if not _launched(launches, k)]
+        rates = {k: v for k, v in summary.items()
+                 if k.endswith("_per_s") or k.endswith("_s")}
+        errs = {n: r["max_err"]
+                for n, r in summary.get("results", {}).items()}
+        print(f"phase 41 {label} on {kind}: " + json.dumps({
+            "argv": argv, "ranks": ranks, "wall_s": wall,
+            "done": summary.get("done"), "rates": rates, "max_err": errs,
+            "launches": launches, "missing_lines": missing,
+            "idle_kernels": idle}), flush=True)
+        if script == "long_context_sp" and not (
+                len(errs) == 2 and max(errs.values()) < SP_MAX_ERR):
+            failures.append(f"{label}: max errors {errs} (bound "
+                            f"{SP_MAX_ERR})")
+        if missing:
+            failures.append(f"{label}: lacks {missing}")
+        if idle:
+            failures.append(f"{label}: launched none of {idle}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    if failures:
+        fail("phase 41: " + "; ".join(failures))
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -6604,6 +6907,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"device: {kind} | nvidia-smi: {smi}", flush=True)
+    last = [t_start]
+
+    def lap(what: str) -> None:
+        """The seconds since the last lap, for the phases' time budget."""
+        now = time.perf_counter()
+        print(f"time: {what} {now - last[0]:.1f} s (at {now - t_start:.1f} "
+              "s)", flush=True)
+        last[0] = now
     # a fresh tuning table, online tuning off: a table an earlier run left
     # in this machine's home must not change what phases 1-37 run
     tune_dir = tempfile.mkdtemp(prefix="dtg_autotune_")
@@ -6625,6 +6936,7 @@ def main() -> int:
                             if "_sm90" in k or "decode_" in k}
                            | {"warnings": warnings}), flush=True)
 
+    lap("build (phase 2)")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rng = np.random.RandomState(args.seed)
     results = []
@@ -6632,13 +6944,16 @@ def main() -> int:
     check_k5_device_index(gen)
     check_k6(results, gen, rng, args.seed)
     check_regime_threshold(gen)
+    lap("phase 3")
     cfg = gpt2_124m(dtype=torch.bfloat16)
     model = Transformer(cfg).init_weights(args.seed).to("cuda")
     check_sampler(gen, args.seed)
     by_regime = {"paged_decode_attention": check_engine(cfg, model, rng,
-                                                        kind, args.seed),
-                 "decode_attention": check_one_shot(cfg, model, rng, kind,
-                                                    args.seed)}
+                                                        kind, args.seed)}
+    lap("phase 4")
+    by_regime["decode_attention"] = check_one_shot(cfg, model, rng, kind,
+                                                   args.seed)
+    lap("phase 5")
     # phases 22-23 (speculative decoding, the multi-LoRA engine) run on
     # this model here, before training; their launches join K5's and K6's
     for name, counts in (
@@ -6648,6 +6963,7 @@ def main() -> int:
                 cfg, model, args.seed, kind))):
         for regime, n in counts.items():
             by_regime[name][regime] += n
+    lap("phases 22-23")
     # phases 25 (quantised serving) and 27 (MoE serving, against this
     # model's engine) on this model too; phase 36 reads 27's census
     keep = {}
@@ -6656,13 +6972,16 @@ def main() -> int:
         for name, counts in phase(cfg, model, args.seed, kind).items():
             for regime, n in counts.items():
                 by_regime[name][regime] += n
+    lap("phases 25, 27")
     launches = {f"{name}.{regime}": n for name, counts in by_regime.items()
                 for regime, n in counts.items()}
     del model
     torch.cuda.empty_cache()
     flash_ms = check_flash(results, gen)
+    lap("phase 6")
     phase7, step7_ms = check_training(cfg, rng, args.seed, kind, flash_ms)
     launches.update(phase7)
+    lap("phase 7")
     torch.cuda.empty_cache()
     # phases 24, 26 and 28: the captured k-step step, quantised training,
     # the Switch LM
@@ -6672,44 +6991,63 @@ def main() -> int:
                  check_switch_training(args.seed, kind)):
         for n, c in more.items():
             launches[n] += c
+    lap("phases 24, 26, 28")
     torch.cuda.empty_cache()
     check_carry(results, gen)
     launches["flash_carry"] = check_sp(kind, args.seed)
+    lap("phases 8-9")
     check_dp(kind, args.seed)
+    lap("phase 10")
     resnet_images_s = check_resnet50(args.seed, kind)
+    lap("phase 11")
     torch.cuda.empty_cache()
     check_mnist(args.seed, kind)
     check_wide_deep(args.seed, kind)
     check_bert(args.seed, kind)
+    lap("phases 12-14")
     torch.cuda.empty_cache()
     check_pipeline(args.seed, kind)
+    lap("phase 15")
     torch.cuda.empty_cache()
     check_pipeline_ranks(args.seed, kind)
+    lap("phase 16")
     check_bert_tp(args.seed, kind)
+    lap("phase 17")
     torch.cuda.empty_cache()
     check_fsdp(args.seed, kind)
+    lap("phase 18")
     check_dp_overlap(args.seed, kind)
+    lap("phase 19")
     check_sp_tp(args.seed, kind)
+    lap("phase 20")
     check_async_ps(args.seed, kind)
+    lap("phase 21")
     for n, c in check_expert_parallel(args.seed, kind).items():
         launches[n] += c
+    lap("phase 29")
     # phases 30-33: supervised training with checkpoints, engine
     # snapshots, preemption, the elastic world; their K1-K3 and K6
     # launches join the line
     torch.cuda.empty_cache()
     t_resil = time.perf_counter()
-    for n, c in check_supervised_training(cfg, args.seed, kind).items():
+    resil_cfg = dataclasses.replace(cfg, num_layers=RESIL_LAYERS)
+    for n, c in check_supervised_training(resil_cfg, args.seed,
+                                          kind).items():
         launches[n] += c
+    lap("phase 30")
     torch.cuda.empty_cache()
     model = Transformer(cfg).init_weights(args.seed).to("cuda")
     for regime, n in check_engine_snapshots(cfg, model, args.seed,
                                             kind).items():
         launches[f"paged_decode_attention.{regime}"] += n
+    lap("phase 31")
     del model
     torch.cuda.empty_cache()
-    for n, c in check_preemption(cfg, args.seed, kind).items():
+    for n, c in check_preemption(resil_cfg, args.seed, kind).items():
         launches[n] += c
+    lap("phase 32")
     check_elastic_world(args.seed, kind)
+    lap("phase 33")
     print(f"phases 30-33: {time.perf_counter() - t_resil:.1f} s", flush=True)
     # phases 34-36: the spill tier and the warm restart, the fleet, the
     # metrics plane; their K6 and K1-K3 launches join the line
@@ -6725,20 +7063,24 @@ def main() -> int:
         launches[n] += c
     print(f"phases 34-36: {time.perf_counter() - t_fleet:.1f} s",
           flush=True)
+    lap("phases 34-36")
     # phase 37: the data plane; its record-fed K1-K3 launches join the line
     torch.cuda.empty_cache()
     for n, c in check_data_plane(cfg, args.seed, kind, step7_ms,
                                  resnet_images_s).items():
         launches[n] += c
+    lap("phase 37")
     # phase 38: the tuning table; its online engine's K6 launches join
     torch.cuda.empty_cache()
     for regime, n in check_autotune(cfg, args.seed, kind, smi).items():
         launches[f"paged_decode_attention.{regime}"] += n
     shutil.rmtree(tune_dir, ignore_errors=True)
+    lap("phase 38")
     # phase 39: the program audit; its K5 and K6 launches join the line
     torch.cuda.empty_cache()
     for n, c in check_program_audit(cfg, args.seed, kind).items():
         launches[n] += c
+    lap("phase 39")
     # phase 40: the mesh programs; the GPT-2 DP step's K1-K3 launches join
     torch.cuda.empty_cache()
     t_mesh = time.perf_counter()
@@ -6746,6 +7088,14 @@ def main() -> int:
     for n, c in check_mesh_dp_gpt2(args.seed, kind).items():
         launches[n] += c
     print(f"phase 40: {time.perf_counter() - t_mesh:.1f} s", flush=True)
+    lap("phase 40")
+    # phase 41: the example family; its K1-K6 launches join the line
+    torch.cuda.empty_cache()
+    t_ex = time.perf_counter()
+    for n, c in check_examples(args.seed, kind).items():
+        launches[n] += c
+    print(f"phase 41: {time.perf_counter() - t_ex:.1f} s", flush=True)
+    lap("phase 41")
 
     def head(name, pick, regime=None):
         rows = [r for r in results if r["kernel"] == name

@@ -30,18 +30,23 @@ class Evaluator:
     ``make_data()``, a finite iterable made afresh for every pass.
 
     Equal-sized batches make the mean of the batch means exact.
+    ``max_batches`` bounds a pass (smoke runs on large held-out sets).
     """
 
     def __init__(self, eval_step: Callable[[Any, Any], dict],
-                 make_data: Callable[[], Iterable]):
+                 make_data: Callable[[], Iterable], *,
+                 max_batches: int | None = None):
         self.eval_step = eval_step
         self.make_data = make_data
+        self.max_batches = max_batches
 
     def run(self, state: Any) -> dict[str, float]:
         """Evaluate ``state``; the mean metrics plus ``eval_batches``."""
         sums: dict[str, torch.Tensor] = {}
         n = 0
         for batch in self.make_data():
+            if self.max_batches is not None and n >= self.max_batches:
+                break
             for k, v in self.eval_step(state, batch).items():
                 sums[k] = sums[k] + v if k in sums else torch.as_tensor(v)
             n += 1

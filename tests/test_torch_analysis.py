@@ -449,7 +449,13 @@ def test_changed_only_selection(monkeypatch):
     assert len(picked) == 2 and "full lint" in why
 
 
-def test_cli_json_list_cost_changed_only_and_regress(capsys):
+def test_cli_json_list_cost_changed_only_and_regress(capsys, monkeypatch,
+                                                     tmp_path):
+    # hermetic: --changed-only reads the changed files from git and
+    # --regress the bench history under the repo root; both are pinned
+    # here, so the tree's git state and a history left by a run cannot
+    # decide the outcome
+    monkeypatch.setenv("DTG_BENCH_HISTORY", str(tmp_path))
     assert lint.main(["--device", "cpu", "--json", "--programs",
                       "fp8_ste_matmul_grad,fused_ce_loss_grad"]) == 0
     d = json.loads(capsys.readouterr().out.splitlines()[-1])
@@ -462,10 +468,20 @@ def test_cli_json_list_cost_changed_only_and_regress(capsys):
     assert lint.main(["--device", "cpu", "--cost", "--programs",
                       "fp8_ste_matmul_grad"]) == 0
     assert "peak live" in capsys.readouterr().out
+    monkeypatch.setattr(
+        lint, "_changed_files",
+        lambda base: ["distributed_tensorflow_guide_tpu_torch/ops/quant.py"])
     assert lint.main(["--device", "cpu", "--changed-only", "--json",
                       "--regress", "--programs", "fp8_ste_matmul_grad"]) == 0
     d = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert d["ok"] and d["regress"]["selftest_ok"]
+    assert [p["name"] for p in d["programs"]] == ["fp8_ste_matmul_grad"]
+    # nothing changed under the selected program's sources: the
+    # reference's answer, a plain line and exit 0
+    monkeypatch.setattr(lint, "_changed_files", lambda base: [])
+    assert lint.main(["--device", "cpu", "--changed-only", "--json",
+                      "--regress", "--programs", "fp8_ste_matmul_grad"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "nothing to lint"
 
 
 def test_cli_refuses_a_missing_card():

@@ -1912,3 +1912,45 @@ def topology_job() -> dict:
             "max_rel_diff": rep.max_rel_diff, "detail": rep.detail,
             "runs_ok": again.ok, "runs_max_abs_diff": again.max_abs_diff,
             "losses": losses}
+
+
+# ---- the example family's determinism gate --------------------------------
+
+# the port's control trainer (examples/non_distributed.train) first, then
+# the DP world sizes of a 2-rank job (2, 2 with two accumulated
+# microbatches, 1 with a model axis of 2) and FSDP over both ranks
+EXAMPLES_TOPOLOGIES = ("control", (dict(data=2), 1, "dp"),
+                       (dict(data=2), 2, "dp"),
+                       (dict(data=1, model=2), 1, "dp"),
+                       (dict(data=2), 1, "fsdp"))
+
+
+def examples_gate_job() -> dict:
+    """``check_topologies`` over :data:`EXAMPLES_TOPOLOGIES`, the control
+    trainer the oracle every topology is held to."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch.examples import (
+        non_distributed,
+    )
+    from distributed_tensorflow_guide_tpu_torch.utils.determinism import (
+        check_topologies,
+    )
+
+    torch.set_num_threads(1)
+    losses = {}
+
+    def run(topo, seed):
+        if topo == "control":
+            out = non_distributed.train(TOPO_STEPS, TOPO_BATCH, TOPO_LR,
+                                        seed=seed, device="cpu")
+        else:
+            out = _topology_train(topo, seed)
+        losses[repr(topo)] = [m["loss"] for m in out]
+        return out
+
+    rep = check_topologies(run, EXAMPLES_TOPOLOGIES, seed=0, rtol=1e-4)
+    return {"rank": dist.get_rank(), "ok": rep.ok,
+            "max_rel_diff": rep.max_rel_diff, "detail": rep.detail,
+            "losses": losses}
