@@ -330,8 +330,12 @@ and check them.
     27's MoE census; phase 34's event stream as a Chrome trace (one
     complete span per prefill chunk and per slot of each decode tick),
     its TTFT breakdown, ``obs.cli`` over its dump; ``reconcile`` of one
-    captured decode replay (CUDA events) against a closed-form cost and
-    the H100 roofline; phase 7's GPT-2 steps under ``MetricsHook`` and
+    captured decode replay (CUDA events) against the H100 roofline under
+    two costs, each with its HBM fraction: ``model``, the decode byte
+    model of ``models/generation.py`` at K6's live blocks, and ``moved``,
+    what the replay moves, term by term (f32 master reads, the bf16 cast
+    copies written and read again, the gathered embedding rows, the KV
+    term); phase 7's GPT-2 steps under ``MetricsHook`` and
     ``TensorBoardHook`` (logging every 4th step): parameters bitwise the
     hook-free run's, the TensorBoard file's losses exactly the loop's,
     the hooks' ms a step;
@@ -392,7 +396,9 @@ and check them.
     collective-free, no host sync, no global-generator draw, the pool
     updated in place, no f32 tensor of slots x heads x max_len elements
     but the (slots, 1, V) logits the sampler reads, K6 once a layer; its
-    cost vector beside phase 36's closed form (``_decode_cost``).
+    census cost beside the decode byte model's (``models/generation.py``
+    ``decode_param_bytes_per_step`` with K6's live blocks, phase 36's
+    ``model``).
 40. the program audit, part 2, the 10 mesh programs: (a) ``lint --world
     8`` in a world of 8 gloo ranks time-sharing ``cuda:0``, online tuning
     off: the DP, bucketed-overlap and int8 steps, FSDP, the GPipe step
@@ -432,8 +438,12 @@ and check them.
     script fails the phase if it raises, lacks its JAX twin's success
     lines, or launches none of its kernels (9: K1-K3 and K5; 10: K4;
     11: K1-K3 and K5; 12: K6 in both regimes), or (script 10) strays
-    from dense attention by the JAX example's 2e-4 or more. Its launches
-    join the ``kernels`` line.
+    from dense attention by the JAX example's 2e-4 or more. Then
+    ``graft_entry.entry()``, the counterpart of the repository root's
+    ``__graft_entry__.py``: GPT-2 124M at bf16 on ``cuda:0``, its forward
+    once at (4, 1024) under inference mode: finite (4, 1024, 50304) f32
+    logits and exactly one K1 launch a layer (12). Its launches join the
+    ``kernels`` line with the scripts'.
 
 Phase 19 also runs ``compress="int8"``: the first step's gradients
 within the shared scale's half-step of the uncompressed ones (the JAX
@@ -5533,20 +5543,80 @@ def check_fleet(cfg, model, seed, kind, keep: dict) -> dict:
     return counts
 
 
-def _decode_cost(eng) -> dict:
-    """Closed-form cost of one decode step of ``eng`` at its residents'
-    lengths: every parameter's stored bytes read once (the f32 masters:
-    the decode views cast them to bf16 at every call), the bf16 KV rows
-    each slot attends read once, 2 x parameters x slots FLOPs."""
-    cfg = eng.fns.cfg
-    params = sum(p.numel() for p in eng.model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in eng.model.parameters())
-    row = cfg.num_layers * 2 * cfg.num_heads * cfg.head_dim * 2
-    kv = sum(s.written for s in eng.sched.slots if s is not None) * row
-    return {"flops": 2.0 * params * eng.num_slots,
-            "hbm_bytes_read": float(weight_bytes + kv),
-            "hbm_bytes_written": float(eng.num_slots * row)}
+def _decode_costs(cfg, model, keys, block_size: int) -> dict:
+    """Two costs of one paged decode step (phases 36 and 39) whose
+    resident slots read ``keys`` keys each through a pool of
+    ``block_size``-slot blocks:
+
+    * ``model``: the JAX package's byte model, the port's
+      ``decode_hbm_bytes_per_step`` with K6's live blocks for its KV term
+      (``decode_param_bytes_per_step`` + ``paged_decode_cache_bytes_per_
+      step``): every non-embedding parameter at its stored bytes, B token
+      rows and one position row;
+    * ``moved``: what a replay moves, term by term: the f32 masters read
+      once; the bf16 copies the blocks' products cast them to at every
+      call (``models/transformer.py`` ``_linear``) written, then read
+      again by the products (the head multiplies at f32, uncast); B token
+      rows and B position rows (each slot sits at its own position); the
+      same KV term.
+
+    Both carry 2 x B x (non-embedding parameters) + 4 x L x d x (keys)
+    FLOPs (the products, then q.k and p.v)."""
+    B = len(keys)
+    live = sum(-(-k // block_size) for k in keys)
+    kv = gen_mod.paged_decode_cache_bytes_per_step(
+        cfg, block_size=block_size, live_blocks=live, active_slots=B)
+    sd = model.state_dict()
+    emb = {k for k in sd if k.split(".", 1)[0] in ("tok_emb", "pos_emb")}
+    n_params = sum(t.numel() for k, t in sd.items() if k not in emb)
+    flops = (2.0 * B * n_params
+             + 4.0 * cfg.num_layers * cfg.d_model * sum(keys))
+    cast = 0
+    if cfg.dtype != torch.float32:
+        cast = sum(p.numel() * cfg.dtype.itemsize
+                   for m in model.blocks.modules()
+                   if isinstance(m, torch.nn.Linear)
+                   for p in m.parameters())
+    row = cfg.d_model * sd["tok_emb.weight"].element_size()
+    terms = {"f32_master_reads": float(sum(
+                 sd[k].numel() * sd[k].element_size()
+                 for k in sd if k not in emb)),
+             "bf16_cast_writes": float(cast),
+             "bf16_copy_reads": float(cast),
+             "token_rows": float(B * row), "position_rows": float(B * row),
+             "kv": kv}
+    model_bytes = gen_mod.decode_param_bytes_per_step(model, B) + kv
+    return {"model": {"flops": flops, "hbm_bytes": model_bytes},
+            "moved": {"flops": flops, "hbm_bytes": sum(terms.values()),
+                      "terms": terms}}
+
+
+def reconcile_decode_replay(cfg, seed, dev) -> dict:
+    """Phase 36's reconciliation: phase 34's engine with 8 residents
+    decoding, one captured decode replay timed (CUDA events) and
+    reconciled under :func:`_decode_costs`' ``model`` and ``moved``."""
+    from distributed_tensorflow_guide_tpu_torch.obs import recon
+
+    model = Transformer(cfg).init_weights(seed).to(dev)
+    eng = _spill_engine(cfg, model, num_blocks=513)
+    _submit(eng, _snap_prompts(seed + 36, 8, SPILL_PROMPTS), seed,
+            SPILL_NEW)
+    while not all(s is not None and s.phase == "decode"
+                  for s in eng.sched.slots):
+        eng.step()
+    eng.step()
+    keys = [s.written for s in eng.sched.slots if s is not None]
+    cfg_e = eng.fns.cfg
+    costs = _decode_costs(cfg_e, eng.model, keys, cfg_e.paged_block_size)
+    ms = decode_replay_ms(eng) if dev.type == "cuda" else 1.0
+    roof = recon.Roofline.from_env()
+    out = {"replay_ms": ms, "keys": keys,
+           **{name: {"cost": c, **recon.reconcile(c, ms / 1e3, roof)}
+              for name, c in costs.items()}}
+    eng.close()
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_metrics_plane(cfg, seed, kind, keep: dict) -> dict:
@@ -5555,7 +5625,7 @@ def check_metrics_plane(cfg, seed, kind, keep: dict) -> dict:
     from distributed_tensorflow_guide_tpu_torch.obs import (
         metrics as obs_metrics,
     )
-    from distributed_tensorflow_guide_tpu_torch.obs import recon, tracing
+    from distributed_tensorflow_guide_tpu_torch.obs import tracing
     from distributed_tensorflow_guide_tpu_torch.train.hooks import (
         MetricsHook,
         TensorBoardHook,
@@ -5623,22 +5693,8 @@ def check_metrics_plane(cfg, seed, kind, keep: dict) -> dict:
         if cli.returncode:
             fail(f"obs cli: rc {cli.returncode}: {cli.stderr[-2000:]}")
 
-        # reconcile one captured decode replay
-        model = Transformer(cfg).init_weights(seed).to(dev)
-        eng = _spill_engine(cfg, model, num_blocks=513)
-        _submit(eng, _snap_prompts(seed + 36, 8, SPILL_PROMPTS), seed,
-                SPILL_NEW)
-        while not all(s is not None and s.phase == "decode"
-                      for s in eng.sched.slots):
-            eng.step()
-        eng.step()
-        cost = _decode_cost(eng)
-        ms = decode_replay_ms(eng) if dev.type == "cuda" else 1.0
-        rec = recon.reconcile(cost, ms / 1e3, recon.Roofline.from_env())
-        out["reconcile_decode_replay"] = {"cost": cost, **rec}
-        eng.close()
-        del eng, model
-        torch.cuda.empty_cache()
+        out["reconcile_decode_replay"] = reconcile_decode_replay(cfg, seed,
+                                                                 dev)
 
         # MetricsHook + TensorBoardHook over phase 7's steps
         B, S = TRAIN_B, TRAIN_S
@@ -6291,8 +6347,6 @@ def _audit_decode_step(cfg, model, dev, seed) -> tuple[dict, dict]:
     """Phase 39 (b): one eager decode step of phase 4's engine geometry
     under ``serve_decode_step``'s rules. Returns (its printout, K6's
     launches by regime)."""
-    from types import SimpleNamespace
-
     from distributed_tensorflow_guide_tpu_torch.analysis import (
         cost as acost,
         lint,
@@ -6353,10 +6407,9 @@ def _audit_decode_step(cfg, model, dev, seed) -> tuple[dict, dict]:
              f"a layer ({cfg.num_layers})")
     vec = acost.census_cost(census,
                             donated=acost.donated_sids(contract, census))
-    shim = SimpleNamespace(
-        fns=fns, model=view, num_slots=slots,
-        sched=SimpleNamespace(slots=[SimpleNamespace(written=int(w))
-                                     for w in written]))
+    # the step writes position w of each slot and reads its w + 1 keys
+    model_cost = _decode_costs(fns.cfg, view, [int(w) + 1 for w in written],
+                               bs)["model"]
     out = {"counts": census.counts(), "k6_nodes": k6,
            "k6_launches": launched,
            "f32_at_or_over_bar": [list(s) for s in big],
@@ -6364,7 +6417,7 @@ def _audit_decode_step(cfg, model, dev, seed) -> tuple[dict, dict]:
            "determinism": reports["determinism"].observed["hits"],
            "pool": {k: reports["donation"].observed[k] for k in
                     ("donated_leaves", "moved_leaves", "whole_copies")},
-           "cost": vec.to_dict(), "closed_form": _decode_cost(shim)}
+           "cost": vec.to_dict(), "model": model_cost}
     return out, launched
 
 
@@ -6886,9 +6939,50 @@ def check_examples(seed: int, kind: str) -> dict:
             failures.append(f"{label}: launched none of {idle}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
+    try:
+        entry_launches = check_entry(kind)
+        for k, v in entry_launches.items():
+            total[k] = total.get(k, 0) + v
+    except Exception as e:  # the phase fails below
+        failures.append(f"entry(): raised {e!r}")
+        traceback.print_exc()
     if failures:
         fail("phase 41: " + "; ".join(failures))
     return total
+
+
+def check_entry(kind: str) -> dict:
+    """Phase 41's ``graft_entry.entry()``: its forward once on the card,
+    the counts zeroed just before it. Returns its K1-K6 launches."""
+    from distributed_tensorflow_guide_tpu_torch import graft_entry
+
+    forward, (model, tokens) = graft_entry.entry()
+    FA.reset_launch_counts()
+    DA.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = forward(model, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in {**FA.LAUNCHES,
+                                  **DA.REGIME_LAUNCHES}.items() if v}
+    shape = (*tokens.shape, model.cfg.vocab_size)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"phase 41 entry() on {kind}: " + json.dumps({
+        "shape": list(logits.shape), "dtype": str(logits.dtype),
+        "finite": finite, "forward_s": wall, "launches": launches}),
+        flush=True)
+    if (tuple(logits.shape) != shape or logits.dtype != torch.float32
+            or not finite
+            or launches != {"flash_fwd": model.cfg.num_layers}):
+        raise ValueError(f"entry(): logits {tuple(logits.shape)} "
+                         f"{logits.dtype} finite={finite}, launches "
+                         f"{launches} (want flash_fwd "
+                         f"{model.cfg.num_layers})")
+    del model, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:

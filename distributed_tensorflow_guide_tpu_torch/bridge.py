@@ -550,6 +550,15 @@ def mnist_cnn_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             **_dense_from(params["Dense_1"], "dense1")}
 
 
+def mlp_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX dryrun's two-layer MLP -> the state dict of
+    ``graft_entry.MLP``. Its ``Dense(1)(relu(Dense(16)(x)))`` constructs
+    the outer layer first, so ``Dense_0`` is the output layer
+    (``dense1``) and ``Dense_1`` the hidden one (``dense0``)."""
+    return {**_dense_from(params["Dense_1"], "dense0"),
+            **_dense_from(params["Dense_0"], "dense1")}
+
+
 def mnist_cnn_to_flax(state_dict: Mapping) -> dict:
     return {"Conv_0": _conv_to(state_dict, "conv0"),
             "Conv_1": _conv_to(state_dict, "conv1"),

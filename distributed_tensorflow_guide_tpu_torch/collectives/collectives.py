@@ -142,6 +142,19 @@ def _record(op: str, ax: AxisGroup, tree, wire_factor: float) -> None:
         _TRACES[-1].record(op, ax.name, p, p * wire_factor)
 
 
+def record_event(op: str, axis: "str | tuple[str, ...]", tree=None
+                 ) -> None:
+    """A named event that is not a collective, recorded in the active
+    ``trace_comm`` under ``op[axis]`` (a tuple axis joined as a joint
+    axis's name): one call, the payload bytes of ``tree``'s tensors (the
+    JAX package's count), no wire bytes, since nothing is sent. For a
+    decision that changes the communication or compute profile without a
+    collective of its own, so that a trace shows it."""
+    if _TRACES:
+        name = axis if isinstance(axis, str) else ",".join(axis)
+        _TRACES[-1].record(op, name, _nbytes(tree), 0.0)
+
+
 def axis_size(axis: str, *, mesh: Mesh | None = None) -> int:
     """Size of a mesh axis (NCCL's world size of the axis's group)."""
     return resolve_axis(axis, mesh).size

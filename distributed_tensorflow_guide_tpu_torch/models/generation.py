@@ -101,6 +101,80 @@ def decode_split_config(cfg: TransformerConfig, device, *, batch: int,
     return dataclasses.replace(cfg, decode_split_keys=keys)
 
 
+# --------------------------------------------------------------------------
+# decode byte models (the JAX package's, on this package's cache_slot_bytes)
+# --------------------------------------------------------------------------
+
+
+def _slot_bytes(cfg: TransformerConfig) -> int:
+    """Bytes one cache slot holds across the heads of one layer."""
+    return cfg.num_heads * DA.cache_slot_bytes(cfg.head_dim, cfg.cache_dtype)
+
+
+def decode_cache_bytes_per_step(cfg: TransformerConfig, batch_size: int, *,
+                                effective_len: int | None = None) -> float:
+    """KV-cache HBM traffic of one decode step: ``effective_len`` slots
+    read a sequence (K and V at the cache dtype, plus an int8 cache's two
+    f32 scales), one slot written. ``None`` reads all ``max_len`` slots
+    (a dense static-shape step); K5 reads only below the index, so its
+    caller passes the block-rounded live length."""
+    length = cfg.max_len if effective_len is None else min(
+        int(effective_len), cfg.max_len)
+    per_slot = _slot_bytes(cfg)
+    read = cfg.num_layers * batch_size * length * per_slot
+    write = cfg.num_layers * batch_size * per_slot
+    return float(read + write)
+
+
+def paged_decode_cache_bytes_per_step(cfg: TransformerConfig, *,
+                                      block_size: int, live_blocks: int,
+                                      active_slots: int) -> float:
+    """KV-cache HBM traffic of one paged decode step (K6): the pool's live
+    blocks read, one slot written for each active slot."""
+    per_slot = _slot_bytes(cfg)
+    read = cfg.num_layers * live_blocks * block_size * per_slot
+    write = cfg.num_layers * active_slots * per_slot
+    return float(read + write)
+
+
+def decode_param_bytes_per_step(params, batch_size: int) -> float:
+    """The parameter term of :func:`decode_hbm_bytes_per_step`: every
+    entry at its stored bytes, except the embedding tables (``tok_emb``,
+    ``pos_emb``), of which a step gathers ``batch_size`` token rows and
+    one position row. ``params``: a :class:`Transformer`, its state dict,
+    or the ``ops/quant.quantize_params`` dict (int8 and packed int4
+    kernels and their scales at their stored bytes)."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    rows_of = {"tok_emb": batch_size, "pos_emb": 1}
+    total = 0.0
+    for name, t in params.items():
+        rows = rows_of.get(name.split(".", 1)[0])
+        item = t.element_size()
+        total += (t.numel() * item if rows is None
+                  else rows * t.shape[-1] * item)
+    return total
+
+
+def decode_hbm_bytes_per_step(cfg: TransformerConfig, params,
+                              batch_size: int, *,
+                              effective_len: int | None = None) -> float:
+    """Least HBM traffic of one decode step (the roofline's bytes): the
+    parameters once (:func:`decode_param_bytes_per_step`) and the KV
+    traffic of :func:`decode_cache_bytes_per_step`."""
+    return (decode_param_bytes_per_step(params, batch_size)
+            + decode_cache_bytes_per_step(cfg, batch_size,
+                                          effective_len=effective_len))
+
+
+def host_array(x, dtype) -> np.ndarray:
+    """``x`` (a list, a numpy array, or a tensor on any device) as a numpy
+    array of ``dtype``: a tensor is read on the host once."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
 def init_cache(model: Transformer, batch_size: int) -> list[dict]:
     """Zeroed contiguous cache for ``batch_size`` sequences (the model must
     be a decode view, see :func:`decode_config`)."""
@@ -386,7 +460,7 @@ class _Loop:
                 for t in layer.values():
                     t.zero_()
         if g.sampled:  # every position's key, folded on the host at once
-            key = np.asarray(rng, np.uint32).astype(np.int64)
+            key = host_array(rng, np.uint32).astype(np.int64)
             self.keys.copy_(torch.from_numpy(
                 fold_in(key, np.arange(self.keys.shape[0]))))
         self.idx.zero_()
@@ -444,7 +518,10 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
     token per step through the K5 kernel. ``model`` holds the weights (a
     :class:`Transformer` of ``cfg``'s widths, any view) on ``device``
     (default the first CUDA card). ``P + max_new_tokens`` (+ the
-    lookahead with speculative decoding) must fit ``cfg.max_len``.
+    lookahead with speculative decoding) must fit ``cfg.max_len``. The
+    prompt and the rng may be numpy arrays, lists or tensors on any
+    device: a prompt tensor moves to ``device`` in one copy, and the rng
+    is read on the host (the position keys are folded there).
 
     On the card the decode step (or the speculative round) is captured
     as a CUDA graph the first time a batch size meets a set of weights,
@@ -525,8 +602,11 @@ def make_generate_fn(cfg: TransformerConfig, *, max_new_tokens: int,
         if model.device != dev:
             raise ValueError(f"model lives on {model.device}, generator "
                              f"on {dev}")
-        prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
-                                 device=dev)
+        if isinstance(prompt, torch.Tensor):  # one copy, device to device
+            prompt = prompt.to(dev, torch.int64)
+        else:
+            prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                                     device=dev)
         B, P = prompt.shape
         budget = max_new_tokens + g.lookahead
         if P + budget > dcfg.max_len:

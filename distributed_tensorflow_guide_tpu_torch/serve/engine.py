@@ -125,6 +125,7 @@ from distributed_tensorflow_guide_tpu_torch.models.generation import (
     decode_config,
     decode_split_config,
     fold_in,
+    host_array,
     sample_rows,
 )
 from distributed_tensorflow_guide_tpu_torch.models.transformer import (
@@ -701,7 +702,10 @@ class ServeEngine:
     # ---- intake ----------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        """Queue ``req``. Its prompt and rng may be lists, numpy arrays or
+        tensors on any device: the scheduler keeps them on the host, so a
+        tensor is read there once."""
+        prompt = host_array(req.prompt, np.int32).reshape(-1)
         if prompt.size and int(prompt.max()) >= self.fns.cfg.vocab_size:
             raise ValueError("prompt token out of vocabulary")
         if self.fns.lora:
@@ -734,7 +738,7 @@ class ServeEngine:
                 f"{self._ttft_ewma:.3f}s exceeds its "
                 f"{req.ttft_deadline_s:.3f}s deadline — retry later")
         self.sched.submit(dataclasses.replace(
-            req, prompt=prompt, rng=np.asarray(req.rng, np.uint32)))
+            req, prompt=prompt, rng=host_array(req.rng, np.uint32)))
         if self.rec.enabled:
             self.rec.emit(
                 "req.submit", cat="serve", actor="engine",

@@ -98,6 +98,9 @@ import numpy as np
 from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
 )
+from distributed_tensorflow_guide_tpu_torch.models.generation import (
+    host_array,
+)
 from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
 from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     EngineOverloaded,
@@ -371,7 +374,7 @@ class FleetScheduler:
         request — :class:`EngineOverloaded` stays retriable."""
         cfg = self.engines[0].fns.cfg
         sched0 = self.engines[0].sched
-        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        prompt = host_array(req.prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
         if int(prompt.max()) >= cfg.vocab_size:
@@ -407,7 +410,7 @@ class FleetScheduler:
                 f"{len(self.queue)} at the max_queue={self.max_queue} "
                 "gate — retry later")
         self.queue.append(_Item(req=dataclasses.replace(
-            req, prompt=prompt, rng=np.asarray(req.rng, np.uint32))))
+            req, prompt=prompt, rng=host_array(req.rng, np.uint32))))
 
     def cancel(self, rid: int) -> bool:
         """Client abandon, fleet-wide: drop a fleet-queued item outright,

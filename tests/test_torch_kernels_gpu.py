@@ -3,7 +3,10 @@ kernels (K1-K4) against their plain PyTorch versions, on CUDA tensors;
 and the MoE routing (index dispatch against its one-hot plain version,
 the row-invariant router, the MoE engine against its solo generator);
 each keys candidate of the tuning table's decode split, and a sweep's
-round trip through a temporary table.
+round trip through a temporary table; the generator and the engine fed
+CUDA prompts and rngs (bitwise their numpy-fed runs), ``graft_entry``'s
+``entry()`` forward (K1 once a layer, within 2**-3 of dense attention)
+and ``dryrun_multichip(2)`` in a 2-rank gloo world sharing the card.
 
 Needs the card; each test decides inside itself to skip where there is
 none. This file imports neither jax nor the JAX package, so it also runs
@@ -24,6 +27,7 @@ orders).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1667,3 +1671,112 @@ def test_mesh_audit_on_two_ranks_sharing_the_card():
         "collective_bytes"].get("ppermute[dcn]", 0.0)
         for rank in kv.ranks] == [P, 0.0]
     assert mean(kv, "ppermute[dcn]") == P / 2
+
+
+# ---- CUDA prompts and rngs; the graft entry ---------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temp,top_k", [(0.0, None), (0.8, 10)],
+                         ids=["greedy", "top_k"])
+def test_cuda_prompts_and_rngs_give_the_numpy_bits(temp, top_k):
+    """GPT-2 widths at 2 layers: the one-shot generator (captured and
+    eager) and the engine, given the prompt and the rng as CUDA tensors,
+    emit their numpy-fed runs' tokens bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.models.generation import (
+        make_generate_fn,
+    )
+    from distributed_tensorflow_guide_tpu_torch.serve.engine import (
+        Request,
+        ServeEngine,
+    )
+
+    cfg = dataclasses.replace(TF.gpt2_124m(dtype=torch.bfloat16),
+                              num_layers=2, max_len=256)
+    model = TF.Transformer(cfg).init_weights(0).to("cuda")
+    g = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, 50257, (n,), generator=g).numpy()
+               for n in (12, 20, 31)]
+    keys = [np.array([0, 50 + i], np.uint32) for i in range(len(prompts))]
+    gen = make_generate_fn(cfg, max_new_tokens=8, temperature=temp,
+                           top_k=top_k)
+    for i, (p, k) in enumerate(zip(prompts, keys)):
+        cp = torch.as_tensor(p, device="cuda")[None]
+        ck = torch.as_tensor(k.astype(np.int64), device="cuda")
+        for run in (gen, gen.eager):
+            want = run(model, p[None], k)
+            got = run(model, cp, ck)
+            assert got.device.type == "cuda" and torch.equal(got, want), i
+
+    def serve(as_cuda):
+        eng = ServeEngine(cfg, model, slots=4, num_blocks=65, block_size=16,
+                          prefill_chunk=32, temperature=temp, top_k=top_k)
+        for i, (p, k) in enumerate(zip(prompts, keys)):
+            eng.submit(Request(
+                rid=i, max_new_tokens=8,
+                prompt=torch.as_tensor(p, device="cuda") if as_cuda else p,
+                rng=(torch.as_tensor(k.astype(np.int64), device="cuda")
+                     if as_cuda else k)))
+        eng.run()
+        eng.sched.pool.check_leaks()
+        return eng.completions()
+
+    assert serve(True) == serve(False)
+
+
+@pytest.mark.gpu
+def test_graft_entry_forward_runs_k1_once_a_layer():
+    """``graft_entry.entry()`` on the card: its forward at (4, 1024) takes
+    K1 once a layer (12) and no fallback, and its logits agree with the
+    same model's dense attention (bf16 scores) within 2**-3: the logits
+    reach |x| ~ 3, where a bf16 step is 2**-6, and the two attentions
+    round their scores and probabilities at different places in each of
+    12 layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch import graft_entry
+
+    forward, (model, tokens) = graft_entry.entry()
+    assert tokens.shape == (4, 1024) and tokens.device.type == "cuda"
+    before = FA.fallback_stats()
+    FA.reset_launch_counts()
+    with torch.inference_mode():
+        got = forward(model, tokens)
+        torch.cuda.synchronize()
+        assert FA.LAUNCHES == {"flash_fwd": 12, "flash_dq": 0,
+                               "flash_dkv": 0, "flash_carry": 0}
+        dense = model.with_config(dataclasses.replace(model.cfg,
+                                                      attn_impl="dense"))
+        want = forward(dense, tokens)
+    assert FA.fallback_stats() == before
+    assert got.shape == (4, 1024, 50304) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=2.0 ** -3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_two_ranks_sharing_the_card():
+    """``dryrun_multichip(2)`` in one world of 2 gloo ranks on ``cuda:0``:
+    every mode's line and the last line, with K1-K3 (mode 13's flash
+    step), K4 (mode 8's ring) and K5's split regime (mode 16's
+    generation) launched on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from distributed_tensorflow_guide_tpu_torch.runtime import (
+        multiprocess as mp,
+    )
+
+    results = mp.run_multiprocess("tests.torch_mp_workers:graft_card_rank",
+                                  2, [], timeout=600)
+    lines = [ln for ln in results[0].stdout.splitlines()
+             if not ln.startswith("DTG_MP_RESULT ")]
+    assert len(lines) == 15, lines  # 14 mode lines (no 3D at 2), the last
+    assert lines[-1] == ("dryrun_multichip(2): all sharding modes "
+                         "compiled and ran")
+    for r in results:
+        launches = r.result
+        for k in ("flash_fwd", "flash_dq", "flash_dkv", "flash_carry",
+                  "decode_attention.split"):
+            assert launches.get(k, 0) > 0, (r.rank, k, launches)

@@ -167,6 +167,30 @@ def test_engine_equals_one_shot_bitwise(model, temp, top_k):
     eng.sched.pool.check_leaks()
 
 
+@pytest.mark.parametrize("temp,top_k", [(0.0, None), (0.8, 10)],
+                         ids=["greedy", "sampled"])
+def test_tensor_prompts_and_rngs_give_the_numpy_bits(model, temp, top_k):
+    """The generator and the engine take the prompt and the rng as torch
+    tensors too (int64, here on the CPU; the card's test gives CUDA
+    ones): the same bits as their numpy-fed runs."""
+    as_t = [torch.as_tensor(p, dtype=torch.int64) for p in PROMPTS]
+    eng, _ = _serve(model, temp=temp, top_k=top_k)
+    teng = ServeEngine(TCFG, model, temperature=temp, top_k=top_k,
+                       device="cpu", **ROOMY)
+    for i, (p, mn) in enumerate(zip(as_t, MAX_NEW)):
+        teng.submit(Request(rid=i, prompt=p, max_new_tokens=mn,
+                            rng=torch.as_tensor(_key(i).astype(np.int64))))
+    teng.run()
+    assert teng.completions() == eng.completions()
+    gen = tgen.make_generate_fn(TCFG, max_new_tokens=6, temperature=temp,
+                                top_k=top_k, device="cpu")
+    for i, p in enumerate(PROMPTS):
+        want = gen(model, p[None], _key(i))
+        got = gen(model, as_t[i][None],
+                  torch.as_tensor(_key(i).astype(np.int64)))
+        assert got.dtype == want.dtype and torch.equal(got, want), i
+
+
 def test_engine_equals_one_shot_through_preemption_sampled(model):
     eng, _ = _serve(model, temp=0.7, top_k=12, prompts=TIGHT_PROMPTS,
                     max_new=TIGHT_MAX_NEW, **TIGHT)

@@ -1954,3 +1954,96 @@ def examples_gate_job() -> dict:
     return {"rank": dist.get_rank(), "ok": rep.ok,
             "max_rel_diff": rep.max_rel_diff, "detail": rep.detail,
             "losses": losses}
+
+
+# ---- the 8-rank job of tests/test_torch_graft_entry.py ----------------------
+
+# the modes held to the JAX dryrun's losses, and the file a test writes
+# each one's JAX starting weights to
+GRAFT_PARITY_MODES = ("gpipe", "tensor_parallel", "local_sgd", "fsdp")
+
+
+def graft_job(weights_dir: str) -> dict:
+    """``dryrun_multichip(8, device="cpu")`` inside this world (rank 0
+    prints its lines), then modes 1, 5, 9 and 12 again from the JAX
+    dryrun's starting weights (``weights_dir/<mode>.npz``, bridged).
+    Returns each mode's loss, and whether the shards that TP and FSDP cut
+    from the bridged weights are ``bridge.tp_params_from_flax``'s and
+    ``bridge.fsdp_params_from_flax``'s."""
+    import torch
+    import torch.distributed as dist
+
+    from distributed_tensorflow_guide_tpu_torch import bridge
+    from distributed_tensorflow_guide_tpu_torch import graft_entry as G
+    from distributed_tensorflow_guide_tpu_torch.parallel.fsdp import FSDP
+    from distributed_tensorflow_guide_tpu_torch.parallel.tensor import (
+        TensorParallel,
+    )
+
+    G.dryrun_multichip(8, device="cpu")
+    trees = {}
+    for name in GRAFT_PARITY_MODES:
+        with np.load(f"{weights_dir}/{name}.npz") as z:
+            trees[name] = unflatten(dict(z))
+    tp_cfg = G.tiny_cfg(causal=False, num_classes=2)
+    weights = {
+        "gpipe": bridge.pipeline_params_from_flax(trees["gpipe"],
+                                                  G.tiny_cfg(), 4),
+        "tensor_parallel": bridge.params_from_flax(trees["tensor_parallel"],
+                                                   tp_cfg),
+        "local_sgd": bridge.mlp_from_flax(trees["local_sgd"]),
+        "fsdp": bridge.mlp_from_flax(trees["fsdp"]),
+    }
+    w = G.World(8, torch.device("cpu"), G.draw_inputs(8))
+    tp_mesh, dp_mesh = w.mesh(model=4), w.mesh()
+    tp_i, dp_i = tp_mesh.axis("model").index, dp_mesh.axis("data").index
+    cut = {"tensor_parallel": (
+        TensorParallel(tp_mesh, device="cpu").shard_state_dict(
+            weights["tensor_parallel"]),
+        bridge.tp_params_from_flax(trees["tensor_parallel"], tp_cfg, 4,
+                                   tp_i)),
+        "fsdp": (
+        FSDP(dp_mesh, min_shard_size=2 ** 6, device="cpu").shard_state_dict(
+            weights["fsdp"]),
+        bridge.fsdp_params_from_flax(trees["fsdp"], bridge.mlp_from_flax, 8,
+                                     dp_i, 2 ** 6))}
+    out = {"rank": dist.get_rank()}
+    for name, (got, want) in cut.items():
+        out[f"{name}/bridge_shards"] = got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) for k in want)
+    for name in GRAFT_PARITY_MODES:
+        out[f"{name}/loss"] = getattr(G, name)(w, weights[name])["loss"]
+    return out
+
+
+def graft_failing_rank(n: int, device: str) -> dict:
+    """``graft_entry.rank_main`` over mode 1, a mode that raises on rank
+    1, and mode 13: the dryrun's failure path."""
+    from distributed_tensorflow_guide_tpu_torch import graft_entry as G
+
+    def boom(w, weights=None):
+        import torch.distributed as dist
+
+        if dist.get_rank() == 1:
+            raise RuntimeError("boom on rank 1")
+        return {"line": "boom mode: ok", "loss": None}
+
+    G.MODES = (G.gpipe, boom, G.flash_dp)
+    return G.rank_main(n, device)
+
+
+def graft_card_rank() -> dict:
+    """``dryrun_multichip(2)`` inside this world on the card; this rank's
+    K1-K6 launches (K5 and K6 by regime)."""
+    from distributed_tensorflow_guide_tpu_torch import graft_entry as G
+    from distributed_tensorflow_guide_tpu_torch.ops import (
+        decode_attention as DA,
+    )
+    from distributed_tensorflow_guide_tpu_torch.ops import (
+        flash_attention as FA,
+    )
+
+    FA.reset_launch_counts()
+    DA.reset_launch_counts()
+    G.dryrun_multichip(2)
+    return {**FA.LAUNCHES, **DA.REGIME_LAUNCHES}
