@@ -37,6 +37,8 @@ import gc
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import span
+
 
 def _counters() -> list[dict]:
     from distributed_tensorflow_guide_tpu_torch.ops import (
@@ -83,7 +85,8 @@ class CapturedStep:
     warm-up is the first call: its output is returned and nothing is
     replayed until the second call, so a step that moves the caller's
     state (an optimizer step) runs once a call. ``captures`` counts the
-    captures, one over the object's life.
+    captures, one over the object's life. While a profiler runs, a capture
+    and a replay are ``graph.capture`` and ``graph.replay`` ranges.
     """
 
     def __init__(self, fn, *, device, train: bool = False):
@@ -97,6 +100,10 @@ class CapturedStep:
         self._error: BaseException | None = None
 
     def capture(self) -> None:
+        with span(None, "graph.capture"):
+            return self._capture()
+
+    def _capture(self):
         if self.graph is not None:
             raise RuntimeError("this step is captured already")
         if self._error is not None:
@@ -134,7 +141,8 @@ class CapturedStep:
             first = self.capture()
             if self.train:
                 return first
-        self.graph.replay()
+        with span(None, "graph.replay"):
+            self.graph.replay()
         for counter, added in zip(_counters(), self.launches):
             for k, n in added.items():
                 counter[k] += n

@@ -5,11 +5,14 @@ The event model every other obs layer builds on:
 * :class:`ObsEvent` — one immutable record: a ``kind`` string
   (dot-namespaced, e.g. ``req.admit`` / ``ckpt.save`` / ``span.begin``),
   a ``cat`` egory (``serve`` / ``train`` / ``ckpt`` / ``chaos`` / ...),
-  an ``actor`` (which component emitted it), a ``payload`` dict, and TWO
-  timestamps: ``mono`` (``time.monotonic()``, always wall) and ``t`` (the
-  *semantic* clock — the serve engine passes its virtual ``now``
+  an ``actor`` (which component emitted it), a ``payload`` dict, and
+  three timestamps: ``mono`` (``time.monotonic()``, always wall), ``t``
+  (the *semantic* clock — the serve engine passes its virtual ``now``
   explicitly, a recorder-level injectable ``clock`` covers everything
-  else, and ``None`` means "no semantic clock here").
+  else, and ``None`` means "no semantic clock here"), and ``wall_ns``
+  (``time.time_ns()``, the Unix clock ``torch.profiler`` stamps its host
+  and device events with, so a dump lays over a profiler trace:
+  ``to_chrome_trace(events, clock="wall")``).
 * :class:`FlightRecorder` — a bounded ring buffer (``deque(maxlen=...)``)
   under one lock; ``dump(path)`` writes the tail as JSON and
   ``crash_dump(...)`` is the black-box hook the watchdog/recovery paths
@@ -20,9 +23,9 @@ The event model every other obs layer builds on:
   emission with ``if rec.enabled:`` so a disabled recorder costs one
   attribute check (benchmarks/bench_obs.py pins <1% of a step).
 * :func:`signature` — the determinism instrument: a stable tuple view of
-  an event sequence that drops the wall clock (``mono``), the semantic
-  clock by default, and :data:`VOLATILE` payload keys (wall-measured
-  durations), so two seeded runs compare exactly.
+  an event sequence that drops the wall clocks (``mono``, ``wall_ns``),
+  the semantic clock by default, and :data:`VOLATILE` payload keys
+  (wall-measured durations), so two seeded runs compare exactly.
 
 Inertness contract: nothing here imports jax and no emission site feeds
 a compiled program; the recorder cannot change what the runtime computes,
@@ -68,12 +71,14 @@ class ObsEvent:
     cat: str
     actor: str
     payload: dict
+    wall_ns: int | None = None  # time.time_ns() at emission
 
     def to_dict(self) -> dict:
         return {
             "seq": self.seq,
             "t": _jsonable(self.t),
             "mono": self.mono,
+            "wall_ns": self.wall_ns,
             "kind": self.kind,
             "cat": self.cat,
             "actor": self.actor,
@@ -110,13 +115,14 @@ class FlightRecorder:
              payload: dict | None = None,
              t: float | None = None) -> ObsEvent:
         mono = time.monotonic()
+        wall_ns = time.time_ns()
         if t is None and self.clock is not None:
             t = self.clock()
         with self._lock:
             if len(self._buf) == self.capacity:
                 self.dropped += 1
             ev = ObsEvent(self._seq, t, mono, kind, cat, actor,
-                          payload if payload is not None else {})
+                          payload if payload is not None else {}, wall_ns)
             self._seq += 1
             self._buf.append(ev)
         return ev
@@ -219,10 +225,11 @@ def signature(events: Iterable, *, include_t: bool = False,
               volatile: frozenset = VOLATILE) -> list[tuple]:
     """Stable comparison view of an event sequence.
 
-    Drops ``seq``/``mono`` always, ``t`` unless ``include_t``, and the
-    ``volatile`` payload keys; accepts :class:`ObsEvent` objects or the
-    dicts a :meth:`FlightRecorder.dump` round-trips. Two seeded runs of
-    the same storm must produce equal signatures (pinned)."""
+    Drops ``seq``/``mono``/``wall_ns`` always, ``t`` unless
+    ``include_t``, and the ``volatile`` payload keys; accepts
+    :class:`ObsEvent` objects or the dicts a :meth:`FlightRecorder.dump`
+    round-trips. Two seeded runs of the same storm must produce equal
+    signatures (pinned)."""
     out = []
     for e in events:
         if isinstance(e, dict):

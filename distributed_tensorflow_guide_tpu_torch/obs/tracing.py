@@ -1,9 +1,17 @@
 """Span API + Chrome/Perfetto trace-event JSON exporter.
 
-Spans are just paired events (``span.begin`` / ``span.end``) in the same
-flight-recorder stream — no second bookkeeping path. The exporter maps
-the serve engine's event vocabulary onto the Chrome trace-event format
-(`chrome://tracing` / https://ui.perfetto.dev, "Open trace file"):
+One span helper, :class:`span`, serves every timed block of the port. A
+block can feed three sinks at once: a caller-owned :class:`PhaseStats`
+(host seconds and a count per name, always on where passed), a
+``torch.profiler.record_function`` range (only while a profiler runs, so
+its cost is paid only then), and ``span.begin`` / ``span.end`` events in
+the flight-recorder stream (only where the caller passes an enabled
+recorder). With no profiler running and no recorder, a span costs one
+flag check, plus two ``perf_counter`` reads where stats are kept.
+
+The exporter maps the serve engine's event vocabulary onto the Chrome
+trace-event format (`chrome://tracing` / https://ui.perfetto.dev, "Open
+trace file"):
 
 * ``span.begin`` / ``span.end``   -> ``B``/``E`` duration events on the
   track named in the payload (train data-wait / dispatch timelines).
@@ -15,40 +23,106 @@ the serve engine's event vocabulary onto the Chrome trace-event format
 * everything else                 -> ``i`` instant events (lifecycle
   terminals, prefix hits/evictions, chaos faults, snapshots, ...).
 
-Timestamps: the exporter prefers the semantic clock ``t`` (the engine's
-virtual ``now``) and falls back to ``mono`` when ``t`` is None (train
-spans). Events whose resolved timestamp is non-finite are skipped —
-``ServeEngine.run()`` drains with ``now=inf``, which is meaningful to
-the scheduler but not to a timeline. ``pid`` is the event category,
-``tid`` the track; both are stable small integers with ``M`` metadata
-records carrying the human names.
+Timestamps (``clock="semantic"``, the default): the exporter prefers the
+semantic clock ``t`` (the engine's virtual ``now``) and falls back to
+``mono`` when ``t`` is None (train spans). Events whose resolved
+timestamp is non-finite are skipped — ``ServeEngine.run()`` drains with
+``now=inf``, which is meaningful to the scheduler but not to a timeline.
+``clock="wall"`` places every event at its ``wall_ns`` instead, the Unix
+clock ``torch.profiler`` stamps its host and device events with, so the
+export and a profiler trace of the same process share one timeline.
+``pid`` is the event category, ``tid`` the track; both are stable small
+integers with ``M`` metadata records carrying the human names.
 """
 
 from __future__ import annotations
 
 import json
 import math
-from contextlib import contextmanager
+import sys
+import time
 from typing import Iterable
 
 from distributed_tensorflow_guide_tpu_torch.obs.events import ObsEvent
 
+#: the module whose flag says a torch profiler is running; read through
+#: ``sys.modules`` so that this package imports no torch
+_PROFILER_MODULE = "torch.autograd.profiler"
 
-@contextmanager
-def span(rec, name: str, *, track: str = "main", cat: str = "train",
-         actor: str = ""):
-    """Emit ``span.begin``/``span.end`` around a block. Payload carries
-    the (name, track) pair the exporter turns into a B/E lane."""
-    if not rec.enabled:
-        yield
-        return
-    rec.emit("span.begin", cat=cat, actor=actor,
-             payload={"name": name, "track": track})
-    try:
-        yield
-    finally:
-        rec.emit("span.end", cat=cat, actor=actor,
-                 payload={"name": name, "track": track})
+
+def _profiler_running() -> bool:
+    """True while a ``torch.profiler`` (or autograd) profile is running
+    in this process."""
+    prof = sys.modules.get(_PROFILER_MODULE)
+    return prof is not None and prof._is_profiler_enabled
+
+
+class PhaseStats:
+    """Host seconds and calls per span name, summed; owned by the caller
+    that passes it to :class:`span` (``ServeEngine.tick_phases``)."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def snapshot(self) -> dict:
+        """``{"seconds": {...}, "counts": {...}}``, copies: the difference
+        of two snapshots is what a window spent."""
+        return {"seconds": dict(self.seconds), "counts": dict(self.counts)}
+
+
+class span:
+    """A named block, as a context manager.
+
+    ``rec``: a flight recorder (or None); when it is enabled the block is
+    a ``span.begin`` / ``span.end`` pair whose payload carries (name,
+    track), the begin event ``args`` besides. ``stats``: a
+    :class:`PhaseStats` that gets the block's ``perf_counter`` seconds.
+    While a profiler runs the block is also a ``record_function`` range
+    of the same name, opened after the begin event and closed before the
+    end event, so the events' ``wall_ns`` bracket the range."""
+
+    __slots__ = ("rec", "name", "track", "cat", "actor", "args", "stats",
+                 "_range", "_t0")
+
+    def __init__(self, rec, name: str, *, track: str = "main",
+                 cat: str = "train", actor: str = "",
+                 args: dict | None = None, stats: PhaseStats | None = None):
+        self.rec, self.name, self.stats = rec, name, stats
+        self.track, self.cat, self.actor, self.args = track, cat, actor, args
+        self._range = None
+
+    def __enter__(self):
+        if self.stats is not None:
+            self._t0 = time.perf_counter()
+        rec = self.rec
+        if rec is not None and rec.enabled:
+            payload = {"name": self.name, "track": self.track}
+            if self.args:
+                payload.update(self.args)
+            rec.emit("span.begin", cat=self.cat, actor=self.actor,
+                     payload=payload)
+        if _profiler_running():
+            self._range = sys.modules[_PROFILER_MODULE].record_function(
+                self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        rec = self.rec
+        if rec is not None and rec.enabled:
+            rec.emit("span.end", cat=self.cat, actor=self.actor,
+                     payload={"name": self.name, "track": self.track})
+        if self.stats is not None:
+            self.stats.add(self.name, time.perf_counter() - self._t0)
+        return False
 
 
 def _fields(e) -> tuple[str, str, str, float | None, float, dict]:
@@ -67,6 +141,13 @@ def _ts(t: float | None, mono: float) -> float | None:
     if base is None or not math.isfinite(base):
         return None
     return base * 1e6
+
+
+def _wall_us(e) -> float | None:
+    """Microsecond Unix timestamp of an event (``wall_ns``); None = an
+    event recorded without one."""
+    ns = e.get("wall_ns") if isinstance(e, dict) else e.wall_ns
+    return None if ns is None else ns / 1e3
 
 
 class _Ids:
@@ -95,15 +176,27 @@ class _Ids:
         return self.tids[key]
 
 
-def to_chrome_trace(events: Iterable) -> dict:
-    """Events (ObsEvent objects or dump dicts) -> Chrome trace JSON."""
+def to_chrome_trace(events: Iterable, clock: str = "semantic") -> dict:
+    """Events (ObsEvent objects or dump dicts) -> Chrome trace JSON.
+
+    ``clock``: ``"semantic"`` (``t``, else ``mono``) or ``"wall"``
+    (``wall_ns``, skipping events without it). A launch event is emitted
+    as its launch ends, so on the wall clock its bar starts ``dur_s``
+    before the event; on the semantic clock it starts at the tick's
+    ``now``."""
+    if clock not in ("semantic", "wall"):
+        raise ValueError(f"clock must be 'semantic' or 'wall', got "
+                         f"{clock!r}")
+    wall = clock == "wall"
     ids = _Ids()
     out: list[dict] = []
     for e in events:
         kind, cat, actor, t, mono, payload = _fields(e)
-        ts = _ts(t, mono)
+        ts = _wall_us(e) if wall else _ts(t, mono)
         if ts is None:
             continue
+        if wall and kind in ("prefill.launch", "decode.launch"):
+            ts -= max(payload.get("dur_s", 0.0), 0.0) * 1e6
         pid = ids.pid(cat)
         if kind in ("span.begin", "span.end"):
             tid = ids.tid(pid, str(payload.get("track", "main")))
@@ -189,5 +282,6 @@ def events_from_dump(path: str) -> list[ObsEvent]:
     return [ObsEvent(seq=d.get("seq", i), t=d.get("t"),
                      mono=d.get("mono", 0.0), kind=d["kind"],
                      cat=d.get("cat", "misc"), actor=d.get("actor", ""),
-                     payload=d.get("payload", {}))
+                     payload=d.get("payload", {}),
+                     wall_ns=d.get("wall_ns"))
             for i, d in enumerate(data.get("events", []))]

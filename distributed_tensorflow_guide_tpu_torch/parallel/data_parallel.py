@@ -57,6 +57,7 @@ from distributed_tensorflow_guide_tpu_torch.core.mesh import (
     Mesh,
     single_device_mesh,
 )
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import span
 from distributed_tensorflow_guide_tpu_torch.parallel import overlap as ov
 from distributed_tensorflow_guide_tpu_torch.parallel.grad_accum import (
     LossFn,
@@ -232,8 +233,9 @@ class DataParallel:
                 loss = losses.mean()
                 mets = {k: v.mean() for k, v in metas.items()}
             if not self.overlap:
-                grads = cc.pmean(self.complete_grads(grads), self.axis,
-                                 mesh=self.mesh)
+                with span(None, "grad_sync"):
+                    grads = cc.pmean(self.complete_grads(grads), self.axis,
+                                     mesh=self.mesh)
             state = state.apply_gradients(grads)
             return state, cc.pmean({"loss": loss, **mets}, self.axis,
                                    mesh=self.mesh)

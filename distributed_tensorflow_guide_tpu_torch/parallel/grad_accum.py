@@ -4,6 +4,9 @@
 ``models/transformer.make_lm_loss_fn`` builds it. Gradients are a dict
 ``{parameter name: tensor}``: the counterpart of the JAX package's
 gradient pytree, keyed like the module's state dict.
+
+While a profiler runs, the forward and the backward of each call are
+``forward`` and ``backward`` ranges (``obs/tracing.span``).
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import span
 
 LossFn = Callable[[torch.nn.Module, Any], tuple[torch.Tensor, dict]]
 
@@ -20,8 +25,10 @@ def value_and_grad(loss_fn: LossFn, module: torch.nn.Module, batch):
     over the parameters that require them. The graph is freed on
     return."""
     named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
-    loss, mets = loss_fn(module, batch)
-    grads = torch.autograd.grad(loss, [p for _, p in named])
+    with span(None, "forward"):
+        loss, mets = loss_fn(module, batch)
+    with span(None, "backward"):
+        grads = torch.autograd.grad(loss, [p for _, p in named])
     return ((loss.detach(), {k: v.detach() for k, v in mets.items()}),
             {n: g for (n, _), g in zip(named, grads)})
 

@@ -93,6 +93,17 @@ bitwise-safe.
   prefill chunk sums attention in another order than the decode step
   that first wrote those rows, and its bits would move later tokens.
 
+Where a tick's host time goes: each tick is a span (``obs/tracing.span``)
+in phases, whose seconds and counts ``tick_phases`` sums, always on, and
+which are ``record_function`` ranges while a profiler runs:
+``serve.tick`` all of :meth:`ServeEngine.step`; ``serve.schedule`` chaos,
+pressure, sweep, prefetch, admission, the plan and the launch identity;
+``serve.pack`` the step's host arrays; ``serve.launch`` the guarded
+launch (the inputs' copy into the graph's buffer and the replay's
+enqueue); ``serve.readback`` the host's wait for the launch's tokens;
+``serve.apply`` the results applied and the tick's events made.
+``last_tick_s`` spans pack to apply of a launching tick.
+
 The host side (:class:`~.scheduler.Scheduler`, the block pool, the
 prefix index) is the JAX package's, copied.
 """
@@ -134,6 +145,10 @@ from distributed_tensorflow_guide_tpu_torch.models.transformer import (
     moe_census_sum,
 )
 from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import (
+    PhaseStats,
+    span,
+)
 from distributed_tensorflow_guide_tpu_torch.serve.paged_cache import (
     BlockStore,
     table_row,
@@ -686,6 +701,7 @@ class ServeEngine:
         self._tick = 0
         self._ttft_ewma: float | None = None  # predicted-TTFT shed gate
         self.last_tick_s = 0.0
+        self.tick_phases = PhaseStats()  # host seconds per tick phase
         self._step_deadline_s = step_deadline_s
         self._watchdog = (Watchdog(name="serve-engine", recorder=self.rec)
                           if step_deadline_s else None)
@@ -803,35 +819,41 @@ class ServeEngine:
         (cancellations / deadlines), admit arrived requests, launch (at
         most) one step, apply its results. Returns (events, kind) with
         kind in {"prefill", "decode", "idle"}."""
+        with span(None, "serve.tick", stats=self.tick_phases):
+            return self._step(now)
+
+    def _step(self, now: float) -> tuple[list[Event], str]:
         tick = self._tick
         self._tick += 1
         rec = self.rec
-        if rec.enabled:
-            self.sched.now = now  # timestamps scheduler decisions
-        if self.chaos is not None:
+        with span(None, "serve.schedule", stats=self.tick_phases):
             if rec.enabled:
-                self.chaos.recorder = rec
-                self.chaos.obs_now = now
-            self._apply_chaos(tick, now)
-        self._release_pressure(tick)
-        events = [Event(now, *t) for t in self.sched.sweep(now)]
-        if self.store is not None:
-            # queued spilled continuations' h2d copies land now, ahead of
-            # the admission that resumes them
-            self.sched.prefetch()
-        self.sched.admit(now)
-        kind, arg = self.sched.plan()
-        launch = None
-        if rec.enabled and kind != "idle":
-            # capture launch identity BEFORE the step runs: apply_* frees
-            # a slot the moment its request completes
-            if kind == PREFILL:
-                s = self.sched.slots[arg]
-                launch = {"slot": arg, "rid": s.rid,
-                          "chunk": s.chunk_cursor}
-            else:
-                launch = {"slots": list(arg),
-                          "rids": [self.sched.slots[i].rid for i in arg]}
+                self.sched.now = now  # timestamps scheduler decisions
+            if self.chaos is not None:
+                if rec.enabled:
+                    self.chaos.recorder = rec
+                    self.chaos.obs_now = now
+                self._apply_chaos(tick, now)
+            self._release_pressure(tick)
+            events = [Event(now, *t) for t in self.sched.sweep(now)]
+            if self.store is not None:
+                # queued spilled continuations' h2d copies land now,
+                # ahead of the admission that resumes them
+                self.sched.prefetch()
+            self.sched.admit(now)
+            kind, arg = self.sched.plan()
+            launch = None
+            if rec.enabled and kind != "idle":
+                # capture launch identity BEFORE the step runs: apply_*
+                # frees a slot the moment its request completes
+                if kind == PREFILL:
+                    s = self.sched.slots[arg]
+                    launch = {"slot": arg, "rid": s.rid,
+                              "chunk": s.chunk_cursor}
+                else:
+                    launch = {"slots": list(arg),
+                              "rids": [self.sched.slots[i].rid
+                                       for i in arg]}
         t0 = time.perf_counter()
         if kind == PREFILL:
             events.extend(self._run_prefill(arg, now))
@@ -918,26 +940,32 @@ class ServeEngine:
             what=tag)
 
     def _run_prefill(self, i: int, now: float) -> list[Event]:
-        s = self.sched.slots[i]
-        CH = self.sched.prefill_chunk
-        start = s.chunk_cursor * CH
-        valid = min(CH, len(s.prompt) - start)
-        chunk = np.zeros((1, CH), np.int64)
-        chunk[0, :valid] = s.prompt[start:start + valid]
-        tables = table_row(s.blocks, self.fns.n_blk,
-                           self.sched.pool.trash_block)[None]
-        # the sample's key, folded on the host: greedy derives none
-        args = [self.model, self.pool, tables, [start], chunk, [valid]]
-        if self.fns.sampled:
-            args.append(fold_in(s.rng, start + valid))
-        if self.fns.lora:
-            args.append([s.adapter])
-        out = self._launch(lambda: self.fns.prefill(*args),
-                           tag="serve_prefill_chunk_step").tolist()
-        if self.fns.moe:
-            self._add_census(out[1:])
-        return [Event(now, *ev) for ev in
-                self.sched.apply_prefill(i, int(out[0]))]
+        phases = self.tick_phases
+        with span(None, "serve.pack", stats=phases):
+            s = self.sched.slots[i]
+            CH = self.sched.prefill_chunk
+            start = s.chunk_cursor * CH
+            valid = min(CH, len(s.prompt) - start)
+            chunk = np.zeros((1, CH), np.int64)
+            chunk[0, :valid] = s.prompt[start:start + valid]
+            tables = table_row(s.blocks, self.fns.n_blk,
+                               self.sched.pool.trash_block)[None]
+            # the sample's key, folded on the host: greedy derives none
+            args = [self.model, self.pool, tables, [start], chunk, [valid]]
+            if self.fns.sampled:
+                args.append(fold_in(s.rng, start + valid))
+            if self.fns.lora:
+                args.append([s.adapter])
+        with span(None, "serve.launch", stats=phases):
+            out = self._launch(lambda: self.fns.prefill(*args),
+                               tag="serve_prefill_chunk_step")
+        with span(None, "serve.readback", stats=phases):
+            out = out.tolist()
+        with span(None, "serve.apply", stats=phases):
+            if self.fns.moe:
+                self._add_census(out[1:])
+            return [Event(now, *ev) for ev in
+                    self.sched.apply_prefill(i, int(out[0]))]
 
     def _add_census(self, loads: list) -> None:
         """Fold one launch's (E,) load and (E,) overflow into the
@@ -947,45 +975,51 @@ class ServeEngine:
         self._moe_overflow += np.asarray(loads[n_e:], np.int64)
 
     def _run_decode(self, ready: list[int], now: float) -> list[Event]:
+        phases = self.tick_phases
         S, n_blk = self.num_slots, self.fns.n_blk
-        tables = np.tile(self._trash_row, (S, 1))
-        written = np.zeros((S,), np.int32)
-        last_tok = np.zeros((S,), np.int64)
-        keys = np.zeros((S, 2), np.int64)
-        adapter_ids = np.zeros((S,), np.int64)
-        for i in ready:
-            s = self.sched.slots[i]
-            tables[i] = table_row(s.blocks, n_blk,
-                                  self.sched.pool.trash_block)
-            written[i] = s.written
-            last_tok[i] = s.pending
-            keys[i] = s.rng
-            adapter_ids[i] = s.adapter
-        args = [self.model, self.pool, tables, written, last_tok]
-        if self.fns.sampled:
-            args.append(fold_in(keys, written.astype(np.int64) + 1))
-        if self.fns.lora:
-            args.append(adapter_ids)
-        nxt = self._launch(lambda: self.fns.decode(*args),
-                           tag="serve_decode_step").tolist()
-        overflowed = [False] * S
-        if self.fns.moe:
-            overflowed = nxt[S:2 * S]
-            self._add_census(nxt[2 * S:])
-        events = []
-        stalled = 0
-        for i in ready:
-            if overflowed[i]:
-                # degrade-to-overflow: the token skipped its expert in
-                # some layer; discard it and retry the same token next
-                # tick (pending and written untouched)
-                stalled += 1
-                continue
-            events.extend(Event(now, *ev) for ev in
-                          self.sched.apply_decode(i, int(nxt[i])))
-        if stalled:
-            self._moe_stall_slot_ticks += stalled
-            self._moe_stall_ticks += 1
+        with span(None, "serve.pack", stats=phases):
+            tables = np.tile(self._trash_row, (S, 1))
+            written = np.zeros((S,), np.int32)
+            last_tok = np.zeros((S,), np.int64)
+            keys = np.zeros((S, 2), np.int64)
+            adapter_ids = np.zeros((S,), np.int64)
+            for i in ready:
+                s = self.sched.slots[i]
+                tables[i] = table_row(s.blocks, n_blk,
+                                      self.sched.pool.trash_block)
+                written[i] = s.written
+                last_tok[i] = s.pending
+                keys[i] = s.rng
+                adapter_ids[i] = s.adapter
+            args = [self.model, self.pool, tables, written, last_tok]
+            if self.fns.sampled:
+                args.append(fold_in(keys, written.astype(np.int64) + 1))
+            if self.fns.lora:
+                args.append(adapter_ids)
+        with span(None, "serve.launch", stats=phases):
+            nxt = self._launch(lambda: self.fns.decode(*args),
+                               tag="serve_decode_step")
+        with span(None, "serve.readback", stats=phases):
+            nxt = nxt.tolist()
+        with span(None, "serve.apply", stats=phases):
+            overflowed = [False] * S
+            if self.fns.moe:
+                overflowed = nxt[S:2 * S]
+                self._add_census(nxt[2 * S:])
+            events = []
+            stalled = 0
+            for i in ready:
+                if overflowed[i]:
+                    # degrade-to-overflow: the token skipped its expert in
+                    # some layer; discard it and retry the same token next
+                    # tick (pending and written untouched)
+                    stalled += 1
+                    continue
+                events.extend(Event(now, *ev) for ev in
+                              self.sched.apply_decode(i, int(nxt[i])))
+            if stalled:
+                self._moe_stall_slot_ticks += stalled
+                self._moe_stall_ticks += 1
         return events
 
     # ---- chaos application (testing.chaos serve kinds) -------------------

@@ -5,9 +5,10 @@ until a hook requests a stop (``while not sess.should_stop():
 sess.run(train_op)`` in the reference). The loop stays off the device's
 path: PyTorch queues each step's work and returns, and metric values are
 0-d device tensors that block only when a hook reads them. Step calls and
-the host time between and inside them are counted in ``dispatch_stats``;
-with a flight recorder installed (``obs/events.py``) each data wait and
-each step call is a span.
+the host time between and inside them are counted in ``dispatch_stats``.
+Each data wait and each step call is a span (``obs/tracing.span``): a
+flight-recorder span where a recorder is installed (``obs/events.py``),
+and a profiler range while a profiler runs.
 
 ``steps_per_call=k > 1``: ``step_fn`` runs k optimizer steps a call
 (``DataParallel.make_train_step(steps_per_call=k, stacked_batch=True,
@@ -44,6 +45,7 @@ from distributed_tensorflow_guide_tpu_torch.core.device import (
     resolve_device,
 )
 from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import span
 from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
     to_device,
 )
@@ -184,12 +186,6 @@ class TrainLoop:
         for j in range(k):
             self._after_step({n: m[j] for n, m in metrics.items()})
 
-    def _span(self, kind: str, name: str) -> None:
-        payload = {"name": name, "track": "loop"}
-        if kind == "span.begin":
-            payload["step"] = self.step
-        self.rec.emit(kind, cat="train", actor="loop", payload=payload)
-
     def run(self) -> Any:
         """Run to completion; returns the final state. ``end`` hooks fire
         only on clean completion (a crashed step may have left the state
@@ -216,31 +212,25 @@ class TrainLoop:
                 while not self._stop:
                     if wd and self.data_deadline_s:
                         wd.arm("data iterator", self.data_deadline_s)
-                    if rec.enabled:
-                        self._span("span.begin", "data_wait")
                     try:
-                        batch = to_device(next(it), self.device)
+                        with span(rec, "data_wait", track="loop", actor="loop",
+                                  args={"step": self.step}):
+                            batch = to_device(next(it), self.device)
                     except StopIteration:
                         break
                     finally:
-                        if rec.enabled:
-                            self._span("span.end", "data_wait")
                         if wd:
                             wd.disarm()
                             wd.check()
                     if wd and self.step_deadline_s:
                         wd.arm("train step", self.step_deadline_s)
-                    if rec.enabled:
-                        self._span("span.begin", "dispatch")
-                    try:
+                    with span(rec, "dispatch", track="loop", actor="loop",
+                              args={"step": self.step}):
                         if self.steps_per_call > 1:
                             self._run_packed(batch)
                         else:
                             self._after_step(self._dispatch(self.step_fn,
                                                             batch))
-                    finally:
-                        if rec.enabled:
-                            self._span("span.end", "dispatch")
                     if wd:
                         wd.disarm()
                         wd.check()

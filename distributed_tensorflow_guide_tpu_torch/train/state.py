@@ -43,6 +43,8 @@ from collections.abc import Mapping
 
 import torch
 
+from distributed_tensorflow_guide_tpu_torch.obs.tracing import span
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -53,11 +55,13 @@ class TrainState:
     def apply_gradients(self, grads: Mapping[str, torch.Tensor]
                         ) -> "TrainState":
         """One optimizer step with ``grads`` ({parameter name: tensor},
-        as ``parallel/grad_accum.value_and_grad`` gives them)."""
-        for name, p in self.model.named_parameters():
-            if p.requires_grad:
-                p.grad = grads[name]
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        as ``parallel/grad_accum.value_and_grad`` gives them); an
+        ``optimizer`` range while a profiler runs."""
+        with span(None, "optimizer"):
+            for name, p in self.model.named_parameters():
+                if p.requires_grad:
+                    p.grad = grads[name]
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return self

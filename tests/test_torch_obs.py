@@ -15,6 +15,7 @@ d_model 16, float32).
 import dataclasses
 import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -33,6 +34,9 @@ from distributed_tensorflow_guide_tpu_torch.obs import events as obs_events
 from distributed_tensorflow_guide_tpu_torch.obs import metrics as obs_metrics
 from distributed_tensorflow_guide_tpu_torch.obs import recon as obs_recon
 from distributed_tensorflow_guide_tpu_torch.obs import tracing as obs_trace
+from distributed_tensorflow_guide_tpu_torch.parallel.data_parallel import (
+    DataParallel,
+)
 from distributed_tensorflow_guide_tpu_torch.serve.engine import (
     Request,
     ServeEngine,
@@ -54,6 +58,7 @@ from distributed_tensorflow_guide_tpu_torch.train.hooks import (
     TensorBoardHook,
 )
 from distributed_tensorflow_guide_tpu_torch.train.loop import TrainLoop
+from distributed_tensorflow_guide_tpu_torch.train.state import TrainState
 from distributed_tensorflow_guide_tpu_torch.utils.profiling import (
     DispatchStats,
 )
@@ -238,7 +243,9 @@ def test_chrome_exporter_schema():
 
 
 def _as_jax_events(events):
-    return [jevents.ObsEvent(**dataclasses.asdict(e)) for e in events]
+    """The port's events as the JAX package's, which have no ``wall_ns``."""
+    return [jevents.ObsEvent(**{k: v for k, v in dataclasses.asdict(e).items()
+                                if k != "wall_ns"}) for e in events]
 
 
 # ---- inertness: the recorder on or off is invisible ------------------------
@@ -262,6 +269,14 @@ def test_engine_bitwise_parity_recorder_on_off(model, kv):
     _engine(model, cfg=cfg, recorder=rec2).run()
     assert obs_events.signature(rec2.events()) == \
         obs_events.signature(rec.events())
+    # the profiler on too: its ranges change nothing the engine computes
+    rec3 = obs_events.FlightRecorder()
+    with _cpu_profile():
+        profiled = _engine(model, cfg=cfg, recorder=rec3)
+        profiled.run()
+    assert profiled.completions() == off.completions()
+    assert obs_events.signature(rec3.events()) == \
+        obs_events.signature(rec.events())
 
 
 def test_train_loop_bitwise_parity_and_spans():
@@ -280,6 +295,167 @@ def test_train_loop_bitwise_parity_and_spans():
     assert torch.equal(off, on)
     kinds = [e.kind for e in rec.events()]
     assert kinds.count("span.begin") == kinds.count("span.end") == 100
+    rec2 = obs_events.FlightRecorder(capacity=1 << 12)
+    with _cpu_profile() as prof:
+        profiled = TrainLoop(step, torch.ones(4), data(),
+                             hooks=[StopAtStepHook(50)], recorder=rec2,
+                             device="cpu").run()
+    assert torch.equal(off, profiled)
+    assert obs_events.signature(rec2.events()) == \
+        obs_events.signature(rec.events())
+    ranges = _ranges(prof, ("data_wait", "dispatch"))
+    assert len(ranges["data_wait"]) == len(ranges["dispatch"]) == 50
+
+
+# ---- phase spans: the tick's stats, profiler ranges, the wall clock ---------
+
+TICK_PHASES = ("serve.pack", "serve.launch", "serve.readback", "serve.apply")
+SERVE_RANGES = ("serve.tick", "serve.schedule") + TICK_PHASES
+STEP_RANGES = ("forward", "backward", "grad_sync", "optimizer")
+LOOP_RANGES = ("data_wait", "dispatch")
+
+
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _ranges(prof, names) -> dict:
+    """{name: [(start_ns, end_ns)]} of the profile's host ranges."""
+    out = {n: [] for n in names}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in out:
+            out[e.name()].append((e.start_ns(),
+                                  e.start_ns() + e.duration_ns()))
+    return out
+
+
+def _within(inner, outer) -> bool:
+    """Every range of ``inner`` lies inside one range of ``outer``."""
+    return all(any(a <= s and e <= b for a, b in outer) for s, e in inner)
+
+
+def _lm_loop(model_seed: int = 0, steps: int = 2):
+    """A tiny LM trained eagerly: ``DataParallel.make_train_step`` in a
+    ``TrainLoop`` over ``steps`` batches."""
+    m = ttf.Transformer(CFG).init_weights(model_seed)
+    state = TrainState(m, torch.optim.SGD(m.parameters(), lr=0.1))
+    step = DataParallel(device="cpu").make_train_step(
+        ttf.make_lm_loss_fn(m))
+    gen = torch.Generator().manual_seed(model_seed)
+    data = [{"tokens": torch.randint(0, CFG.vocab_size, (2, 16),
+                                     generator=gen)} for _ in range(steps)]
+    return TrainLoop(step, state, data, device="cpu")
+
+
+def test_tick_phases_count_ticks_and_sum_to_last_tick(model):
+    eng = _engine(model)
+    ticks, launched_s, now = 0, 0.0, 0.0
+    while eng.sched.has_queued or eng.sched.has_resident:
+        _, kind = eng.step(now)
+        now += 0.01
+        ticks += 1
+        if kind != "idle":
+            launched_s += eng.last_tick_s
+    ph = eng.tick_phases.snapshot()
+    launches = eng.steps["decode"] + eng.steps["prefill"]
+    assert eng.steps["decode"] and eng.steps["prefill"]
+    assert ph["counts"]["serve.tick"] == ph["counts"]["serve.schedule"] \
+        == ticks
+    assert all(ph["counts"][k] == launches for k in TICK_PHASES)
+    inner = sum(ph["seconds"][k] for k in TICK_PHASES)
+    assert inner <= launched_s
+    assert inner == pytest.approx(launched_s, rel=0.05)
+    assert ph["seconds"]["serve.tick"] >= (ph["seconds"]["serve.schedule"]
+                                           + launched_s)
+
+
+def test_profiler_ranges_exist_and_nest(model):
+    with _cpu_profile() as prof:
+        _drive(_engine(model))
+        _lm_loop().run()
+    r = _ranges(prof, SERVE_RANGES + STEP_RANGES + LOOP_RANGES)
+    assert all(r[n] for n in r), {n: len(v) for n, v in r.items()}
+    for n in ("serve.schedule",) + TICK_PHASES:
+        assert _within(r[n], r["serve.tick"]), n
+    for n in STEP_RANGES:
+        assert _within(r[n], r["dispatch"]), n
+    assert len(r["dispatch"]) == 2 and len(r["data_wait"]) == 3
+    assert not any(a < e and s < b for s, e in r["data_wait"]
+                   for a, b in r["dispatch"])
+    # the phases of one tick follow one another
+    for a, b in zip(TICK_PHASES, TICK_PHASES[1:]):
+        assert all(ea <= sb for (_, ea), (sb, _) in zip(r[a], r[b])), (a, b)
+
+
+def test_no_record_function_with_the_profiler_off(model, monkeypatch):
+    ours = set(SERVE_RANGES + STEP_RANGES + LOOP_RANGES)
+    entered = []
+    real = torch.autograd.profiler.record_function
+
+    def counting(name, *args):
+        entered.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting)
+    _drive(_engine(model))
+    _lm_loop().run()
+    assert not ours & set(entered)
+    with _cpu_profile():
+        _drive(_engine(model))
+        _lm_loop().run()
+    assert ours <= set(entered)
+
+
+def test_recorder_span_wall_clock_brackets_the_profiler_range():
+    rec = obs_events.FlightRecorder()
+    stats = obs_trace.PhaseStats()
+    with _cpu_profile() as prof:
+        with obs_trace.span(rec, "bracketed", track="t", stats=stats,
+                            args={"step": 3}):
+            time.sleep(0.002)
+    ((start, end),) = _ranges(prof, ("bracketed",))["bracketed"]
+    begin, finish = rec.events()
+    assert begin.wall_ns <= start < end <= finish.wall_ns
+    assert begin.payload == {"name": "bracketed", "track": "t", "step": 3}
+    assert finish.payload == {"name": "bracketed", "track": "t"}
+    assert stats.counts == {"bracketed": 1}
+    assert stats.seconds["bracketed"] >= 0.002
+
+
+def test_chrome_trace_on_the_wall_clock(tmp_path):
+    rec = obs_events.FlightRecorder()
+    with obs_trace.span(rec, "s", track="loop"):
+        pass
+    rec.emit("decode.launch", cat="serve",
+             payload={"slots": [0], "rids": [7], "tick": 0, "dur_s": 0.002},
+             t=float("inf"))
+    evs = rec.events()
+    trace = obs_trace.to_chrome_trace(evs, clock="wall")
+    real = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+    b, e_, x = real
+    assert (b["ph"], e_["ph"], x["ph"]) == ("B", "E", "X")
+    assert b["ts"] == evs[0].wall_ns / 1e3
+    assert e_["ts"] == evs[1].wall_ns / 1e3
+    # a launch event is emitted as its launch ends: its bar starts dur_s
+    # earlier; the semantic clock skips it (t is not finite)
+    assert x["ts"] == pytest.approx(evs[2].wall_ns / 1e3 - 2000.0)
+    assert x["dur"] == pytest.approx(2000.0)
+    assert len([e for e in obs_trace.to_chrome_trace(evs)["traceEvents"]
+                if e["ph"] != "M"]) == 2
+    # a dump keeps wall_ns; an event recorded without it is skipped
+    dump = tmp_path / "d.json"
+    rec.dump(dump)
+    back = obs_trace.events_from_dump(str(dump))
+    assert [e.wall_ns for e in back] == [e.wall_ns for e in evs]
+    assert obs_trace.to_chrome_trace(back, clock="wall") == trace
+    old = [{k: v for k, v in e.to_dict().items() if k != "wall_ns"}
+           for e in evs]
+    assert not [e for e in obs_trace.to_chrome_trace(
+        old, clock="wall")["traceEvents"] if e["ph"] != "M"]
+    with pytest.raises(ValueError, match="clock"):
+        obs_trace.to_chrome_trace(evs, clock="mono")
 
 
 # ---- the hooks and the event files ------------------------------------------
